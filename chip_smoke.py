@@ -1,24 +1,43 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one GPU, at chromosome scale.
+"""Smoke test of the PyTorch/CUDA port on one GPU, at full scale.
 
     python3 chip_smoke.py [--seed 0]
 
-Drives ``repro_torch`` through its public entry points on a synthetic
-genome the size of GRCh38 chr21 (46,709,983 bases, FASTA with 60-base
-lines, ~1% of bases in N runs), split into 8 logical shards:
+Drives both slices of ``repro_torch`` through their public entry points.
 
-1. build the CUDA segment-sum kernel from ``src/repro_torch/csrc``;
-2. hold the kernel against its plain PyTorch version on the card, at the
-   shapes the k-mer path gives it (combiner and merge) and on edge cases,
-   and time kernel, plain version and ``index_add_`` with CUDA events;
+Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
+chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
+runs), split into 8 logical shards:
+
+1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
+   ``nvcc`` each, started together);
+2. hold the segment-sum kernel against its plain PyTorch version on the
+   card, at the shapes the k-mer path gives it (combiner and merge) and on
+   edge cases, and time kernel, plain version and ``index_add_`` with
+   CUDA events;
 3. GC count (the paper's Listing 1: ``grep-chars GC`` -> ``awk-sum``)
    against an exact numpy count;
 4. k-mer statistics (``kmer-stats`` k=12 -> ``reduce_by_key`` sum) against
-   a numpy ``bincount``, with the kernel's launch counter read around it;
-5. the card's name and power limit.
+   a numpy ``bincount``, with the kernel's launch counter read around it.
+
+Slice 2, LM serving at the full width of Llama-3.2-1B (16 layers,
+d_model 2048, 32/8 heads, vocab 128256, bf16, random weights from the
+seed):
+
+5. hold the flash-attention and RMSNorm kernels against their plain
+   versions on the card, at the prefill's shapes and on edge cases, and
+   time kernel, plain version and one library call
+   (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events;
+6. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
+   greedy tokens) with every launch counter read around it: one flash
+   launch per layer;
+7. the same prefill with plain attention, and teacher-forced decode
+   against the forward pass, within stated bf16 tolerances;
+8. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
+   on the prefill's and a decode step's hidden-state shapes.
 
 Every phase prints its wall time; the first failure exits non-zero.  The
-last lines are a JSON object describing the kernel, the ``nvidia-smi``
+last lines are a JSON object describing the kernels, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
 without the repository's ``src/`` beside it) the script exits non-zero
 and prints no result.
@@ -46,6 +65,11 @@ NUM_SHARDS = 8
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 REPLACES = "src/repro/kernels/segment_reduce/kernel.py:105"
 SOURCE = "src/repro_torch/csrc/segment_sum.cu"
+# H100 SXM dense bf16 tensor-core and float32 CUDA-core peaks (data sheet)
+BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12
+ARCH = "llama3.2-1b"
+BATCH, PROMPT, GEN = 4, 2048, 32
 
 
 def phase(name: str, t0: float, extra: str = "") -> None:
@@ -276,37 +300,22 @@ def kernel_phase(ds, cap2: int):
 
 
 # ---------------------------------------------------------------------------
-# main
+# slice 1: the paper's pipeline at chr21 scale
 # ---------------------------------------------------------------------------
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-
+def kmer_slice(seed: int) -> dict:
+    """GC count and k-mer statistics on a chr21-sized genome; returns the
+    segment-sum kernel's JSON record."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
     from repro_torch.core import MaRe, TextFile
     from repro_torch.core.shuffle import keyed_bucket_capacity
     from repro_torch.io import fasta_source
     from repro_torch.kernels.segment_reduce import kernel as kmod
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    name = torch.cuda.get_device_name(0)
-    print(f"device: {name}, torch {torch.__version__}, cuda "
-          f"{torch.version.cuda}", flush=True)
-
-    t0 = time.perf_counter()
-    lib = kmod.build(verbose=True)
-    phase("build kernel", t0, f"nvcc_s={kmod.BUILD_SECONDS:.3f} lib={lib}")
-
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         t0 = time.perf_counter()
-        seq = make_genome(CHR21_BASES, args.seed)
+        seq = make_genome(CHR21_BASES, seed)
         fasta = os.path.join(tmp, "chr21.fa")
         write_fasta(fasta, seq)
         phase("write genome", t0, f"bases={len(seq)} "
@@ -386,17 +395,414 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    return record
+
+
+# ---------------------------------------------------------------------------
+# slice 2: Llama-3.2-1B serving at full width
+# ---------------------------------------------------------------------------
+
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:86"
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+RMS_REPLACES = "src/repro/kernels/rmsnorm/kernel.py:27"
+RMS_SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
+# kernel vs plain version taken in f32: bf16 output rounds once to 8
+# mantissa bits (2e-2 for |out| < 4, as the reference's kernel tests);
+# f32 differs in summation order only
+FLASH_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 2e-5}
+RMS_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-6}
+# Logits of two bf16 paths through 16 layers differ by bf16 roundings at
+# other places (each path rounds its attention output, the decode path
+# its one-row products): at 16 layers of this width on the CPU (seq 256,
+# vocab 8192) the largest difference was 1.9-2.4% of the largest |logit|,
+# for plain vs kernel-order attention and for decode vs forward.  Allow
+# 10%.  A wrong mask or head mapping moves logits by their spread, which
+# is 15-20% of the largest.
+LOGIT_TOL_FRAC = 0.1
+TEACHER_FORCED = 4
+
+
+def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask keeps, per head."""
+    qpos = np.arange(sq) + (sk - sq)
+    masked = causal or window is not None
+    hi = np.minimum(qpos + 1, sk) if masked else np.full(sq, sk)
+    lo = (np.maximum(qpos - window + 1, 0) if window is not None
+          else np.zeros(sq, np.int64))
+    return int(np.clip(hi - lo, 0, None).sum())
+
+
+def flash_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize):
+    """Least time for attention on these inputs: q.k and p.v over the
+    pairs the mask keeps (4 * d operations a pair) at the tensor cores'
+    peak for the inputs' type, against q, k, v read once and o written
+    once over HBM bandwidth."""
+    ops = 4 * d * b * hq * flash_pairs(sq, sk, causal, window)
+    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
+    t_ops = ops / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rms_bound(rows: int, d: int, itemsize: int):
+    """x read once, w read once, out written once over HBM bandwidth; the
+    ~4 operations per element take far less at any peak rate."""
+    nbytes = itemsize * (2 * rows * d + d)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 4 * rows * d / F32_FLOP_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_kernel_phase(dev) -> dict:
+    """Flash kernel vs its plain version at the prefill shape and on edge
+    cases; times kernel, plain version and SDPA at the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, b, hq, hkv, sq, sk, d, dtype, causal, window
+        ("prefill", BATCH, 32, 8, PROMPT, PROMPT, 64, bf16, True, None),
+        ("prefill f32", BATCH, 32, 8, PROMPT, PROMPT, 64, f32, True, None),
+        ("right-aligned Sq<Sk", 2, 32, 8, 96, PROMPT, 64, bf16, True, None),
+        ("window 256", 1, 32, 8, 1024, 1024, 64, bf16, True, 256),
+        ("unaligned Sq, Sk", 1, 12, 4, 1000, 1037, 64, bf16, True, None),
+        ("Hq == Hkv", 2, 8, 8, 300, 300, 64, bf16, True, None),
+        ("not causal d=128", 2, 8, 2, 200, 333, 128, bf16, False, None),
+        ("rows without keys", 1, 8, 2, 300, 100, 64, bf16, True, None),
+    ]
+    g = torch.Generator(device=dev).manual_seed(21)
+    errs = {}
+    prefill_inputs = None
+    for name, b, hq, hkv, sq, sk, d, dt, causal, window in cases:
+        t0 = time.perf_counter()
+        q = torch.randn((b, hq, sq, d), device=dev, generator=g).to(dt)
+        k = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
+        v = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
+        before = fmod.LAUNCHES
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if fmod.LAUNCHES - before != 1:
+            raise AssertionError(f"flash {name}: "
+                                 f"{fmod.LAUNCHES - before} launches")
+        want = flash_attention_plain(
+            q.float().reshape(b * hq, sq, d),
+            k.float().reshape(b * hkv, sk, d),
+            v.float().reshape(b * hkv, sk, d), hq // hkv, causal=causal,
+            window=window).reshape(b, hq, sq, d)
+        err = float((got.float() - want).abs().max())
+        tol = FLASH_TOL[str(dt)]
+        if got.dtype != dt or not err < tol:
+            raise AssertionError(f"flash {name}: {got.dtype}, max abs err "
+                                 f"{err} vs tolerance {tol}")
+        empty = sq - sk if causal and sq > sk else 0
+        if empty and not bool((got[:, :, :empty] == 0).all()):
+            raise AssertionError(f"flash {name}: a row without keys is "
+                                 f"not 0")
+        errs[name] = err
+        phase(f"flash check {name}", t0,
+              f"q={tuple(q.shape)} kv={tuple(k.shape)} {dt} causal={causal}"
+              f" window={window} max_abs_err={err} tol={tol}"
+              f" rows_without_keys={empty * b * hq}")
+        if name == "prefill":
+            prefill_inputs = (q, k, v)
+        del q, k, v, got, want
+    t0 = time.perf_counter()
+    q, k, v = prefill_inputs
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    q3, k3, v3 = (t.reshape(-1, t.shape[2], d) for t in (q, k, v))
+    ms = cuda_ms(lambda: fmod.flash_attention_kernel(q3, k3, v3,
+                                                     group=hq // hkv))
+    plain = cuda_ms(lambda: flash_attention_plain(q3, k3, v3, hq // hkv),
+                    reps=5, warmup=1)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    bnd, by = flash_bound(b, hq, hkv, sq, sk, d, True, None, 2)
+    phase("flash timing prefill", t0,
+          f"q={tuple(q.shape)} kv={tuple(k.shape)} bf16 causal "
+          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
+          f"bound_ms={bnd:.4f} ({by}) pairs_per_head="
+          f"{flash_pairs(sq, sk, True, None)}")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
+            "launches": None, "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
+def rms_kernel_phase(dev, d_model: int) -> dict:
+    """RMSNorm kernel vs its plain version at the prefill's and a decode
+    step's rows and on edge cases; times kernel, plain version and
+    ``F.rms_norm`` at the prefill rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import kernel as rmod
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = BATCH * PROMPT
+    cases = [("prefill rows", rows, d_model, bf16),
+             ("decode rows", BATCH, d_model, bf16),
+             ("prefill rows f32", rows, d_model, f32),
+             ("d=2050 (no 16-byte path)", 64, d_model + 2, bf16),
+             ("d=100", 33, 100, bf16),
+             ("d=1000 f32", 7, 1000, f32)]
+    g = torch.Generator(device=dev).manual_seed(22)
+    errs = {}
+    for name, r, d, dt in cases:
+        t0 = time.perf_counter()
+        x = torch.randn((r, d), device=dev, generator=g).to(dt)
+        # norm scales near 1, as a model's: |out| < 8
+        w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
+        before = rmod.LAUNCHES
+        got = rmod.rmsnorm_kernel(x, w, 1e-6)
+        torch.cuda.synchronize()
+        if rmod.LAUNCHES - before != 1:
+            raise AssertionError(f"rmsnorm {name}: "
+                                 f"{rmod.LAUNCHES - before} launches")
+        want = rmsnorm_ref(x.float(), w.float(), 1e-6)
+        err_t = (got.float() - want).abs()
+        tol = RMS_TOL[str(dt)]
+        # f32: 1e-6 abs plus 1e-6 relative (rsqrtf and the warp's
+        # summation order each move the statistic by ~1 ulp)
+        rtol = 1e-6 if dt == f32 else 0.0
+        ok = bool((err_t <= tol + rtol * want.abs()).all())
+        err = float(err_t.max())
+        if got.dtype != dt or not ok:
+            raise AssertionError(f"rmsnorm {name}: max abs err {err} vs "
+                                 f"tolerance {tol} + {rtol} rel")
+        errs[name] = err
+        phase(f"rmsnorm check {name}", t0,
+              f"x={tuple(x.shape)} {dt} max_abs_err={err} tol={tol}"
+              f" rtol={rtol}")
+    t0 = time.perf_counter()
+    x = torch.randn((rows, d_model), device=dev, generator=g).to(bf16)
+    w = (1 + 0.1 * torch.randn(d_model, device=dev, generator=g)).to(bf16)
+    ms = cuda_ms(lambda: rmod.rmsnorm_kernel(x, w, 1e-6))
+    plain = cuda_ms(lambda: rmsnorm_ref(x, w, 1e-6))
+    lib = cuda_ms(lambda: F.rms_norm(x, (d_model,), w, 1e-6))
+    xd = x[:BATCH].contiguous()
+    ms_dec = cuda_ms(lambda: rmod.rmsnorm_kernel(xd, w, 1e-6))
+    bnd, by = rms_bound(rows, d_model, 2)
+    phase("rmsnorm timing prefill rows", t0,
+          f"x={tuple(x.shape)} bf16 kernel_ms={ms:.4f} plain_ms={plain:.4f}"
+          f" rms_norm_ms={lib:.4f} bound_ms={bnd:.4f} ({by}) "
+          f"decode_rows_kernel_ms={ms_dec:.4f}")
+    return {"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
+            "replaces": RMS_REPLACES, "launches": None,
+            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a - b| in f32, one batch row at a time (logits are GBs)."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
+def max_abs(a) -> float:
+    return max(float(x.float().abs().max()) for x in a)
+
+
+def lm_slice(seed: int) -> list:
+    """Kernel checks, then the serving path at Llama-3.2-1B's full width;
+    returns the flash and RMSNorm kernels' JSON records."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.rmsnorm import kernel as rmod
+    from repro_torch.kernels.segment_reduce import kernel as kmod
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import apply_rmsnorm, embed_tokens
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    flash_rec = flash_kernel_phase(dev)
+    rms_rec = rms_kernel_phase(dev, cfg.d_model)
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry, every launch counter read around it
+    argv = ["--model-smoke", "--arch", ARCH, "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(seed), "--device", "cuda"]
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for mod in (kmod, fmod, rmod):
+        mod.reset_launches()
+    run = serve.model_smoke(args)
+    launches = {"segment_sum": kmod.LAUNCHES,
+                "flash_attention": fmod.LAUNCHES, "rmsnorm": rmod.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in serve.report_lines(args, run):
+        print(line, flush=True)
+    phase("serve --model-smoke", t0,
+          f"arch={ARCH} layers={cfg.num_layers} params="
+          f"{sum(p.numel() for p in run.params.parameters())} "
+          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
+          f"prefill_ms={run.prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
+          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"prefill made {launches['flash_attention']} "
+                             f"flash launches, expected one per layer "
+                             f"({cfg.num_layers})")
+    if launches["rmsnorm"] or launches["segment_sum"]:
+        raise AssertionError(f"unexpected launches on the serving path: "
+                             f"{launches}")
+    logits = run.logits
+    if logits.shape != (BATCH, PROMPT, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("prefill logits are not finite of shape "
+                             f"{(BATCH, PROMPT, cfg.vocab_size)}")
+    if run.generated.shape != (BATCH, GEN) or \
+            not ((run.generated >= 0) & (run.generated < cfg.vocab_size)
+                 ).all():
+        raise AssertionError(f"generated tokens {run.generated.shape}")
+    flash_rec["launches"] = launches["flash_attention"]
+
+    # warm repeat of the same prefill and of a few decode steps
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, cache = run.model.prefill(run.params, {"tokens": run.prompt},
+                                     PROMPT + GEN)
+        torch.cuda.synchronize()
+        warm_prefill = time.perf_counter() - t1
+        tok = torch.from_numpy(run.generated[:, 0]).to(dev)
+        t1 = time.perf_counter()
+        for i in range(8):
+            _, cache = run.model.decode_step(run.params, cache, tok)
+        torch.cuda.synchronize()
+        warm_decode = (time.perf_counter() - t1) / 8
+        del cache
+    phase("serve warm repeat", t0,
+          f"prefill_ms={warm_prefill * 1e3:.3f} "
+          f"decode_ms_per_token={warm_decode * 1e3:.3f}")
+
+    # the same prefill through plain attention, same weights
+    t0 = time.perf_counter()
+    plain_model = build_model(cfg.scaled(attn_impl="ref"), device=dev)
+    with torch.no_grad():
+        plain_logits, _ = plain_model.prefill(
+            run.params, {"tokens": run.prompt}, PROMPT)
+    diff = max_abs_diff(logits, plain_logits)
+    scale = max_abs(plain_logits)
+    del plain_logits
+    if not diff <= LOGIT_TOL_FRAC * scale:
+        raise AssertionError(f"kernel-path logits differ from the plain "
+                             f"path by {diff} (> {LOGIT_TOL_FRAC} x "
+                             f"{scale})")
+    phase("prefill kernel vs plain attention", t0,
+          f"max_abs_diff={diff} max_abs_logit={scale} "
+          f"tol={LOGIT_TOL_FRAC * scale}")
+
+    # teacher-forced decode equals the forward pass on the same tokens
+    t0 = time.perf_counter()
+    forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(dev)
+    toks = torch.cat([run.prompt, forced], dim=1)
+    with torch.no_grad():
+        full = run.model.forward(run.params, {"tokens": toks})
+        lg, cache = run.model.prefill(
+            run.params, {"tokens": toks[:, :PROMPT]},
+            PROMPT + TEACHER_FORCED)
+        errs = [max_abs_diff(full[:, :PROMPT], lg)]
+        del lg
+        for t in range(TEACHER_FORCED):
+            lg, cache = run.model.decode_step(run.params, cache,
+                                              toks[:, PROMPT + t])
+            errs.append(float((full[:, PROMPT + t].float()
+                               - lg.float()).abs().max()))
+    scale = max_abs(full)
+    del full, cache
+    if not max(errs) <= LOGIT_TOL_FRAC * scale:
+        raise AssertionError(f"teacher-forced decode differs from forward: "
+                             f"{errs} (> {LOGIT_TOL_FRAC} x {scale})")
+    phase("teacher-forced decode vs forward", t0,
+          f"max_abs_diff prefill/steps={errs} max_abs_logit={scale} "
+          f"tol={LOGIT_TOL_FRAC * scale}")
+
+    # RMSNorm's route: layers.apply_rmsnorm(use_kernel=True), on the
+    # serving path's hidden-state shapes (the model's own apply_norm
+    # keeps the plain version, as the reference does)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        x_pre = embed_tokens(run.params["embed"], run.prompt, cfg)
+        x_dec = embed_tokens(run.params["embed"], forced[:, :1], cfg)
+        norm = run.params["final_norm"]
+        rmod.reset_launches()
+        y_pre = apply_rmsnorm(norm, x_pre, cfg.norm_eps, use_kernel=True)
+        y_dec = apply_rmsnorm(norm, x_dec, cfg.norm_eps, use_kernel=True)
+        rms_launches = rmod.LAUNCHES
+        err = max(float((y.float() - apply_rmsnorm(
+            norm, x.float(), cfg.norm_eps).float()).abs().max())
+            for x, y in ((x_pre, y_pre), (x_dec, y_dec)))
+    if rms_launches != 2 or not err < RMS_TOL["torch.bfloat16"]:
+        raise AssertionError(f"apply_rmsnorm(use_kernel=True): "
+                             f"{rms_launches} launches, err {err}")
+    rms_rec["launches"] = rms_launches
+    rms_rec["serving_path_launches"] = launches["rmsnorm"]
+    rms_rec["path"] = ("models.layers.apply_rmsnorm(use_kernel=True) on "
+                       "the prefill's and a decode step's hidden states")
+    phase("apply_rmsnorm(use_kernel=True)", t0,
+          f"x={tuple(x_pre.shape)},{tuple(x_dec.shape)} launches="
+          f"{rms_launches} max_abs_err={err}")
+    return [flash_rec, rms_rec]
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.rmsnorm import kernel as rmod
+    from repro_torch.kernels.segment_reduce import kernel as kmod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name}, torch {torch.__version__}, cuda "
+          f"{torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    libs = build.build_all([kmod.LIBRARY, fmod.LIBRARY, rmod.LIBRARY],
+                           verbose=True)
+    phase("build kernels", t0, " ".join(
+        f"{lib.name}_nvcc_s={build.BUILD_SECONDS.get(lib.name, 0.0):.3f}"
+        for lib in (kmod.LIBRARY, fmod.LIBRARY, rmod.LIBRARY))
+        + f" libs={[str(p) for p in libs]}")
+
+    records = [kmer_slice(args.seed)]
+    torch.cuda.empty_cache()
+    records += lm_slice(args.seed)
+
     t0 = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     phase("nvidia-smi", t0)
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
+    # the script drives one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

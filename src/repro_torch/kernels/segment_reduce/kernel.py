@@ -7,10 +7,9 @@ table, plus per-key counts and an overflow count of valid out-of-range
 keys.  The source says what bounds it and why it scatters with atomics
 instead of the TPU's one-hot matmul.
 
-It is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into a shared library with a plain C
-interface, cached under ``build/repro_torch/`` at the repository root by
-a digest of source and flags, and loaded with ``ctypes``.
+It is compiled at first use by the port's shared build helper
+(:mod:`repro_torch.kernels.build`) into a shared library with a plain C
+interface and loaded with ``ctypes``.
 
 :func:`segment_sum` is the only entry point.  A tensor on the CPU takes
 the plain version (:func:`~repro_torch.kernels.segment_reduce.ref.
@@ -21,94 +20,26 @@ its path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
-import threading
-import time
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "segment_sum.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_int, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+LIBRARY = KernelLibrary("segment_sum", "segment_sum.cu",
+                        {"segment_sum_i32": _ARGS, "segment_sum_f32": _ARGS})
 
 #: Kernel launches since the last reset (a plain counter, read by tests
 #: and by chip_smoke.py to prove the main path ran through the kernel).
 LAUNCHES = 0
 
-_LIB: Optional[ctypes.CDLL] = None
-_LOCK = threading.Lock()
-#: Seconds the last build took (0.0 when the library came from the cache).
-BUILD_SECONDS = 0.0
-
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build "
-                           "the segment-sum kernel")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"segment_sum_{digest}.so"
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile the kernel library if this source has no cached build;
-    returns its path.  Writes to a temporary file and renames it, so
-    concurrent builders never load a half-written library."""
-    global BUILD_SECONDS
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_SECONDS = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
-
-
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    with _LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ("segment_sum_i32", "segment_sum_f32"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_int64, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
 
 
 _ENTRY = {torch.int32: "segment_sum_i32", torch.float32: "segment_sum_f32"}
@@ -159,7 +90,7 @@ def segment_sum(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
     overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
     if n == 0:
         return table, counts, overflow
-    lib = _lib()
+    lib = LIBRARY.load()
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 16
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -167,8 +98,6 @@ def segment_sum(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
             keys.data_ptr(), values.data_ptr(), valid.data_ptr(), n, d,
             num_keys, table.data_ptr(), counts.data_ptr(),
             overflow.data_ptr(), blocks, stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "
-                           f"{err}")
+    check_launch("segment_sum", err)
     LAUNCHES += 1
     return table, counts, overflow

@@ -1,0 +1,64 @@
+"""Unified model API: the reference's ``models/__init__.py`` on PyTorch.
+
+``build_model(cfg, device=)`` returns a :class:`Model` namespace with
+init / loss / forward / prefill / decode_step / init_cache, the surface
+the server and the tests use.  The port runs the dense family; the others
+raise :class:`NotImplementedError` naming the ROADMAP item that ports
+them.  Parameters live on ``device`` (``cuda`` unless the caller passes
+another; without a GPU, ``cuda`` raises).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Union
+
+import torch
+
+from repro_torch.core.dataset import DeviceLike, resolve_device
+from repro_torch.models import transformer
+from repro_torch.models.common import (ModelConfig, Params,
+                                       active_param_count, param_count,
+                                       param_count_analytic)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    init: Callable[..., Any]              # init(seed or Generator) -> LM
+    loss: Callable[..., Any]              # loss(params, batch) -> (l, m)
+    forward: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
+    transformer.require_dense(cfg)
+    dev = resolve_device(device)
+
+    def init(seed: Union[int, torch.Generator] = 0):
+        gen = seed if isinstance(seed, torch.Generator) else \
+            torch.Generator(device=dev).manual_seed(int(seed))
+        return transformer.init_lm(gen, cfg)
+
+    def fwd(p, b):
+        logits, _ = transformer.forward(p, b["tokens"], cfg)
+        return logits
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        loss=lambda p, b: transformer.lm_loss(p, b, cfg),
+        forward=fwd,
+        prefill=lambda p, b, max_len: transformer.prefill(
+            p, b["tokens"], cfg, max_len=max_len),
+        decode_step=lambda p, caches, tok: transformer.decode_step(
+            p, caches, tok, cfg),
+        init_cache=lambda batch, max_len: transformer.init_cache(
+            cfg, batch, max_len, device=dev))
+
+
+__all__ = ["Model", "ModelConfig", "Params", "build_model", "param_count",
+           "param_count_analytic", "active_param_count"]

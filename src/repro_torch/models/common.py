@@ -1,0 +1,154 @@
+"""Model configuration shared by all 10 assigned architectures, the
+parameter-tree node, and the truncated-normal initializer (the reference's
+``models/common.py`` on PyTorch)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                 # dense | moe | hybrid | ssm | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 1
+    window: Optional[int] = None          # sliding-window size (SWA layers)
+    global_layers: Tuple[int, ...] = ()   # full-attention layer ids (hymba)
+    # xLSTM
+    slstm_every: int = 0                  # 1 sLSTM per this many blocks
+    # enc-dec (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0                  # stub frontend output length
+    # vlm
+    num_patches: int = 0                  # stub vision tokens
+    # common
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    use_layernorm: bool = False           # whisper uses LN+bias
+    use_gelu: bool = False                # whisper MLP
+    dtype: str = "bfloat16"               # activation/param dtype
+    remat: bool = True
+    scan_layers: bool = True
+    attn_impl: str = "auto"               # ref | chunked | pallas | auto
+    attn_chunk: int = 512
+    ssm_chunk: int = 256
+    capacity_factor: float = 1.25
+    moe_mode: str = "weight_gather"   # weight_gather | token_gather
+    ssm_cp: bool = False              # context-parallel SSM (seq sharded)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def param_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this arch run long_500k?  (SSM / hybrid-with-window)."""
+        if self.family == "ssm":
+            return True
+        if self.family == "hybrid" and self.window is not None:
+            return True
+        return False
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def scaled(self, **overrides) -> "ModelConfig":
+        """Reduced config of the same family (per-arch smoke tests)."""
+        return dataclasses.replace(self, **overrides)
+
+
+class Params(nn.Module):
+    """A node of the parameter tree.  Children are read as ``p["name"]``,
+    like the reference's nested dicts, so the layer functions take either
+    a module or a plain dict of tensors.  Parameters are held without
+    gradients: the port serves, it does not train yet."""
+
+    def __init__(self, **children: Union[torch.Tensor, nn.Module]):
+        super().__init__()
+        for name, child in children.items():
+            if isinstance(child, nn.Module):
+                self.add_module(name, child)
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(child, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(int(p.numel()) for p in params.parameters())
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """6*N*D accounting: N = active params (MoE: top-k experts only)."""
+    total = param_count_analytic(cfg)
+    if not cfg.is_moe:
+        return total
+    expert_p = 3 * cfg.d_model * cfg.moe_d_ff
+    inactive = (cfg.num_experts - cfg.experts_per_token) * expert_p
+    return total - cfg.num_layers * inactive
+
+
+def param_count_analytic(cfg: ModelConfig) -> int:
+    """Closed-form parameter count (embedding + per-layer weights)."""
+    d, hd = cfg.d_model, cfg.hd
+    attn = d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd \
+        + cfg.num_heads * hd * d
+    if cfg.is_moe:
+        ffn = cfg.num_experts * 3 * d * cfg.moe_d_ff \
+            + d * cfg.num_experts          # router
+    elif cfg.family == "ssm":
+        ffn = 0
+        di = d * max(cfg.ssm_expand, 1)
+        # mLSTM blocks: qkv + gates + out
+        attn = 3 * d * di + 2 * d + di * d
+    else:
+        ffn = 3 * d * cfg.d_ff
+    per_layer = attn + ffn + 2 * d
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    enc = 0
+    if cfg.encoder_layers:
+        enc = cfg.encoder_layers * (4 * d * d + 2 * d * cfg.d_ff + 2 * d)
+        per_layer += 2 * d * d + d * cfg.num_kv_heads * hd * 2  # cross-attn
+    return embed + cfg.num_layers * per_layer + enc + d
+
+
+def trunc_normal(gen: torch.Generator, shape, dtype: torch.dtype,
+                 scale: float = 1.0) -> torch.Tensor:
+    """Standard normal truncated at +-2, times ``scale / sqrt(fan_in)``
+    (fan_in = product of all but the last dim), cast to ``dtype`` — the
+    reference's initializer.  Draws from ``gen`` on ``gen``'s device; the
+    numbers differ from ``jax.random``'s."""
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    if len(shape) >= 2:
+        fan_in = 1
+        for s in shape[:-1]:
+            fan_in *= s
+    std = scale / (fan_in ** 0.5)
+    out = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (out * std).to(dtype)

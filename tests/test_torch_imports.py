@@ -40,3 +40,6 @@ def test_walk_finds_the_port():
     rel = {os.path.relpath(p, PORT) for p in _files()}
     assert "kernels/segment_reduce/kernel.py" in rel
     assert "core/mare.py" in rel
+    assert "kernels/flash_attention/kernel.py" in rel
+    assert "models/transformer.py" in rel
+    assert "launch/serve.py" in rel

@@ -1,5 +1,6 @@
-"""On the card: the CUDA segment-sum kernel against its plain version,
-and the k-mer path on ``cuda`` against the same path on the CPU.
+"""On the card: each CUDA kernel (segment sum, flash attention, RMSNorm)
+against its plain version, the k-mer path on ``cuda`` against the same
+path on the CPU, and the LM prefill's flash launches.
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -12,6 +13,11 @@ import pytest
 import torch
 
 from repro_torch.core import MaRe, collect_shard, from_host
+from repro_torch.kernels.flash_attention import kernel as fmod
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.rmsnorm import kernel as rmod
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.segment_reduce import kernel as kmod
 from repro_torch.kernels.segment_reduce import (segment_reduce, segment_sum,
                                                 segment_sum_ref)
@@ -119,3 +125,114 @@ def test_kmer_path_on_cuda_equals_cpu(cuda):
         for x, y in zip((a[0], a[1][0], a[2]), (b[0], b[1][0], b[2])):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# flash attention and RMSNorm: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = {
+    # name: (b, hq, hkv, sq, sk, d, causal, window)
+    "gqa_causal": (2, 4, 2, 64, 64, 32, True, None),
+    "not_causal": (1, 8, 2, 40, 40, 64, False, None),
+    "window": (1, 4, 4, 96, 96, 32, True, 32),
+    "right_aligned": (1, 2, 1, 16, 128, 32, True, None),
+    "unaligned": (1, 3, 1, 33, 77, 16, True, None),
+    "d128": (2, 2, 2, 128, 128, 128, True, None),
+    "d96_window_long": (1, 4, 2, 300, 300, 96, True, 70),
+    "llama_layer_short": (1, 32, 8, 200, 200, 64, True, None),
+    "rows_without_keys": (1, 4, 2, 100, 37, 64, True, None),
+}
+# bf16 output rounds once to 8 mantissa bits (|o| < 4 here): 2e-2, as the
+# reference's kernel tests; f32 differs only in summation order: 2e-5
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernel_matches_plain_version(cuda, name, dtype):
+    b, hq, hkv, sq, sk, d, causal, window = FLASH_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, hq, sq, d), device=cuda, generator=g).to(dtype)
+    k = torch.randn((b, hkv, sk, d), device=cuda, generator=g).to(dtype)
+    v = torch.randn((b, hkv, sk, d), device=cuda, generator=g).to(dtype)
+    before = fmod.LAUNCHES
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fmod.LAUNCHES - before == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(
+        q.float().reshape(b * hq, sq, d), k.float().reshape(b * hkv, sk, d),
+        v.float().reshape(b * hkv, sk, d), hq // hkv, causal=causal,
+        window=window).reshape(b, hq, sq, d)
+    err = float((got.float() - want).abs().max())
+    assert err < FLASH_TOL[dtype], (name, dtype, err)
+    if sq > sk and causal:
+        # queries right-aligned past the keys see none: exactly 0
+        assert bool((got[:, :, :sq - sk] == 0).all())
+
+
+def test_flash_kernel_rejects_unsupported_head_dim(cuda):
+    q = torch.zeros((2, 8, 24), device=cuda)
+    with pytest.raises(ValueError):
+        fmod.flash_attention_kernel(q, q, q, group=1)
+
+
+RMS_SHAPES = [(8192, 2048), (4, 2048), (33, 100), (7, 1000), (1, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES, ids=str)
+def test_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(shape, device=cuda, generator=g).to(dtype)
+    # norm scales near 1, as a model's are: |out| stays under 8, so one
+    # bf16 rounding of the output is under 2e-2
+    w = (1 + 0.1 * torch.randn(shape[-1], device=cuda,
+                               generator=g)).to(dtype)
+    before = rmod.LAUNCHES
+    got = rmsnorm(x, w, eps=1e-6)
+    torch.cuda.synchronize()
+    assert rmod.LAUNCHES - before == 1
+    want = rmsnorm_ref(x.float(), w.float(), eps=1e-6)
+    if dtype == torch.float32:
+        # rsqrtf and the warp's summation order: within 1e-6 relative
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert float((got.float() - want).abs().max()) < 2e-2
+
+
+# ---------------------------------------------------------------------------
+# the LM prefill goes through the flash kernel, once per layer
+# ---------------------------------------------------------------------------
+
+def test_prefill_launches_flash_once_per_layer(cuda):
+    """Two layers of Llama-3.2-1B at full width (bf16): the prefill makes
+    one flash launch per layer and no RMSNorm launch (the model's norms
+    take the plain version, as the reference's do), and its logits agree
+    with the plain-attention path within 10% of the largest |logit|
+    (bf16 rounding at other places; see chip_smoke.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("llama3.2-1b").scaled(num_layers=2)
+    model = build_model(cfg, device=cuda)
+    params = model.init(5)
+    toks = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(5))
+    f0, r0 = fmod.LAUNCHES, rmod.LAUNCHES
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, 208)
+        torch.cuda.synchronize()
+        assert fmod.LAUNCHES - f0 == 2 and rmod.LAUNCHES == r0
+        assert logits.shape == (2, 200, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()) and cache.pos == 200
+        plain, _ = build_model(cfg.scaled(attn_impl="ref"),
+                               device=cuda).prefill(params,
+                                                    {"tokens": toks}, 200)
+        lg, cache = model.decode_step(params, cache, toks[:, -1])
+        assert fmod.LAUNCHES - f0 == 2          # decode: no kernel
+    diff = float((logits.float() - plain.float()).abs().max())
+    assert diff <= 0.1 * float(plain.float().abs().max()), diff
+    assert lg.shape == (2, cfg.vocab_size) and cache.pos == 201
