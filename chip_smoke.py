@@ -3,38 +3,64 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives both slices of ``repro_torch`` through their public entry points.
+Drives the four slices of ``repro_torch`` through their public entry
+points.  First it builds the five CUDA kernels from
+``src/repro_torch/csrc`` (one ``nvcc`` each, started together).
 
 Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
 chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
 runs), split into 8 logical shards:
 
-1. build the three CUDA kernels from ``src/repro_torch/csrc`` (one
-   ``nvcc`` each, started together);
-2. hold the segment-sum kernel against its plain PyTorch version on the
+1. hold the segment-sum kernel against its plain PyTorch version on the
    card, at the shapes the k-mer path gives it (combiner and merge) and on
    edge cases, and time kernel, plain version and ``index_add_`` with
    CUDA events;
-3. GC count (the paper's Listing 1: ``grep-chars GC`` -> ``awk-sum``)
+2. GC count (the paper's Listing 1: ``grep-chars GC`` -> ``awk-sum``)
    against an exact numpy count;
-4. k-mer statistics (``kmer-stats`` k=12 -> ``reduce_by_key`` sum) against
-   a numpy ``bincount``, with the kernel's launch counter read around it.
+3. k-mer statistics (``kmer-stats`` k=12 -> ``reduce_by_key`` sum) against
+   a numpy ``bincount``, with every launch counter read around it.
 
 Slice 2, LM serving at the full width of Llama-3.2-1B (16 layers,
 d_model 2048, 32/8 heads, vocab 128256, bf16, random weights from the
 seed):
 
-5. hold the flash-attention and RMSNorm kernels against their plain
+4. hold the flash-attention and RMSNorm kernels against their plain
    versions on the card, at the prefill's shapes and on edge cases, and
    time kernel, plain version and one library call
    (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events;
-6. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
+5. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
    greedy tokens) with every launch counter read around it: one flash
    launch per layer;
-7. the same prefill with plain attention, and teacher-forced decode
+6. the same prefill with plain attention, and teacher-forced decode
    against the forward pass, within stated bf16 tolerances;
-8. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
+7. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
    on the prefill's and a decode step's hidden-state shapes.
+
+Slice 3a, MoE serving at the full width of granite-moe-1b-a400m (24
+layers, d_model 1024, 16/8 heads, 32 experts top-8, expert d_ff 512,
+vocab 49155, bf16, random weights from the seed):
+
+8. hold the MoE-dispatch kernel against its plain version on the card,
+   bit for bit, at a prefill's and a decode step's shapes and on edge
+   cases, and time it beside ``torch.sort(stable=True)`` +
+   ``torch.bincount``;
+9. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
+   dispatch launch per layer in the prefill and in every decode step, one
+   flash launch per layer in the prefill;
+10. the same prefill with the dispatch's plain version: the same
+    positions and counts in every layer and the same logits; then
+    teacher-forced decode against the forward pass.
+
+Slice 3b, the paper's virtual-screening pipeline (Listing 2) over a
+library of 2,097,152 molecules x 16 float32 features in 8 logical shards:
+
+11. hold the top-k kernel against its plain version on the card, bit for
+    bit, at a shard's shape (262,144 scores, k = 30) and on edge cases,
+    and time it beside ``torch.topk``;
+12. ``map(tools/fred, rounds=8) -> reduce(toolbox/topk, k=30, depth=2) ->
+    collect()``: one top-k launch per ``toolbox/topk`` combine, the 30
+    molecules equal to an oracle's over the whole library, the records
+    equal to a plain top-k over the pipeline's own mapped scores.
 
 Every phase prints its wall time; the first failure exits non-zero.  The
 last lines are a JSON object describing the kernels, the ``nvidia-smi``
@@ -75,6 +101,40 @@ BATCH, PROMPT, GEN = 4, 2048, 32
 def phase(name: str, t0: float, extra: str = "") -> None:
     print(f"[phase] {name}: {time.perf_counter() - t0:.3f} s"
           + (f"  {extra}" if extra else ""), flush=True)
+
+
+def kernel_modules() -> dict:
+    """The port's kernel modules by kernel name; each keeps a ``LAUNCHES``
+    counter that its wrapper raises by one per kernel launch."""
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.moe_dispatch import kernel as dmod
+    from repro_torch.kernels.rmsnorm import kernel as rmod
+    from repro_torch.kernels.segment_reduce import kernel as kmod
+    from repro_torch.kernels.topk_reduce import kernel as tmod
+    return {"segment_sum": kmod, "flash_attention": fmod, "rmsnorm": rmod,
+            "moe_dispatch": dmod, "topk_reduce": tmod}
+
+
+def reset_launches() -> None:
+    for mod in kernel_modules().values():
+        mod.reset_launches()
+
+
+#: Each main path's launch counts, read just after it ran with every
+#: counter set to 0 just before it.
+PATH_LAUNCHES: dict = {}
+
+
+def read_launches(path: str, expect: dict) -> dict:
+    """Every kernel's launches since :func:`reset_launches`, kept under
+    ``path``; raises unless each kernel named in ``expect`` launched
+    exactly that often and every other kernel not at all."""
+    got = {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+    PATH_LAUNCHES[path] = got
+    want = {name: expect.get(name, 0) for name in got}
+    if got != want:
+        raise AssertionError(f"{path}: launches {got}, expected {want}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -355,7 +415,7 @@ def kmer_slice(seed: int) -> dict:
               f"windows={int(want_table.sum())} "
               f"distinct={int((want_table > 0).sum())}")
         t0 = time.perf_counter()
-        kmod.reset_launches()
+        reset_launches()
         stats = (MaRe.from_source(src, num_shards=NUM_SHARDS)
                  .map(image="kmer-stats", command=f"kmer-stats {K}")
                  .reduce_by_key(lambda r: r[0], value_by=lambda r: (r[1],),
@@ -363,6 +423,10 @@ def kmer_slice(seed: int) -> dict:
         desc = stats.describe()
         keys, (occ,), cnt = stats.collect()
         launches = kmod.LAUNCHES
+        if launches == 0:
+            raise AssertionError("the k-mer path launched no segment-sum "
+                                 "kernel")
+        read_launches("kmer", {"segment_sum": launches})
         report = stats.report()
         record["launches"] = launches
         print(desc, flush=True)
@@ -378,9 +442,6 @@ def kmer_slice(seed: int) -> dict:
                        out.records[2]])
         if not on_cuda:
             raise AssertionError("k-mer result does not live on cuda")
-        if launches == 0:
-            raise AssertionError("the k-mer path launched no segment-sum "
-                                 "kernel")
         if len(np.unique(keys)) != len(keys):
             raise AssertionError("a k-mer key appears on two shards")
         got_table = np.zeros(4 ** K, np.int64)
@@ -608,65 +669,24 @@ def max_abs(a) -> float:
     return max(float(x.float().abs().max()) for x in a)
 
 
-def lm_slice(seed: int) -> list:
-    """Kernel checks, then the serving path at Llama-3.2-1B's full width;
-    returns the flash and RMSNorm kernels' JSON records."""
+def check_run(run, cfg) -> None:
+    """The serving run's logits are finite of the prompt's shape and its
+    tokens lie in the vocabulary."""
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as fmod
-    from repro_torch.kernels.rmsnorm import kernel as rmod
-    from repro_torch.kernels.segment_reduce import kernel as kmod
-    from repro_torch.launch import serve
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import apply_rmsnorm, embed_tokens
-
-    dev = torch.device("cuda")
-    cfg = get_config(ARCH)
-    flash_rec = flash_kernel_phase(dev)
-    rms_rec = rms_kernel_phase(dev, cfg.d_model)
-    torch.cuda.empty_cache()
-
-    # the main path: the serving entry, every launch counter read around it
-    argv = ["--model-smoke", "--arch", ARCH, "--batch", str(BATCH),
-            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
-            str(seed), "--device", "cuda"]
-    args = serve.parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for mod in (kmod, fmod, rmod):
-        mod.reset_launches()
-    run = serve.model_smoke(args)
-    launches = {"segment_sum": kmod.LAUNCHES,
-                "flash_attention": fmod.LAUNCHES, "rmsnorm": rmod.LAUNCHES}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for line in serve.report_lines(args, run):
-        print(line, flush=True)
-    phase("serve --model-smoke", t0,
-          f"arch={ARCH} layers={cfg.num_layers} params="
-          f"{sum(p.numel() for p in run.params.parameters())} "
-          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
-          f"prefill_ms={run.prefill_s * 1e3:.3f} "
-          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
-          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
-    if launches["flash_attention"] != cfg.num_layers:
-        raise AssertionError(f"prefill made {launches['flash_attention']} "
-                             f"flash launches, expected one per layer "
-                             f"({cfg.num_layers})")
-    if launches["rmsnorm"] or launches["segment_sum"]:
-        raise AssertionError(f"unexpected launches on the serving path: "
-                             f"{launches}")
-    logits = run.logits
-    if logits.shape != (BATCH, PROMPT, cfg.vocab_size) or \
-            not bool(torch.isfinite(logits).all()):
+    if run.logits.shape != (BATCH, PROMPT, cfg.vocab_size) or \
+            not bool(torch.isfinite(run.logits).all()):
         raise AssertionError("prefill logits are not finite of shape "
                              f"{(BATCH, PROMPT, cfg.vocab_size)}")
     if run.generated.shape != (BATCH, GEN) or \
             not ((run.generated >= 0) & (run.generated < cfg.vocab_size)
                  ).all():
         raise AssertionError(f"generated tokens {run.generated.shape}")
-    flash_rec["launches"] = launches["flash_attention"]
 
-    # warm repeat of the same prefill and of a few decode steps
+
+def warm_repeat(run, steps: int = 8) -> tuple:
+    """Warm walls of the same prefill and of ``steps`` decode steps;
+    returns (prefill s, decode s per token)."""
+    import torch
     t0 = time.perf_counter()
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -675,37 +695,26 @@ def lm_slice(seed: int) -> list:
                                      PROMPT + GEN)
         torch.cuda.synchronize()
         warm_prefill = time.perf_counter() - t1
-        tok = torch.from_numpy(run.generated[:, 0]).to(dev)
+        tok = torch.from_numpy(run.generated[:, 0]).to(run.prompt.device)
         t1 = time.perf_counter()
-        for i in range(8):
+        for _ in range(steps):
             _, cache = run.model.decode_step(run.params, cache, tok)
         torch.cuda.synchronize()
-        warm_decode = (time.perf_counter() - t1) / 8
+        warm_decode = (time.perf_counter() - t1) / steps
         del cache
     phase("serve warm repeat", t0,
           f"prefill_ms={warm_prefill * 1e3:.3f} "
           f"decode_ms_per_token={warm_decode * 1e3:.3f}")
+    return warm_prefill, warm_decode
 
-    # the same prefill through plain attention, same weights
-    t0 = time.perf_counter()
-    plain_model = build_model(cfg.scaled(attn_impl="ref"), device=dev)
-    with torch.no_grad():
-        plain_logits, _ = plain_model.prefill(
-            run.params, {"tokens": run.prompt}, PROMPT)
-    diff = max_abs_diff(logits, plain_logits)
-    scale = max_abs(plain_logits)
-    del plain_logits
-    if not diff <= LOGIT_TOL_FRAC * scale:
-        raise AssertionError(f"kernel-path logits differ from the plain "
-                             f"path by {diff} (> {LOGIT_TOL_FRAC} x "
-                             f"{scale})")
-    phase("prefill kernel vs plain attention", t0,
-          f"max_abs_diff={diff} max_abs_logit={scale} "
-          f"tol={LOGIT_TOL_FRAC * scale}")
 
-    # teacher-forced decode equals the forward pass on the same tokens
+def teacher_forced(run) -> None:
+    """Teacher-forced decode equals the forward pass on the same tokens,
+    to LOGIT_TOL_FRAC of the largest |logit|."""
+    import torch
     t0 = time.perf_counter()
-    forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(dev)
+    forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(
+        run.prompt.device)
     toks = torch.cat([run.prompt, forced], dim=1)
     with torch.no_grad():
         full = run.model.forward(run.params, {"tokens": toks})
@@ -728,6 +737,67 @@ def lm_slice(seed: int) -> list:
           f"max_abs_diff prefill/steps={errs} max_abs_logit={scale} "
           f"tol={LOGIT_TOL_FRAC * scale}")
 
+
+def lm_slice(seed: int) -> list:
+    """Kernel checks, then the serving path at Llama-3.2-1B's full width;
+    returns the flash and RMSNorm kernels' JSON records."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import apply_rmsnorm, embed_tokens
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    flash_rec = flash_kernel_phase(dev)
+    rms_rec = rms_kernel_phase(dev, cfg.d_model)
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry, every launch counter read around it
+    argv = ["--model-smoke", "--arch", ARCH, "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(seed), "--device", "cuda"]
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    run = serve.model_smoke(args)
+    launches = read_launches(
+        ARCH, {"flash_attention": cfg.num_layers})   # one per layer
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in serve.report_lines(args, run):
+        print(line, flush=True)
+    phase("serve --model-smoke", t0,
+          f"arch={ARCH} layers={cfg.num_layers} params="
+          f"{sum(p.numel() for p in run.params.parameters())} "
+          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
+          f"prefill_ms={run.prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
+          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
+    check_run(run, cfg)
+    flash_rec["launches"] = launches["flash_attention"]
+    warm_repeat(run)
+
+    # the same prefill through plain attention, same weights
+    t0 = time.perf_counter()
+    plain_model = build_model(cfg.scaled(attn_impl="ref"), device=dev)
+    with torch.no_grad():
+        plain_logits, _ = plain_model.prefill(
+            run.params, {"tokens": run.prompt}, PROMPT)
+    diff = max_abs_diff(run.logits, plain_logits)
+    scale = max_abs(plain_logits)
+    del plain_logits
+    if not diff <= LOGIT_TOL_FRAC * scale:
+        raise AssertionError(f"kernel-path logits differ from the plain "
+                             f"path by {diff} (> {LOGIT_TOL_FRAC} x "
+                             f"{scale})")
+    phase("prefill kernel vs plain attention", t0,
+          f"max_abs_diff={diff} max_abs_logit={scale} "
+          f"tol={LOGIT_TOL_FRAC * scale}")
+
+    teacher_forced(run)
+    forced = torch.from_numpy(run.generated[:, :1]).to(dev)
+
     # RMSNorm's route: layers.apply_rmsnorm(use_kernel=True), on the
     # serving path's hidden-state shapes (the model's own apply_norm
     # keeps the plain version, as the reference does)
@@ -736,24 +806,435 @@ def lm_slice(seed: int) -> list:
         x_pre = embed_tokens(run.params["embed"], run.prompt, cfg)
         x_dec = embed_tokens(run.params["embed"], forced[:, :1], cfg)
         norm = run.params["final_norm"]
-        rmod.reset_launches()
+        reset_launches()
         y_pre = apply_rmsnorm(norm, x_pre, cfg.norm_eps, use_kernel=True)
         y_dec = apply_rmsnorm(norm, x_dec, cfg.norm_eps, use_kernel=True)
-        rms_launches = rmod.LAUNCHES
+        rms_launches = read_launches("apply_rmsnorm(use_kernel=True)",
+                                     {"rmsnorm": 2})["rmsnorm"]
         err = max(float((y.float() - apply_rmsnorm(
             norm, x.float(), cfg.norm_eps).float()).abs().max())
             for x, y in ((x_pre, y_pre), (x_dec, y_dec)))
-    if rms_launches != 2 or not err < RMS_TOL["torch.bfloat16"]:
-        raise AssertionError(f"apply_rmsnorm(use_kernel=True): "
-                             f"{rms_launches} launches, err {err}")
+    if not err < RMS_TOL["torch.bfloat16"]:
+        raise AssertionError(f"apply_rmsnorm(use_kernel=True): err {err}")
     rms_rec["launches"] = rms_launches
-    rms_rec["serving_path_launches"] = launches["rmsnorm"]
     rms_rec["path"] = ("models.layers.apply_rmsnorm(use_kernel=True) on "
                        "the prefill's and a decode step's hidden states")
     phase("apply_rmsnorm(use_kernel=True)", t0,
           f"x={tuple(x_pre.shape)},{tuple(x_dec.shape)} launches="
           f"{rms_launches} max_abs_err={err}")
     return [flash_rec, rms_rec]
+
+
+# ---------------------------------------------------------------------------
+# slice 3a: granite-moe-1b-a400m serving at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+DISPATCH_REPLACES = "src/repro/kernels/moe_dispatch/kernel.py:50"
+DISPATCH_SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
+
+
+def bytes_bound(nbytes: int, ops: int):
+    """(bound ms, by): ``nbytes`` over HBM bandwidth against ``ops``
+    integer or compare operations at the CUDA cores' 67 T/s."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOP_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def dispatch_bound(n: int, groups: int):
+    """n ids read, n positions and ``groups`` counts written; one compare
+    and one add an id."""
+    return bytes_bound(4 * (2 * n + groups), 2 * n)
+
+
+def dispatch_kernel_phase(dev, n_prefill: int, n_decode: int,
+                          groups: int) -> dict:
+    """Dispatch kernel vs its plain version, bit for bit, at the prefill's
+    and a decode step's sizes and on edge cases; times kernel, plain
+    version and ``torch.sort(stable=True)`` + ``torch.bincount`` at the
+    prefill's size."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import kernel as dmod
+    from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def ids(n, lo, hi):
+        return torch.randint(lo, hi, (n,), device=dev, dtype=torch.int32,
+                             generator=g)
+
+    cases = [
+        ("prefill", ids(n_prefill, 0, groups), groups),
+        ("decode", ids(n_decode, 0, groups), groups),
+        ("n=1", ids(1, 0, groups), groups),
+        ("one group", ids(5000, 0, 1), 1),
+        ("G=64, n=64", ids(64, 0, 64), 64),
+        ("n not a multiple of the tile", ids(n_prefill + 77, 0, groups),
+         groups),
+        ("one hot group", torch.full((n_prefill,), 7, device=dev,
+                                     dtype=torch.int32), groups),
+        ("ids outside [0, G)", ids(10000, -3, groups + 3), groups),
+        ("G=5000", ids(100000, 0, 5000), 5000),
+        ("n=0", ids(0, 0, groups), groups),
+    ]
+    for name, a, G in cases:
+        t0 = time.perf_counter()
+        before = dmod.LAUNCHES
+        got = dmod.moe_dispatch_kernel(a, G)
+        torch.cuda.synchronize()
+        launched = dmod.LAUNCHES - before
+        compare(f"dispatch {name}", got, dispatch_ref(a, G))
+        if launched != (1 if a.numel() else 0):
+            raise AssertionError(f"dispatch {name}: {launched} launches")
+        phase(f"dispatch check {name}", t0,
+              f"n={a.numel()} groups={G} bit-equal to plain version")
+    t0 = time.perf_counter()
+    a = cases[0][1]
+    ms = cuda_ms(lambda: dmod.moe_dispatch_kernel(a, groups), reps=50)
+    plain = cuda_ms(lambda: dispatch_ref(a, groups))
+    lib = cuda_ms(lambda: (torch.sort(a, stable=True),
+                           torch.bincount(a, minlength=groups)), reps=50)
+    ad = cases[1][1]
+    ms_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups), reps=50)
+    bnd, by = dispatch_bound(n_prefill, groups)
+    phase("dispatch timing prefill", t0,
+          f"n={n_prefill} groups={groups} kernel_ms={ms:.4f} "
+          f"plain_ms={plain:.4f} sort_bincount_ms={lib:.4f} "
+          f"bound_ms={bnd:.6f} ({by}) decode_n={n_decode}_kernel_ms="
+          f"{ms_dec:.4f}")
+    return {"name": "moe_dispatch", "route": "cuda",
+            "source": DISPATCH_SOURCE, "replaces": DISPATCH_REPLACES,
+            "launches": None, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib,
+            "library": "torch.sort(stable=True) + torch.bincount"}
+
+
+def recording(fn, log: list):
+    """``fn`` (a dispatch) that also appends (ids, positions, counts) of
+    every call to ``log``."""
+    def dispatch(assignments, num_groups):
+        positions, counts = fn(assignments, num_groups)
+        log.append((assignments.reshape(-1).to(positions.dtype),
+                    positions, counts))
+        return positions, counts
+    return dispatch
+
+
+def moe_slice(seed: int) -> dict:
+    """Dispatch kernel checks, then MoE serving at granite's full width;
+    returns the dispatch kernel's JSON record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_lib
+
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ARCH)
+    k, E, L = cfg.experts_per_token, cfg.num_experts, cfg.num_layers
+    rec = dispatch_kernel_phase(dev, BATCH * PROMPT * k, BATCH * k, E)
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry, every launch counter read around it
+    argv = ["--model-smoke", "--arch", MOE_ARCH, "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(seed), "--device", "cuda"]
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    run = serve.model_smoke(args)
+    # one dispatch per layer in the prefill and in each of GEN - 1 decode
+    # steps; one flash launch per layer in the prefill
+    launches = read_launches(MOE_ARCH, {"moe_dispatch": L * GEN,
+                                        "flash_attention": L})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for line in serve.report_lines(args, run):
+        print(line, flush=True)
+    phase("serve --model-smoke", t0,
+          f"arch={MOE_ARCH} layers={L} experts={E} top_k={k} params="
+          f"{sum(p.numel() for p in run.params.parameters())} "
+          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
+          f"prefill_ms={run.prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
+          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
+    check_run(run, cfg)
+    rec["launches"] = launches["moe_dispatch"]
+    warm_repeat(run)
+
+    # one prefill and one decode step apart, with the dispatch's inputs and
+    # outputs recorded; then the same prefill through its plain version
+    t0 = time.perf_counter()
+    kernel_log, plain_log = [], []
+    kernel_dispatch = moe_lib.moe_dispatch
+    try:
+        moe_lib.moe_dispatch = recording(kernel_dispatch, kernel_log)
+        with torch.no_grad():
+            reset_launches()
+            logits, cache = run.model.prefill(
+                run.params, {"tokens": run.prompt}, PROMPT + 1)
+            read_launches(f"{MOE_ARCH} prefill", {"moe_dispatch": L,
+                                                  "flash_attention": L})
+            reset_launches()
+            run.model.decode_step(run.params, cache, torch.from_numpy(
+                run.generated[:, 0]).to(dev))
+            read_launches(f"{MOE_ARCH} decode step", {"moe_dispatch": L})
+            del cache
+            moe_lib.moe_dispatch = recording(
+                lambda a, G: dispatch_ref(a.reshape(-1).to(torch.int32), G),
+                plain_log)
+            plain_logits, _ = run.model.prefill(
+                run.params, {"tokens": run.prompt}, PROMPT)
+    finally:
+        moe_lib.moe_dispatch = kernel_dispatch
+    kernel_log = kernel_log[:L]              # the prefill's layers
+    if len(kernel_log) != L or len(plain_log) != L:
+        raise AssertionError(f"{len(kernel_log)} / {len(plain_log)} "
+                             f"dispatch calls, expected {L}")
+    for layer, (kc, pc) in enumerate(zip(kernel_log, plain_log)):
+        for what, a, b in zip(("ids", "positions", "counts"), kc, pc):
+            if not torch.equal(a, b):
+                raise AssertionError(f"layer {layer}: dispatch {what} of "
+                                     f"the kernel path != plain path")
+    bit_equal = torch.equal(logits, plain_logits)
+    diff = max_abs_diff(logits, plain_logits)
+    scale = max_abs(plain_logits)
+    del logits, plain_logits
+    # the dispatch is integer: with equal ids, positions and counts in
+    # every layer, every float op downstream sees the same inputs
+    if not bit_equal:
+        raise AssertionError(f"kernel-path logits differ from the plain "
+                             f"dispatch's by {diff} (max |logit| {scale})")
+    phase("prefill dispatch kernel vs plain version", t0,
+          f"layers={L} ids/positions/counts equal in every layer; logits "
+          f"bit-equal (max_abs_diff={diff}, max_abs_logit={scale}); "
+          f"tokens_per_expert_layer0="
+          f"{plain_log[0][2].tolist()}")
+
+    teacher_forced(run)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# slice 3b: the paper's virtual-screening pipeline
+# ---------------------------------------------------------------------------
+
+VS_MOLECULES = 2_097_152         # 8 shards of 262,144
+VS_TOP, VS_ROUNDS, VS_DEPTH = 30, 8, 2
+FEATURES = 16
+TOPK_REPLACES = "src/repro/kernels/topk_reduce/kernel.py:72"
+TOPK_SOURCE = "src/repro_torch/csrc/topk_reduce.cu"
+
+
+def fred_mix(r: int):
+    """Round ``r``'s [16, 16] mixing matrix, as ``benchmarks/apps.py``
+    draws it."""
+    import torch
+    rng = np.random.default_rng(r)
+    return torch.from_numpy(
+        (rng.normal(size=(FEATURES, FEATURES)) / np.sqrt(FEATURES)
+         ).astype(np.float32))
+
+
+def fred_score(feats, rounds: int = VS_ROUNDS):
+    """The surrogate docking score: x = tanh(x @ mix_r) + 0.1 x for
+    ``rounds`` rounds, then the sum of the features."""
+    import torch
+    x = feats.float()
+    for r in range(rounds):
+        x = torch.tanh(x @ fred_mix(r).to(x.device)) + 0.1 * x
+    return torch.sum(x, dim=-1)
+
+
+def register_fred() -> None:
+    """The ``tools/fred`` image of ``benchmarks/apps.py`` in the port's
+    registry: (features, molecule id) -> (score, molecule id)."""
+    from repro_torch.core.container import (DEFAULT_REGISTRY, container_op,
+                                            make_partition)
+    if "tools/fred:latest" in DEFAULT_REGISTRY.images():
+        return
+
+    @container_op("tools/fred", registry=DEFAULT_REGISTRY)
+    def fred(part, command: str = "", rounds: int = VS_ROUNDS, **kw):
+        feats, mol_id = part.records
+        return make_partition((fred_score(feats, rounds), mol_id),
+                              part.count)
+
+
+def make_library(n: int, seed: int):
+    """n molecules: ([n, 16] float32 features, [n] int32 ids), as
+    ``benchmarks/apps.py:make_library``."""
+    rng = np.random.default_rng(seed)
+    feats = rng.normal(size=(n, FEATURES)).astype(np.float32)
+    return feats, np.arange(n, dtype=np.int32)
+
+
+def virtual_screening(data, num_shards: int = 1, device=None,
+                      top: int = VS_TOP, rounds: int = VS_ROUNDS,
+                      depth: int = VS_DEPTH):
+    """Paper Listing 2 on the port: map(tools/fred) -> reduce(toolbox/
+    topk); ``data`` is the library or a dataset.  Returns the lazy chain."""
+    from repro_torch.core import MaRe, TextFile
+    register_fred()
+    sdf = ("/in.sdf", "/out.sdf")
+    return (MaRe(data, num_shards=num_shards, device=device)
+            .map(input_mount=TextFile(sdf[0], "\n$$$$\n"),
+                 output_mount=TextFile(sdf[1], "\n$$$$\n"),
+                 image="tools/fred", rounds=rounds)
+            .reduce(input_mount=TextFile(sdf[0], "\n$$$$\n"),
+                    output_mount=TextFile(sdf[1], "\n$$$$\n"),
+                    image="toolbox/topk", k=top, depth=depth))
+
+
+def topk_combines(num_shards: int, depth: int) -> int:
+    """``toolbox/topk`` calls of one depth-K tree reduce: one per shard,
+    then one per group leader at each level (``core/tree_reduce``)."""
+    from repro_torch.core.tree_reduce import split_factors
+    calls, stride = num_shards, 1
+    for g in split_factors(num_shards, depth):
+        if g > 1:
+            calls += -(-num_shards // (stride * g))
+            stride *= g
+    return calls
+
+
+def topk_bound(n: int, k: int):
+    """n scores read, k values and indices written; one compare a
+    score."""
+    return bytes_bound(4 * n + 8 * k + 4, n)
+
+
+def topk_kernel_phase(dev, n: int, k: int) -> dict:
+    """Top-k kernel vs its plain version, bit for bit, at a shard's size
+    and on edge cases; times kernel, plain version and ``torch.topk``."""
+    import torch
+    from repro_torch.kernels.topk_reduce import kernel as tmod
+    from repro_torch.kernels.topk_reduce.ref import topk_ref
+    g = torch.Generator(device=dev).manual_seed(41)
+    s = torch.randn((n,), device=dev, generator=g)
+    dup = torch.round(torch.randn((n,), device=dev, generator=g) * 4) / 4
+    small = torch.randn((100,), device=dev, generator=g)
+    ties = torch.tensor([1.0, float("-inf"), 0.0, -0.0, 1.0, float("-inf"),
+                         2.0, 0.0], device=dev)
+    cases = [
+        ("shard", s, k, n),
+        ("shard, count < n", s, k, n - 12345),
+        ("duplicates", dup, k, n),
+        ("k > valid_count", s, k, 10),
+        ("valid_count = 0", s, k, 0),
+        ("k = n", small, 100, 100),
+        ("n not a multiple of the tile", s[:n - 77], k, n - 1000),
+        ("tree level", s[:2 * k], k, k + 7),
+        ("n = 1", s[:1], 1, 1),
+        ("+-0 and -inf ties", ties, 8, 7),
+        ("8 shards at once", torch.randn((8 * n,), device=dev,
+                                         generator=g), k, 8 * n),
+    ]
+    for name, x, kk, vc in cases:
+        t0 = time.perf_counter()
+        vct = torch.tensor(vc, device=dev, dtype=torch.int32)
+        before = tmod.LAUNCHES
+        got = tmod.topk_reduce_kernel(x, kk, vct)
+        torch.cuda.synchronize()
+        if tmod.LAUNCHES - before != 1:
+            raise AssertionError(f"top-k {name}: "
+                                 f"{tmod.LAUNCHES - before} launches")
+        compare(f"top-k {name}", got, topk_ref(x, kk, vct))
+        phase(f"top-k check {name}", t0,
+              f"n={x.numel()} k={kk} valid_count={vc} bit-equal to plain "
+              f"version")
+    t0 = time.perf_counter()
+    vct = torch.tensor(n, device=dev, dtype=torch.int32)
+    ms = cuda_ms(lambda: tmod.topk_reduce_kernel(s, k, vct), reps=50)
+    plain = cuda_ms(lambda: topk_ref(s, k, vct))
+    lib = cuda_ms(lambda: torch.topk(s, k), reps=50)
+    bnd, by = topk_bound(n, k)
+    phase("top-k timing shard", t0,
+          f"n={n} k={k} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"torch_topk_ms={lib:.4f} bound_ms={bnd:.6f} ({by})")
+    return {"name": "topk_reduce", "route": "cuda", "source": TOPK_SOURCE,
+            "replaces": TOPK_REPLACES, "launches": None,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+
+
+def vs_slice(seed: int) -> dict:
+    """Top-k kernel checks, then the virtual-screening pipeline over 2M
+    molecules in 8 shards; returns the top-k kernel's JSON record."""
+    import torch
+    from repro_torch.core import MaRe
+    from repro_torch.kernels.topk_reduce.ref import topk_ref
+
+    dev = torch.device("cuda")
+    shard = VS_MOLECULES // NUM_SHARDS
+    rec = topk_kernel_phase(dev, shard, VS_TOP)
+
+    t0 = time.perf_counter()
+    library = make_library(VS_MOLECULES, seed)
+    ds = MaRe(library, num_shards=NUM_SHARDS, device=dev).dataset
+    torch.cuda.synchronize()
+    phase("VS library", t0, f"molecules={VS_MOLECULES} shards="
+          f"{ds.num_shards} cap={ds.capacity} features={FEATURES} "
+          f"bytes={library[0].nbytes + library[1].nbytes}")
+
+    # the main path, every launch counter read around it
+    t0 = time.perf_counter()
+    reset_launches()
+    chain = virtual_screening(ds, top=VS_TOP)
+    scores, ids = chain.collect(shard=0)
+    combines = topk_combines(NUM_SHARDS, VS_DEPTH)
+    launches = read_launches("virtual screening",
+                             {"topk_reduce": combines})
+    first = chain.report().wall_s
+    rec["launches"] = launches["topk_reduce"]
+    print(chain.describe(), flush=True)
+    phase("VS map(tools/fred) -> reduce(toolbox/topk)", t0,
+          f"top={len(ids)} action_wall_s={first:.6f} "
+          f"topk_combines={combines} launches={json.dumps(launches)} "
+          f"phases={json.dumps(chain.report().phases)}")
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(3):
+        again = virtual_screening(ds, top=VS_TOP)
+        s2, i2 = again.collect(shard=0)
+        warm.append(again.report().wall_s)
+        if not (np.array_equal(s2, scores) and np.array_equal(i2, ids)):
+            raise AssertionError("a warm VS action gave other records")
+    phase("VS warm actions", t0, f"action_wall_s={warm}")
+
+    # records == a plain top-k over the pipeline's own mapped scores
+    t0 = time.perf_counter()
+    register_fred()
+    mapped = MaRe(ds).map(image="tools/fred", rounds=VS_ROUNDS).dataset
+    cap, cnt = mapped.capacity, mapped.counts.tolist()
+    m_scores, m_ids = mapped.records
+    keep = torch.cat([torch.arange(s * cap, s * cap + c, device=dev)
+                      for s, c in enumerate(cnt)])
+    pv, pi = topk_ref(m_scores[keep], VS_TOP)
+    want_scores = pv.cpu().numpy()
+    want_ids = m_ids[keep][pi.long()].cpu().numpy()
+    if not (np.array_equal(scores, want_scores)
+            and np.array_equal(ids, want_ids)):
+        raise AssertionError("VS records != plain top-k of the pipeline's "
+                             "mapped scores")
+    # ... and the oracle: score the whole library at once, stable sort
+    feats = torch.from_numpy(library[0]).to(dev)
+    all_scores = fred_score(feats)
+    order = torch.sort(all_scores, descending=True, stable=True).indices
+    o_ids = order[:VS_TOP].cpu().numpy()
+    o_scores = all_scores[order[:VS_TOP]].cpu().numpy()
+    if set(o_ids.tolist()) != set(ids.tolist()):
+        raise AssertionError(f"VS top-{VS_TOP} ids differ from the oracle's")
+    err = float(np.abs(np.sort(o_scores) - np.sort(scores)).max())
+    if not err <= 1e-5:
+        raise AssertionError(f"VS scores differ from the oracle's by {err}")
+    phase("VS check", t0,
+          f"records == plain top-k of mapped scores; ids == oracle's as a "
+          f"set; max_abs_score_err={err}; best={float(scores[0])} "
+          f"(molecule {int(ids[0])})")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -770,9 +1251,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch.kernels import build
-    from repro_torch.kernels.flash_attention import kernel as fmod
-    from repro_torch.kernels.rmsnorm import kernel as rmod
-    from repro_torch.kernels.segment_reduce import kernel as kmod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -781,16 +1259,23 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    libs = build.build_all([kmod.LIBRARY, fmod.LIBRARY, rmod.LIBRARY],
-                           verbose=True)
+    libs = [mod.LIBRARY for mod in kernel_modules().values()]
+    paths = build.build_all(libs, verbose=True)
     phase("build kernels", t0, " ".join(
         f"{lib.name}_nvcc_s={build.BUILD_SECONDS.get(lib.name, 0.0):.3f}"
-        for lib in (kmod.LIBRARY, fmod.LIBRARY, rmod.LIBRARY))
-        + f" libs={[str(p) for p in libs]}")
+        for lib in libs) + f" libs={[str(p) for p in paths]}")
 
     records = [kmer_slice(args.seed)]
     torch.cuda.empty_cache()
     records += lm_slice(args.seed)
+    torch.cuda.empty_cache()
+    records.append(moe_slice(args.seed))
+    torch.cuda.empty_cache()
+    records.append(vs_slice(args.seed))
+    for rec in records:
+        rec["launches_by_path"] = {
+            path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
+            if got.get(rec["name"])}
 
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -800,9 +1285,9 @@ def main() -> int:
     phase("nvidia-smi", t0)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
-    # the script drives one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

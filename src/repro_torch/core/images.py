@@ -24,6 +24,7 @@ from repro_torch.core.manifests import (ArgSpec, CommandSpec, ImageManifest,
 from repro_torch.core.schema import Schema, bytes_record_schema, field
 from repro_torch.core.tensors import (masked_sum, stable_argsort_false_first,
                                       take_clip)
+from repro_torch.kernels.topk_reduce.ops import topk_reduce
 
 
 # ---------------------------------------------------------------------------
@@ -193,9 +194,11 @@ def topk_image(part: Partition, k: int = 30,
     """sdsorter analogue: keep the k best-scoring records.
 
     Records: tuple whose first leaf is [cap, ...]; scores are taken from
-    ``records[score_field]``.  A plain selection, as in the reference: a
-    stable descending sort, so ties go to the earlier record exactly as
-    ``lax.top_k`` breaks them.  Associative + commutative.
+    ``records[score_field]``.  Float32 scores go through the top-k kernel
+    (``kernels/topk_reduce``; its plain version on a CPU tensor); other
+    dtypes through a stable descending sort.  Both give ties to the
+    earlier record and, past ``count``, the earliest invalid records,
+    exactly as the reference's ``lax.top_k``.  Associative + commutative.
     """
     leaves = tree.leaves(part.records)
     scores = leaves[score_field]
@@ -210,7 +213,10 @@ def topk_image(part: Partition, k: int = 30,
                          torch.full((), lowest, dtype=scores.dtype,
                                     device=scores.device))
     k_eff = min(k, part.capacity)
-    idx = torch.sort(masked, descending=True, stable=True).indices[:k_eff]
+    if scores.dtype == torch.float32:
+        idx = topk_reduce(masked, k_eff, part.count)[1].long()
+    else:
+        idx = torch.sort(masked, descending=True, stable=True).indices[:k_eff]
     out = tree.tree_map(lambda l: l[idx], part.records)
     cnt = torch.clamp(part.count, max=k_eff)
     return make_partition(out, cnt)

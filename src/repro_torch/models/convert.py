@@ -17,7 +17,13 @@ from torch import nn
 
 from repro_torch.core.dataset import DeviceLike, resolve_device
 from repro_torch.models.common import ModelConfig, Params
-from repro_torch.models.transformer import LM, Block, require_dense
+from repro_torch.models.transformer import (LM, Block,
+                                            require_ported_family)
+
+
+#: Leaves the reference keeps in float32 whatever the model's dtype
+#: (``init_moe``'s router).
+FLOAT32_LEAVES = ("router",)
 
 
 def _tree(node: Mapping[str, Any], device: torch.device, dtype,
@@ -30,8 +36,9 @@ def _tree(node: Mapping[str, Any], device: torch.device, dtype,
             # via float32: exact for f32 and bf16 leaves, and numpy has
             # no bf16 of its own
             kids[name] = torch.from_numpy(
-                np.array(val, dtype=np.float32)).to(device=device,
-                                                    dtype=dtype)
+                np.array(val, dtype=np.float32)).to(
+                    device=device,
+                    dtype=torch.float32 if name in FLOAT32_LEAVES else dtype)
     return cls(**kids)
 
 
@@ -43,8 +50,8 @@ def _layer(node: Mapping[str, Any], i: int) -> dict:
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None) -> LM:
     """The reference's params (numpy leaves) -> the port's :class:`LM`
-    on ``device``, in ``cfg.param_dtype``."""
-    require_dense(cfg)
+    on ``device``, in ``cfg.param_dtype`` (the MoE router in float32)."""
+    require_ported_family(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype
     blocks = tree["blocks"]

@@ -1,6 +1,7 @@
-"""Decoder LM assembly, dense family.
+"""Decoder LM assembly, dense and MoE families.
 
-The reference's ``models/transformer.py`` for ``family == "dense"``.  Its
+The reference's ``models/transformer.py`` for ``family`` ``"dense"`` and
+``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``).  Its
 ``lax.scan`` over stacked layer parameters becomes a Python loop over one
 :class:`Block` module per layer (PyTorch runs eagerly: there is no graph
 whose size depth could grow), and ``remat``/``scan_layers`` have nothing
@@ -15,15 +16,18 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ModelConfig, Params
 from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        cross_entropy, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        unembed)
 
+#: The families the port runs.
+PORTED_FAMILIES = ("dense", "moe")
+
 #: Where each family the port does not run yet is ported (ROADMAP.md).
 PENDING_FAMILIES = {
-    "moe": "ROADMAP Queue 1, item 1 (moe with the moe_dispatch kernel)",
     "hybrid": "ROADMAP Queue 1, item 2 (hybrid/ssm with the ssm_scan "
               "kernel)",
     "ssm": "ROADMAP Queue 1, item 3 (xlstm)",
@@ -32,11 +36,11 @@ PENDING_FAMILIES = {
 }
 
 
-def require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def require_ported_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family only; "
-            f"{cfg.family!r} comes with "
+            f"{cfg.name}: the port runs the {' and '.join(PORTED_FAMILIES)}"
+            f" families; {cfg.family!r} comes with "
             f"{PENDING_FAMILIES.get(cfg.family, 'a later ROADMAP item')}")
 
 
@@ -45,15 +49,26 @@ def require_dense(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(Params):
-    """One decoder layer: ``norm1``, ``attn``, ``norm2``, ``mlp``."""
+    """One decoder layer: ``norm1``, ``attn``, ``norm2``, and ``mlp``
+    (dense) or ``moe`` (MoE)."""
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
-    require_dense(cfg)
+    require_ported_family(cfg)
+    ffn = ({"moe": moe_lib.init_moe(gen, cfg)} if cfg.family == "moe"
+           else {"mlp": init_mlp(gen, cfg)})
     return Block(norm1=init_norm(cfg, device=gen.device),
                  norm2=init_norm(cfg, device=gen.device),
-                 attn=attn_lib.init_attention(gen, cfg),
-                 mlp=init_mlp(gen, cfg))
+                 attn=attn_lib.init_attention(gen, cfg), **ffn)
+
+
+def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's feed-forward half: (y, MoE aux loss or None)."""
+    if cfg.family == "moe":
+        y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
+        return y, stats.aux_loss
+    return apply_mlp(p["mlp"], h, cfg), None
 
 
 def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
@@ -69,7 +84,10 @@ def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
         a, kv = a
     x = x + a
     h = apply_norm(cfg, p["norm2"], x)
-    x = x + apply_mlp(p["mlp"], h, cfg)
+    y, moe_aux = apply_ffn(p, h, cfg)
+    if moe_aux is not None:
+        aux = aux + moe_aux
+    x = x + y
     if return_kv:
         return x, aux, kv
     return x, aux
@@ -86,7 +104,7 @@ class LM(Params):
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
-    require_dense(cfg)
+    require_ported_family(cfg)
     return LM(embed=init_embedding(gen, cfg),
               final_norm=init_norm(cfg, device=gen.device),
               blocks=nn.ModuleList(init_block(gen, cfg)
@@ -100,7 +118,7 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     With ``return_kv`` the per-layer KV stacks [L, B, KV, S, hd] come
     back too (the prefill path).
     """
-    require_dense(cfg)
+    require_ported_family(cfg)
     x = embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
@@ -179,7 +197,7 @@ def decode_step_scanned(params: ParamsLike, cache: StackedKV,
                                            cache.v[i], pos, cfg)
         x = x + a
         h = apply_norm(cfg, bp["norm2"], x)
-        x = x + apply_mlp(bp["mlp"], h, cfg)
+        x = x + apply_ffn(bp, h, cfg)[0]
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(params["embed"], x, cfg)
     return logits[:, 0], StackedKV(k=cache.k, v=cache.v, pos=pos + 1)
@@ -187,7 +205,7 @@ def decode_step_scanned(params: ParamsLike, cache: StackedKV,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> StackedKV:
-    require_dense(cfg)
+    require_ported_family(cfg)
     return init_stacked_cache(cfg, batch, max_len, device=device)
 
 
@@ -195,7 +213,7 @@ def decode_step(params: ParamsLike, caches: StackedKV,
                 tokens: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, StackedKV]:
     """tokens: [B] -> (logits [B, V], caches')."""
-    require_dense(cfg)
+    require_ported_family(cfg)
     return decode_step_scanned(params, caches, tokens, cfg)
 
 
@@ -203,5 +221,5 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, StackedKV]:
     """Run the full prompt, returning (logits [B, S, V], filled cache)."""
-    require_dense(cfg)
+    require_ported_family(cfg)
     return prefill_scanned(params, tokens, cfg, max_len or tokens.shape[1])

@@ -43,3 +43,6 @@ def test_walk_finds_the_port():
     assert "kernels/flash_attention/kernel.py" in rel
     assert "models/transformer.py" in rel
     assert "launch/serve.py" in rel
+    assert "kernels/moe_dispatch/kernel.py" in rel
+    assert "kernels/topk_reduce/kernel.py" in rel
+    assert "models/moe.py" in rel

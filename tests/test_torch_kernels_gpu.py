@@ -1,6 +1,7 @@
-"""On the card: each CUDA kernel (segment sum, flash attention, RMSNorm)
-against its plain version, the k-mer path on ``cuda`` against the same
-path on the CPU, and the LM prefill's flash launches.
+"""On the card: each CUDA kernel (segment sum, flash attention, RMSNorm,
+MoE dispatch, top-k) against its plain version, the k-mer and
+virtual-screening paths on ``cuda`` against the same paths on the CPU,
+and the launches of the LM prefill (flash) and the MoE layers (dispatch).
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -14,6 +15,8 @@ import torch
 
 from repro_torch.core import MaRe, collect_shard, from_host
 from repro_torch.kernels.flash_attention import kernel as fmod
+from repro_torch.kernels.moe_dispatch import kernel as dmod
+from repro_torch.kernels.moe_dispatch import dispatch_ref, moe_dispatch
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.rmsnorm import kernel as rmod
@@ -21,6 +24,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.segment_reduce import kernel as kmod
 from repro_torch.kernels.segment_reduce import (segment_reduce, segment_sum,
                                                 segment_sum_ref)
+from repro_torch.kernels.topk_reduce import kernel as tmod
+from repro_torch.kernels.topk_reduce import topk_reduce, topk_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -236,3 +241,154 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     diff = float((logits.float() - plain.float()).abs().max())
     assert diff <= 0.1 * float(plain.float().abs().max()), diff
     assert lg.shape == (2, cfg.vocab_size) and cache.pos == 201
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch and top-k: each kernel against its plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+DISPATCH_CASES = {
+    # name: (n, groups, lowest id, highest id + 1)
+    "prefill": (65536, 32, 0, 32),
+    "decode": (32, 32, 0, 32),
+    "one": (1, 32, 0, 32),
+    "one_group": (3000, 1, 0, 1),
+    "g64_n64": (64, 64, 0, 64),
+    "ragged_tile": (65536 + 77, 32, 0, 32),
+    "outside_ids": (10000, 8, -3, 11),
+    "many_groups": (50000, 4000, 0, 4000),
+    "empty": (0, 5, 0, 5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH_CASES))
+def test_dispatch_kernel_matches_plain_version(cuda, name):
+    n, groups, lo, hi = DISPATCH_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randint(lo, hi, (n,), device=cuda, dtype=torch.int32,
+                      generator=g)
+    before = dmod.LAUNCHES
+    p, c = moe_dispatch(a, groups)
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES - before == (1 if n else 0)
+    rp, rc = dispatch_ref(a, groups)
+    assert p.dtype == c.dtype == torch.int32 and p.is_cuda
+    assert torch.equal(p, rp) and torch.equal(c, rc)
+
+
+def test_dispatch_kernel_rejects_other_dtypes_on_cuda(cuda):
+    with pytest.raises(TypeError):
+        dmod.moe_dispatch_kernel(torch.zeros(4, dtype=torch.int64,
+                                             device=cuda), 3)
+
+
+TOPK_CASES = {
+    # name: (n, k, valid_count, duplicates)
+    "shard": (262144, 30, 262144, False),
+    "shard_dup": (262144, 30, 200000, True),
+    "past_valid": (1000, 30, 10, False),
+    "none_valid": (1000, 30, 0, False),
+    "k_is_n": (100, 100, 100, False),
+    "ragged_tile": (4096 * 3 + 5, 64, 4096 * 3, True),
+    "three_levels": (1 << 23, 1024, 1 << 23, True),
+    "one": (1, 1, 1, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPK_CASES))
+def test_topk_kernel_matches_plain_version(cuda, name):
+    n, k, vc, dup = TOPK_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(14)
+    s = torch.randn((n,), device=cuda, generator=g)
+    if dup:
+        s = torch.round(s * 4) / 4
+    vct = torch.tensor(vc, device=cuda, dtype=torch.int32)
+    before = tmod.LAUNCHES
+    v, i = topk_reduce(s, k, vct)
+    torch.cuda.synchronize()
+    assert tmod.LAUNCHES - before == 1
+    rv, ri = topk_ref(s, k, vct)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    # python int valid_count, and the CPU's plain version
+    v2, i2 = topk_reduce(s, k, vc)
+    cv, ci = topk_ref(s.cpu(), k, vc)
+    assert torch.equal(v2.cpu(), cv) and torch.equal(i2.cpu(), ci)
+
+
+def test_topk_kernel_orders_bits_like_lax_top_k(cuda):
+    bits = np.float32([-0.0, 0.0, 1.0, np.nan, -0.0, 0.0, -np.inf,
+                       -np.inf, 2.0]).view(np.int32)
+    bits[3], bits[8] = 0x7FC00000, -0x00400000    # +NaN, -NaN (0xFFC00000)
+    s = torch.from_numpy(bits.view(np.float32)).to(cuda)
+    v, i = topk_reduce(s, 9)
+    assert i.tolist() == [3, 2, 1, 5, 0, 4, 6, 7, 8]
+    rv, ri = topk_ref(s, 9)
+    assert torch.equal(i, ri)
+
+
+def test_topk_kernel_rejects_bad_arguments(cuda):
+    s = torch.zeros(10, device=cuda)
+    with pytest.raises(ValueError):
+        topk_reduce(s, 11)
+    with pytest.raises(ValueError):
+        topk_reduce(torch.zeros(5000, device=cuda), 1025)
+    with pytest.raises(TypeError):
+        tmod.topk_reduce_kernel(s.double(), 3, 10)
+
+
+def test_moe_layers_launch_dispatch_once_per_layer(cuda):
+    """Two layers of granite-moe-1b-a400m at full width (bf16): one
+    dispatch launch per layer in a prefill and in a decode step, and the
+    MoE layer's output equals its output with the plain dispatch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    cfg = get_config("granite-moe-1b-a400m").scaled(num_layers=2)
+    model = build_model(cfg, device=cuda)
+    params = model.init(6)
+    toks = torch.randint(0, cfg.vocab_size, (2, 300), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(6))
+    d0, f0 = dmod.LAUNCHES, fmod.LAUNCHES
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, 304)
+        torch.cuda.synchronize()
+        assert dmod.LAUNCHES - d0 == 2 and fmod.LAUNCHES - f0 == 2
+        lg, cache = model.decode_step(params, cache, toks[:, -1])
+        assert dmod.LAUNCHES - d0 == 4 and fmod.LAUNCHES - f0 == 2
+        assert bool(torch.isfinite(logits).all()) and lg.shape == (
+            2, cfg.vocab_size)
+        x = torch.randn((2, 300, cfg.d_model), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(7)
+                        ).to(torch.bfloat16)
+        p = params["blocks"][0]["moe"]
+        y, st = moe_lib.moe_ffn(p, x, cfg)
+        orig = moe_lib.moe_dispatch
+        try:
+            moe_lib.moe_dispatch = lambda a, G: dispatch_ref(
+                a.to(torch.int32), G)
+            y_plain, st_plain = moe_lib.moe_ffn(p, x, cfg)
+        finally:
+            moe_lib.moe_dispatch = orig
+    assert torch.equal(y, y_plain)
+    assert torch.equal(st.aux_loss, st_plain.aux_loss)
+
+
+def test_virtual_screening_on_cuda_equals_cpu(cuda):
+    """The VS pipeline at 8 shards: the same 30 molecules on both
+    devices, scores within 1e-5 (the surrogate's matmuls), one top-k
+    launch per toolbox/topk combine on the card."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke as cs
+    library = cs.make_library(50000, seed=2)
+    out = {}
+    for dev in ("cpu", cuda):
+        before = tmod.LAUNCHES
+        out[str(dev)] = cs.virtual_screening(library, 8, dev).collect(
+            shard=0)
+        launched = tmod.LAUNCHES - before
+        assert launched == (cs.topk_combines(8, 2) if dev is cuda else 0)
+    (cs_, ci), (gs, gi) = out["cpu"], out[str(cuda)]
+    np.testing.assert_array_equal(ci, gi)
+    np.testing.assert_allclose(gs, cs_, rtol=0, atol=1e-5)

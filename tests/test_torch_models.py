@@ -326,6 +326,9 @@ def test_prefill_decode_matches_forward(setup):
                                   "internvl2-1b"])
 def test_other_families_name_their_roadmap_item(arch):
     cfg = T_configs.get_smoke_config(arch)
+    if cfg.family in T_tf.PORTED_FAMILIES:       # moe runs in the port
+        assert build_model(cfg, device="cpu").cfg is cfg
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         build_model(cfg, device="cpu")
 

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Where the time of Llama-3.2-1B serving goes, on one GPU.
+"""Where the time of LM serving goes, on one GPU.
 
-    python3 tools/torch_lm_profile.py [--seed 0] [--reps 3] [--steps 16]
+    python3 tools/torch_lm_profile.py [--arch llama3.2-1b] [--seed 0]
+        [--reps 3] [--steps 16]
 
-Builds the port's Llama-3.2-1B at full width (random weights from the
-seed, bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape (batch 4,
+Builds the port's model for ``--arch`` (``llama3.2-1b`` or
+``granite-moe-1b-a400m``) at full width (random weights from the seed,
+bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape (batch 4,
 prompt 2048), warms up one prefill and two decode steps, then:
 
 * times ``--reps`` warm prefills and ``--reps`` runs of ``--steps``
@@ -12,10 +14,13 @@ prompt 2048), warms up one prefill and two decode steps, then:
   synchronise);
 * profiles one prefill and, apart, ``--steps`` decode steps with
   ``torch.profiler`` (CPU + CUDA) and prints for each the device time by
-  kernel, the device busy share of the wall time, and the flash kernel's
-  share of device time;
-* writes the Chrome traces to ``chiprun_out/torch_lm_{prefill,decode}_
-  trace.json``.
+  kernel, the device busy share of the wall time, the device time of the
+  port's kernels (flash attention, MoE dispatch), of matrix products and
+  of device-to-host copies, and the host time spent waiting on the
+  device (``cudaStreamSynchronize``, ``cudaMemcpyAsync``: the MoE
+  layers' per-layer read of the expert sizes);
+* writes the Chrome traces, gzipped, to ``chiprun_out/torch_lm_<arch>_
+  {prefill,decode}_trace.json.gz``.
 
 Prints the card's name and power limit beside the numbers.  Needs a CUDA
 device.
@@ -33,9 +38,21 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 
+#: Device kernels by what they do, matched on the kernel's name.
+GROUPS = {
+    "flash_attention": ("flash_fwd",),
+    "moe_dispatch": ("tile_rank", "scan_tiles", "add_base"),
+    "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
+    "memcpy_dtoh": ("Memcpy DtoH",),
+}
+#: Host-side CUDA runtime calls that wait for the device or copy to it.
+HOST_WAITS = ("cudaStreamSynchronize", "cudaMemcpyAsync",
+              "cudaDeviceSynchronize")
+
+
 def profile(name, fn, out_dir):
-    """Run ``fn`` once under the profiler; print wall, device busy share
-    and the device time by kernel."""
+    """Run ``fn`` once under the profiler; print wall, device busy share,
+    device time by kernel and by group, and the host's waits."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -51,23 +68,32 @@ def profile(name, fn, out_dir):
             if e.device_type == cuda and e.self_device_time_total > 0]
     rows.sort(key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in rows)
-    flash_us = sum(e.self_device_time_total for e in rows
-                   if "flash_fwd" in e.key)
     launches = sum(e.count for e in rows)
     print(f"profiled {name}: wall_s={wall:.6f} device_busy_s="
           f"{busy_us / 1e6:.6f} busy_share={busy_us / 1e6 / wall:.4f} "
-          f"flash_share_of_device={flash_us / max(busy_us, 1):.4f} "
           f"kernel_launches={launches}")
+    for group, keys in GROUPS.items():
+        sel = [e for e in rows if any(k in e.key for k in keys)]
+        us = sum(e.self_device_time_total for e in sel)
+        print(f"  {group}: device_ms={us / 1e3:.3f} calls="
+              f"{sum(e.count for e in sel)} share_of_device="
+              f"{us / max(busy_us, 1):.4f}")
+    for e in prof.key_averages():
+        if e.key in HOST_WAITS:
+            print(f"  host {e.key}: calls={e.count} cpu_ms="
+                  f"{e.cpu_time_total / 1e3:.3f}")
     print(f"{'device_ms':>10} {'calls':>6}  kernel")
     for e in rows[:15]:
         print(f"{e.self_device_time_total / 1e3:>10.3f} {e.count:>6}  "
               f"{e.key[:100]}")
     prof.export_chrome_trace(os.path.join(out_dir,
-                                          f"torch_lm_{name}_trace.json"))
+                                          f"torch_lm_{name}_trace.json.gz"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=["llama3.2-1b", "granite-moe-1b-a400m"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--steps", type=int, default=16)
@@ -87,7 +113,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(f"card: {smi}")
-    cfg = get_config(cs.ARCH)
+    print(f"arch: {args.arch}")
+    cfg = get_config(args.arch)
     model = build_model(cfg, device="cuda")
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
@@ -122,9 +149,10 @@ def main() -> int:
             t_dec = (time.perf_counter() - t0) / args.steps
             print(f"warm rep {i}: prefill_ms={t_pre * 1e3:.3f} "
                   f"decode_ms_per_token={t_dec * 1e3:.3f}")
-        profile("prefill", prefill, out_dir)
+        profile(f"{args.arch}_prefill", prefill, out_dir)
         logits, cache = prefill()
-        profile("decode", lambda: decode(cache, tok, args.steps), out_dir)
+        profile(f"{args.arch}_decode", lambda: decode(cache, tok, args.steps),
+                out_dir)
     print(f"card: {smi}")
     return 0
 
