@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the four slices of ``repro_torch`` through their public entry
-points.  First it builds the five CUDA kernels from
+Drives the five slices of ``repro_torch`` through their public entry
+points.  First it builds the six CUDA kernels from
 ``src/repro_torch/csrc`` (one ``nvcc`` each, started together).
 
 Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
@@ -62,6 +62,23 @@ library of 2,097,152 molecules x 16 float32 features in 8 logical shards:
     molecules equal to an oracle's over the whole library, the records
     equal to a plain top-k over the pipeline's own mapped scores.
 
+Slice 4, hybrid serving at the full width and depth of hymba-1.5b (32
+layers, d_model 1600, 25/5 heads, window 1024 on all but the global layers
+0, 15 and 31, SSM state 16, vocab 32001, bf16, random weights from the
+seed):
+
+13. hold the selective-scan kernel against its plain version on the card
+    at hymba's prefill and decode shapes and on edge cases (odd T, d not a
+    multiple of the block, n of 2 to 16, two halves chained through h),
+    time kernel and plain version, and hold the flash kernel at hymba's
+    GQA group 5 with window 1024 and without;
+14. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
+    SSM launch per layer in the prefill and in every decode step (1,024 in
+    the request), one flash launch per layer in the prefill;
+15. the same prefill with the reference's chunked scan in place of the
+    kernel, and teacher-forced decode against the forward pass, each on an
+    f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
+
 Every phase prints its wall time; the first failure exits non-zero.  The
 last lines are a JSON object describing the kernels, the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
@@ -110,9 +127,10 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.moe_dispatch import kernel as dmod
     from repro_torch.kernels.rmsnorm import kernel as rmod
     from repro_torch.kernels.segment_reduce import kernel as kmod
+    from repro_torch.kernels.ssm_scan import kernel as smod
     from repro_torch.kernels.topk_reduce import kernel as tmod
     return {"segment_sum": kmod, "flash_attention": fmod, "rmsnorm": rmod,
-            "moe_dispatch": dmod, "topk_reduce": tmod}
+            "moe_dispatch": dmod, "topk_reduce": tmod, "ssm_scan": smod}
 
 
 def reset_launches() -> None:
@@ -516,6 +534,43 @@ def rms_bound(rows: int, d: int, itemsize: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window):
+    """One flash launch on random inputs against the plain version taken
+    in f32; returns (max abs error, (q, k, v))."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    t0 = time.perf_counter()
+    q = torch.randn((b, hq, sq, d), device=dev, generator=g).to(dt)
+    k = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
+    v = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
+    before = fmod.LAUNCHES
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    if fmod.LAUNCHES - before != 1:
+        raise AssertionError(f"flash {name}: "
+                             f"{fmod.LAUNCHES - before} launches")
+    want = flash_attention_plain(
+        q.float().reshape(b * hq, sq, d),
+        k.float().reshape(b * hkv, sk, d),
+        v.float().reshape(b * hkv, sk, d), hq // hkv, causal=causal,
+        window=window).reshape(b, hq, sq, d)
+    err = float((got.float() - want).abs().max())
+    tol = FLASH_TOL[str(dt)]
+    if got.dtype != dt or not err < tol:
+        raise AssertionError(f"flash {name}: {got.dtype}, max abs err "
+                             f"{err} vs tolerance {tol}")
+    empty = sq - sk if causal and sq > sk else 0
+    if empty and not bool((got[:, :, :empty] == 0).all()):
+        raise AssertionError(f"flash {name}: a row without keys is not 0")
+    phase(f"flash check {name}", t0,
+          f"q={tuple(q.shape)} kv={tuple(k.shape)} {dt} causal={causal}"
+          f" window={window} max_abs_err={err} tol={tol}"
+          f" rows_without_keys={empty * b * hq}")
+    return err, (q, k, v)
+
+
 def flash_kernel_phase(dev) -> dict:
     """Flash kernel vs its plain version at the prefill shape and on edge
     cases; times kernel, plain version and SDPA at the prefill shape."""
@@ -523,7 +578,6 @@ def flash_kernel_phase(dev) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
-    from repro_torch.kernels.flash_attention.ops import flash_attention
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, b, hq, hkv, sq, sk, d, dtype, causal, window
@@ -539,39 +593,11 @@ def flash_kernel_phase(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(21)
     errs = {}
     prefill_inputs = None
-    for name, b, hq, hkv, sq, sk, d, dt, causal, window in cases:
-        t0 = time.perf_counter()
-        q = torch.randn((b, hq, sq, d), device=dev, generator=g).to(dt)
-        k = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
-        v = torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt)
-        before = fmod.LAUNCHES
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        if fmod.LAUNCHES - before != 1:
-            raise AssertionError(f"flash {name}: "
-                                 f"{fmod.LAUNCHES - before} launches")
-        want = flash_attention_plain(
-            q.float().reshape(b * hq, sq, d),
-            k.float().reshape(b * hkv, sk, d),
-            v.float().reshape(b * hkv, sk, d), hq // hkv, causal=causal,
-            window=window).reshape(b, hq, sq, d)
-        err = float((got.float() - want).abs().max())
-        tol = FLASH_TOL[str(dt)]
-        if got.dtype != dt or not err < tol:
-            raise AssertionError(f"flash {name}: {got.dtype}, max abs err "
-                                 f"{err} vs tolerance {tol}")
-        empty = sq - sk if causal and sq > sk else 0
-        if empty and not bool((got[:, :, :empty] == 0).all()):
-            raise AssertionError(f"flash {name}: a row without keys is "
-                                 f"not 0")
-        errs[name] = err
-        phase(f"flash check {name}", t0,
-              f"q={tuple(q.shape)} kv={tuple(k.shape)} {dt} causal={causal}"
-              f" window={window} max_abs_err={err} tol={tol}"
-              f" rows_without_keys={empty * b * hq}")
-        if name == "prefill":
-            prefill_inputs = (q, k, v)
-        del q, k, v, got, want
+    for case in cases:
+        errs[case[0]], inputs = flash_check(dev, g, *case)
+        if case[0] == "prefill":
+            prefill_inputs = inputs
+        del inputs
     t0 = time.perf_counter()
     q, k, v = prefill_inputs
     b, hq, sq, d = q.shape
@@ -1238,6 +1264,377 @@ def vs_slice(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 4: hymba-1.5b (hybrid attention + SSM) serving at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "hymba-1.5b"
+HYMBA_PARAMS = 1_342_006_400     # the reference's init_lm leaves, counted
+SSM_REPLACES = "src/repro/kernels/ssm_scan/kernel.py:72"
+SSM_SOURCE = "src/repro_torch/csrc/ssm_scan.cu"
+# kernel vs plain version: both accumulate in f32, in another order (the
+# projection's sum over d, the sum over n); hold y and h within 1e-3 of
+# their largest magnitude
+SSM_TOL_FRAC = 1e-3
+
+
+def ssm_bound(b: int, t: int, d: int, n: int, itemsize: int):
+    """Least time for the scan on these inputs: xc and x_proj read once
+    (their type), dt_bias, a_log and h0 once, y and h written once (f32),
+    over HBM bandwidth; against the operations at the CUDA cores' f32
+    peak: 2 a multiply-add of the projection (2n+1 columns), 5 a channel
+    and step (dt * x and softplus's add, exp, log1p, max) and 7 a state
+    and step (-A * dt, exp, dt * x * B, a * h + bx, h * C summed)."""
+    cols = 2 * n + 1
+    nbytes = (itemsize * (b * t * d + d * cols) + 4 * (d + d * n + b * d * n)
+              + 4 * (b * t * d + b * d * n))
+    ops = 2 * b * t * d * cols + 5 * b * t * d + 7 * b * t * d * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOP_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool):
+    """Inputs shaped like the model's: xc a SiLU output, x_proj at the
+    init's 1/sqrt(d) scale, dt_bias and a_log near the init's, h0 zero
+    (a prefill) or carried (a decode step)."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    xc = torch.nn.functional.silu(rn(b, t, d)).to(dtype)
+    x_proj = (rn(d, 2 * n + 1) / d ** 0.5).to(dtype)
+    dt_bias = 0.5 * rn(d)
+    a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                   dtype=torch.float32)).repeat(d, 1) \
+        + 0.1 * rn(d, n)
+    h0 = 0.3 * rn(b, d, n) if carried else torch.zeros((b, d, n),
+                                                       device=dev)
+    return xc, x_proj, dt_bias, a_log, h0
+
+
+def ssm_compare(name, got, want) -> tuple:
+    """(max abs error, its fraction of the largest |value|) over y and h;
+    raises past SSM_TOL_FRAC."""
+    err = frac = 0.0
+    for what, a, b in zip(("y", "h"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"ssm {name} {what}: {a.dtype}"
+                                 f"{tuple(a.shape)} vs {b.dtype}"
+                                 f"{tuple(b.shape)}")
+        e = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not e <= SSM_TOL_FRAC * scale:
+            raise AssertionError(f"ssm {name} {what}: max abs err {e} > "
+                                 f"{SSM_TOL_FRAC} x {scale}")
+        err, frac = max(err, e), max(frac, e / max(scale, 1e-30))
+    return err, frac
+
+
+def ssm_kernel_phase(dev, d: int, n: int) -> dict:
+    """SSM kernel vs its plain version at hymba's prefill and decode
+    shapes and on edge cases; times kernel and plain version."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, b, t, d, n, xc dtype, carried h0
+        ("prefill", BATCH, PROMPT, d, n, bf16, False),
+        ("decode", BATCH, 1, d, n, bf16, True),
+        ("prefill f32", BATCH, PROMPT, d, n, f32, False),
+        ("odd T=33", 2, 33, d, n, bf16, True),
+        ("T=100", 1, 100, d, n, f32, True),
+        ("d=1001 (not a multiple of the block)", 3, 50, 1001, n, bf16, True),
+        ("n=2", 2, 40, 37, 2, f32, True),
+        ("n=4", 2, 40, 37, 4, bf16, True),
+        ("n=8", 2, 40, 37, 8, f32, True),
+        ("n=5 (not a power of two)", 1, 17, 9, 5, f32, True),
+    ]
+    g = torch.Generator(device=dev).manual_seed(51)
+    errs, fracs, keep = {}, {}, {}
+    for name, b, t, dd, nn, dt, carried in cases:
+        t0 = time.perf_counter()
+        args = ssm_inputs(dev, g, b, t, dd, nn, dt, carried)
+        before = smod.LAUNCHES
+        got = smod.ssm_scan_kernel(*args)
+        torch.cuda.synchronize()
+        if smod.LAUNCHES - before != 1:
+            raise AssertionError(f"ssm {name}: "
+                                 f"{smod.LAUNCHES - before} launches")
+        errs[name], fracs[name] = ssm_compare(name, got, ssm_scan_ref(*args))
+        phase(f"ssm check {name}", t0,
+              f"xc={tuple(args[0].shape)} {dt} n={nn} carried_h0={carried}"
+              f" max_abs_err={errs[name]} frac_of_max={fracs[name]:.3e}"
+              f" tol_frac={SSM_TOL_FRAC}")
+        if name in ("prefill", "decode"):
+            keep[name] = args
+    # two halves chained through h == one pass
+    t0 = time.perf_counter()
+    xc, x_proj, dt_bias, a_log, h0 = ssm_inputs(dev, g, 2, 300, d, n, bf16,
+                                                True)
+    y, h = smod.ssm_scan_kernel(xc, x_proj, dt_bias, a_log, h0)
+    y1, h1 = smod.ssm_scan_kernel(xc[:, :137].contiguous(), x_proj,
+                                  dt_bias, a_log, h0)
+    y2, h2 = smod.ssm_scan_kernel(xc[:, 137:].contiguous(), x_proj,
+                                  dt_bias, a_log, h1)
+    errs["chained"], fracs["chained"] = ssm_compare(
+        "chained halves", (torch.cat([y1, y2], 1), h2), (y, h))
+    phase("ssm check two halves chained == one pass", t0,
+          f"T=300 split at 137 max_abs_err={errs['chained']}")
+
+    t0 = time.perf_counter()
+    args = keep["prefill"]
+    ms = cuda_ms(lambda: smod.ssm_scan_kernel(*args))
+    plain = cuda_ms(lambda: ssm_scan_ref(*args), reps=2, warmup=1)
+    ms_dec = cuda_ms(lambda: smod.ssm_scan_kernel(*keep["decode"]), reps=50)
+    plain_dec = cuda_ms(lambda: ssm_scan_ref(*keep["decode"]))
+    bnd, by = ssm_bound(BATCH, PROMPT, d, n, 2)
+    bnd_dec, by_dec = ssm_bound(BATCH, 1, d, n, 2)
+    phase("ssm timing", t0,
+          f"prefill xc={tuple(args[0].shape)} bf16 kernel_ms={ms:.4f} "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.4f} ({by}); decode "
+          f"kernel_ms={ms_dec:.4f} plain_ms={plain_dec:.4f} "
+          f"bound_ms={bnd_dec:.6f} ({by_dec}); library: none")
+    return {"name": "ssm_scan", "route": "cuda", "source": SSM_SOURCE,
+            "replaces": SSM_REPLACES, "launches": None,
+            "max_abs_err": max(errs.values()),
+            "max_err_frac_of_max": max(fracs.values()), "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a selective "
+                       "scan",
+            "decode_ms": ms_dec, "decode_plain_ms": plain_dec,
+            "decode_bound_ms": bnd_dec}
+
+
+def hybrid_slice(seed: int) -> dict:
+    """SSM kernel checks, then hymba serving at full width; returns the
+    SSM kernel's JSON record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    L = cfg.num_layers
+    windows = [tf.layer_window(cfg, i) for i in range(L)]
+    rec = ssm_kernel_phase(dev, cfg.d_model * max(cfg.ssm_expand, 1),
+                           cfg.ssm_state)
+    # flash at hymba's prefill: GQA group 5, head_dim 64, window 1024 on
+    # the sliding-window layers and none on the global ones
+    g = torch.Generator(device=dev).manual_seed(52)
+    for w in (cfg.window, None):
+        flash_check(dev, g, f"hymba window={w}", BATCH, cfg.num_heads,
+                    cfg.num_kv_heads, PROMPT, PROMPT, cfg.hd,
+                    torch.bfloat16, True, w)
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry, every launch counter read around it
+    argv = ["--model-smoke", "--arch", HYBRID_ARCH, "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+            str(seed), "--device", "cuda"]
+    args = serve.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    run = serve.model_smoke(args)
+    # the SSM kernel once per layer in the prefill and in each of GEN - 1
+    # decode steps; flash once per layer in the prefill
+    launches = read_launches(HYBRID_ARCH, {"ssm_scan": L * GEN,
+                                           "flash_attention": L})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = sum(p.numel() for p in run.params.parameters())
+    for line in serve.report_lines(args, run):
+        print(line, flush=True)
+    phase("serve --model-smoke", t0,
+          f"arch={HYBRID_ARCH} layers={L} windows={windows} params={params}"
+          f" batch={BATCH} prompt={PROMPT} gen={GEN} "
+          f"prefill_ms={run.prefill_s * 1e3:.3f} "
+          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
+          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
+    if params != HYMBA_PARAMS:
+        raise AssertionError(f"{params} parameters, expected {HYMBA_PARAMS}")
+    check_run(run, cfg)
+    sizes = [c.kv.k.shape[2] for c in run.cache]
+    want_sizes = [PROMPT + GEN if w is None else w for w in windows]
+    if sizes != want_sizes or any(c.kv.pos != PROMPT + GEN - 1
+                                  for c in run.cache):
+        raise AssertionError(f"cache sizes {sizes} (want {want_sizes}) or "
+                             f"positions {[c.kv.pos for c in run.cache]}")
+    rec["launches"] = launches["ssm_scan"]
+    warm_repeat(run)
+
+    # one prefill and one decode step apart, each with its launches
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        reset_launches()
+        logits, cache = run.model.prefill(run.params, {"tokens": run.prompt},
+                                          PROMPT + 1)
+        read_launches(f"{HYBRID_ARCH} prefill", {"ssm_scan": L,
+                                                 "flash_attention": L})
+        reset_launches()
+        run.model.decode_step(run.params, cache, torch.from_numpy(
+            run.generated[:, 0]).to(dev))
+        read_launches(f"{HYBRID_ARCH} decode step", {"ssm_scan": L})
+        del cache
+    phase("prefill and decode step launches", t0,
+          f"prefill ssm_scan={L} flash_attention={L}; decode step "
+          f"ssm_scan={L}")
+    # the bf16 checks below are taken against this f32 copy of the weights
+    import copy
+    from repro_torch.models import build_model
+    m32 = build_model(cfg.scaled(dtype="float32"), device=dev)
+    p32 = copy.deepcopy(run.params).float()
+    compare_scan_routes(run, m32, p32, logits)
+    del logits
+    teacher_forced_hybrid(run, m32, p32)
+    return rec
+
+
+# The bf16 hybrid stack amplifies rounding: norm_s rescales SSM output
+# rows of small RMS, so two roundings of the same computation drift apart
+# layer by layer.  At full width and depth the served bf16 model's largest
+# logit error against its own weights taken in f32 is 0.35-0.44 of the
+# largest |logit|, through either scan route, and its teacher-forced
+# decode lies 0.03-0.23 from its own forward pass, depending on the tokens
+# (measured on the H100).  So the scan routes, and decode against forward,
+# are held to each other on an f32 copy of the served weights, where they
+# differ in summation order only (measured 3e-4 and 6e-6 of the largest
+# |logit| at 32 layers): within SSM_ROUTE_TOL_FRAC.  In bf16 the kernel
+# route (and decode) must lie no farther from that f32 model than the
+# chunked route (and the bf16 forward pass) does, plus LOGIT_TOL_FRAC, in
+# relative RMS error: over all the logits, not at the largest outlier,
+# whose size depends on the tokens.
+SSM_ROUTE_TOL_FRAC = 1e-2
+
+
+def scan_route_prefill(model, params, prompt, impl: str, path: str):
+    """One prefill with the SSM scan's route named (the kernel, or the
+    reference's chunked scan in its place), launches read around it."""
+    import torch
+    from repro_torch.models import ssm as ssm_lib
+    L = model.cfg.num_layers
+    kernel_route = ssm_lib.resolve_scan_impl
+    try:
+        ssm_lib.resolve_scan_impl = lambda device: impl
+        reset_launches()
+        with torch.no_grad():
+            logits, _ = model.prefill(params, {"tokens": prompt}, PROMPT)
+        read_launches(path, {"ssm_scan": L if impl == "kernel" else 0,
+                             "flash_attention": L})
+    finally:
+        ssm_lib.resolve_scan_impl = kernel_route
+    return logits
+
+
+def rel_rms(a, b) -> float:
+    """||a - b|| / ||b|| over all elements, in f32, one batch row at a
+    time."""
+    num = sum(float(((x.float() - y.float()) ** 2).sum())
+              for x, y in zip(a, b))
+    den = sum(float((y.float() ** 2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def hold_to_f32(what: str, f32_diff: float, scale: float, bf16_own: float,
+                bf16_ref: float) -> None:
+    """Raise unless the f32 pair agrees within SSM_ROUTE_TOL_FRAC of the
+    largest |logit| and the bf16 path under test lies within LOGIT_TOL_FRAC
+    of the bf16 reference path's relative RMS error (``bf16_own``,
+    ``bf16_ref``: each against the f32 model)."""
+    if not f32_diff <= SSM_ROUTE_TOL_FRAC * scale:
+        raise AssertionError(f"{what}, f32: differ by {f32_diff} (> "
+                             f"{SSM_ROUTE_TOL_FRAC} x {scale})")
+    if not bf16_own <= bf16_ref + LOGIT_TOL_FRAC:
+        raise AssertionError(f"{what}, bf16: relative RMS error {bf16_own} "
+                             f"against the f32 model, the reference path's "
+                             f"{bf16_ref} (+ {LOGIT_TOL_FRAC} allowed)")
+
+
+def compare_scan_routes(run, m32, p32, bf16_kernel_logits) -> None:
+    """The prefill through the SSM kernel against the same prefill with
+    the reference's chunked scan in its place, held to each other on the
+    f32 copy and to the f32 model in bf16 (see SSM_ROUTE_TOL_FRAC)."""
+    import torch
+    t0 = time.perf_counter()
+    bf16_chunked = scan_route_prefill(run.model, run.params, run.prompt,
+                                      "chunked",
+                                      f"{HYBRID_ARCH} prefill, chunked scan")
+    f32_kernel = scan_route_prefill(m32, p32, run.prompt, "kernel",
+                                    f"{HYBRID_ARCH} prefill f32")
+    f32_chunked = scan_route_prefill(m32, p32, run.prompt, "chunked",
+                                     f"{HYBRID_ARCH} prefill f32, chunked "
+                                     f"scan")
+    scale = max_abs(f32_chunked)
+    f32_diff = max_abs_diff(f32_kernel, f32_chunked)
+    del f32_kernel
+    bf16 = {"kernel": bf16_kernel_logits, "chunked": bf16_chunked}
+    rms = {k: rel_rms(v, f32_chunked) for k, v in bf16.items()}
+    worst = {k: max_abs_diff(v, f32_chunked) for k, v in bf16.items()}
+    bf16_diff = max_abs_diff(bf16_kernel_logits, bf16_chunked)
+    del f32_chunked, bf16_chunked, bf16
+    torch.cuda.empty_cache()
+    hold_to_f32("prefill, SSM kernel vs chunked scan", f32_diff, scale,
+                rms["kernel"], rms["chunked"])
+    phase("prefill SSM kernel vs chunked scan", t0,
+          f"f32: max_abs_diff={f32_diff} max_abs_logit={scale} "
+          f"frac={f32_diff / scale:.3e} tol_frac={SSM_ROUTE_TOL_FRAC}; "
+          f"bf16 to f32 rel_rms: kernel={rms['kernel']:.5f} chunked="
+          f"{rms['chunked']:.5f} (tol +{LOGIT_TOL_FRAC}); bf16 to f32 "
+          f"max_abs: kernel={worst['kernel']} chunked={worst['chunked']}; "
+          f"bf16 kernel vs chunked max_abs={bf16_diff}")
+
+
+def teacher_forced_hybrid(run, m32, p32) -> None:
+    """Teacher-forced decode (SSM kernel at T = 1 from the carried state,
+    ring caches) against the forward pass on the same tokens: on the f32
+    copy within SSM_ROUTE_TOL_FRAC, and in bf16 no farther from the f32
+    forward pass than the bf16 forward pass is, plus LOGIT_TOL_FRAC."""
+    import torch
+    t0 = time.perf_counter()
+    forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(
+        run.prompt.device)
+    toks = torch.cat([run.prompt, forced], dim=1)
+
+    def decode_logits(model, params):
+        """[prefill's last logits, the decode steps' logits]."""
+        out = []
+        lg, cache = model.prefill(params, {"tokens": toks[:, :PROMPT]},
+                                  PROMPT + TEACHER_FORCED)
+        out.append(lg[:, -1])
+        del lg
+        for t in range(TEACHER_FORCED):
+            lg, cache = model.decode_step(params, cache, toks[:, PROMPT + t])
+            out.append(lg)
+        return torch.stack(out, dim=1)          # [B, 1 + steps, V]
+
+    with torch.no_grad():
+        full32 = m32.forward(p32, {"tokens": toks})[:, PROMPT - 1:]
+        dec32 = decode_logits(m32, p32)
+        full16 = run.model.forward(run.params, {"tokens": toks})[
+            :, PROMPT - 1:]
+        dec16 = decode_logits(run.model, run.params)
+    scale = max_abs(full32)
+    f32_diff = max_abs_diff(dec32, full32)
+    rms = {"decode": rel_rms(dec16, full32),
+           "forward": rel_rms(full16, full32)}
+    bf16_diff = max_abs_diff(dec16, full16)
+    del full32, dec32, full16, dec16
+    hold_to_f32("teacher-forced decode vs forward", f32_diff, scale,
+                rms["decode"], rms["forward"])
+    phase("teacher-forced decode vs forward", t0,
+          f"steps={TEACHER_FORCED} f32: max_abs_diff={f32_diff} "
+          f"max_abs_logit={scale} frac={f32_diff / scale:.3e}; bf16 to f32 "
+          f"rel_rms: decode={rms['decode']:.5f} forward="
+          f"{rms['forward']:.5f} (tol +{LOGIT_TOL_FRAC}); bf16 decode vs "
+          f"forward max_abs={bf16_diff} (frac {bf16_diff / scale:.4f})")
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1272,6 +1669,8 @@ def main() -> int:
     records.append(moe_slice(args.seed))
     torch.cuda.empty_cache()
     records.append(vs_slice(args.seed))
+    torch.cuda.empty_cache()
+    records.append(hybrid_slice(args.seed))
     for rec in records:
         rec["launches_by_path"] = {
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()

@@ -34,7 +34,9 @@ class SmokeRun:
     params: Any                 # the LM module
     prompt: torch.Tensor        # [B, prompt_len] int64
     logits: torch.Tensor        # prefill logits [B, prompt_len, V]
-    cache: Any                  # StackedKV after the last decode step
+    cache: Any                  # after the last decode step: a StackedKV
+    #                             (dense, MoE) or a list of LayerCache
+    #                             (hybrid)
     generated: np.ndarray       # [B, gen] greedy tokens
     prefill_s: float
     decode_s_per_token: float

@@ -2,10 +2,10 @@
 
 ``build_model(cfg, device=)`` returns a :class:`Model` namespace with
 init / loss / forward / prefill / decode_step / init_cache, the surface
-the server and the tests use.  The port runs the dense and MoE families;
-the others raise :class:`NotImplementedError` naming the ROADMAP item
-that ports them.  Parameters live on ``device`` (``cuda`` unless the
-caller passes another; without a GPU, ``cuda`` raises).
+the server and the tests use.  The port runs the dense, MoE and hybrid
+families; the others raise :class:`NotImplementedError` naming the
+ROADMAP item that ports them.  Parameters live on ``device`` (``cuda``
+unless the caller passes another; without a GPU, ``cuda`` raises).
 """
 from __future__ import annotations
 

@@ -22,8 +22,8 @@ from repro_torch.models.transformer import (LM, Block,
 
 
 #: Leaves the reference keeps in float32 whatever the model's dtype
-#: (``init_moe``'s router).
-FLOAT32_LEAVES = ("router",)
+#: (``init_moe``'s router; ``init_ssm``'s dt_bias, a_log and d_skip).
+FLOAT32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
 
 
 def _tree(node: Mapping[str, Any], device: torch.device, dtype,
@@ -50,7 +50,8 @@ def _layer(node: Mapping[str, Any], i: int) -> dict:
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
                       device: DeviceLike = None) -> LM:
     """The reference's params (numpy leaves) -> the port's :class:`LM`
-    on ``device``, in ``cfg.param_dtype`` (the MoE router in float32)."""
+    on ``device``, in ``cfg.param_dtype`` (:data:`FLOAT32_LEAVES` in
+    float32)."""
     require_ported_family(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype

@@ -1,22 +1,26 @@
-"""Decoder LM assembly, dense and MoE families.
+"""Decoder LM assembly: the dense, MoE and hybrid families.
 
-The reference's ``models/transformer.py`` for ``family`` ``"dense"`` and
-``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``).  Its
-``lax.scan`` over stacked layer parameters becomes a Python loop over one
-:class:`Block` module per layer (PyTorch runs eagerly: there is no graph
-whose size depth could grow), and ``remat``/``scan_layers`` have nothing
-to select.  The other families raise :class:`NotImplementedError` naming
-the ROADMAP item that ports them.
+The reference's ``models/transformer.py`` for ``family`` ``"dense"``,
+``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``) and ``"hybrid"``
+(hymba: attention and an SSM side by side in every block, sliding-window
+attention on all but the global layers).  Its ``lax.scan`` over stacked
+layer parameters becomes a Python loop over one :class:`Block` module per
+layer (PyTorch runs eagerly: there is no graph whose size depth could
+grow), and ``remat``/``scan_layers`` have nothing to select.  The other
+families raise :class:`NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.attention import KVCache, init_kv_cache
 from repro_torch.models.common import ModelConfig, Params
 from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        cross_entropy, embed_tokens,
@@ -24,12 +28,11 @@ from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        unembed)
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "hybrid")
+BIG_WINDOW = 1 << 30   # "global attention" encoded as a huge window
 
 #: Where each family the port does not run yet is ported (ROADMAP.md).
 PENDING_FAMILIES = {
-    "hybrid": "ROADMAP Queue 1, item 2 (hybrid/ssm with the ssm_scan "
-              "kernel)",
     "ssm": "ROADMAP Queue 1, item 3 (xlstm)",
     "audio": "ROADMAP Queue 1, item 4 (encdec)",
     "vlm": "ROADMAP Queue 1, item 5 (vlm)",
@@ -39,7 +42,7 @@ PENDING_FAMILIES = {
 def require_ported_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the {' and '.join(PORTED_FAMILIES)}"
+            f"{cfg.name}: the port runs the {', '.join(PORTED_FAMILIES)}"
             f" families; {cfg.family!r} comes with "
             f"{PENDING_FAMILIES.get(cfg.family, 'a later ROADMAP item')}")
 
@@ -50,16 +53,26 @@ def require_ported_family(cfg: ModelConfig) -> None:
 
 class Block(Params):
     """One decoder layer: ``norm1``, ``attn``, ``norm2``, and ``mlp``
-    (dense) or ``moe`` (MoE)."""
+    (dense) or ``moe`` (MoE); a hybrid layer adds ``ssm``, ``norm_a`` and
+    ``norm_s``."""
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
     require_ported_family(cfg)
-    ffn = ({"moe": moe_lib.init_moe(gen, cfg)} if cfg.family == "moe"
-           else {"mlp": init_mlp(gen, cfg)})
-    return Block(norm1=init_norm(cfg, device=gen.device),
-                 norm2=init_norm(cfg, device=gen.device),
-                 attn=attn_lib.init_attention(gen, cfg), **ffn)
+    dev = gen.device
+    p = dict(norm1=init_norm(cfg, device=dev),
+             norm2=init_norm(cfg, device=dev),
+             attn=attn_lib.init_attention(gen, cfg))
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    elif cfg.family == "hybrid":
+        p["ssm"] = ssm_lib.init_ssm(gen, cfg)
+        p["mlp"] = init_mlp(gen, cfg)
+        p["norm_a"] = init_norm(cfg, device=dev)
+        p["norm_s"] = init_norm(cfg, device=dev)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return Block(**p)
 
 
 def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
@@ -69,6 +82,15 @@ def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
         y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
         return y, stats.aux_loss
     return apply_mlp(p["mlp"], h, cfg), None
+
+
+def join_heads(cfg: ModelConfig, p: ParamsLike, x: torch.Tensor,
+               a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """A hybrid block's residual: ``x + 0.5 * (norm_a(a) + norm_s(s))``
+    over its attention output ``a`` and SSM output ``s``."""
+    a = apply_norm(cfg, p["norm_a"], a)
+    s = apply_norm(cfg, p["norm_s"], s)
+    return x + 0.5 * (a + s)
 
 
 def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
@@ -82,7 +104,11 @@ def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
     kv = None
     if return_kv:
         a, kv = a
-    x = x + a
+    if cfg.family == "hybrid":
+        s, _ = ssm_lib.ssm_block(p["ssm"], h, cfg)
+        x = join_heads(cfg, p, x, a, s)
+    else:
+        x = x + a
     h = apply_norm(cfg, p["norm2"], x)
     y, moe_aux = apply_ffn(p, h, cfg)
     if moe_aux is not None:
@@ -111,22 +137,45 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
                                    for _ in range(cfg.num_layers)))
 
 
+def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
+    """Per-layer attention window; ``BIG_WINDOW`` marks a global layer.
+    None = uniform full attention."""
+    if cfg.window is None:
+        return None
+    w = [cfg.window] * cfg.num_layers
+    for g in cfg.global_layers:
+        w[g] = BIG_WINDOW
+    return w
+
+
+def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s window for the attention call: None for full
+    (global) attention."""
+    windows = layer_windows(cfg)
+    if windows is None or windows[i] >= BIG_WINDOW:
+        return None
+    return windows[i]
+
+
 def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
             return_kv: bool = False):
     """tokens: [B, S] -> (logits [B, S, V], aux_loss[, (K, V)]).
 
-    With ``return_kv`` the per-layer KV stacks [L, B, KV, S, hd] come
-    back too (the prefill path).
+    With ``return_kv`` (uniform full-attention stacks only) the per-layer
+    KV stacks [L, B, KV, S, hd] come back too (the prefill path).
     """
     require_ported_family(cfg)
+    if return_kv and cfg.family == "hybrid":
+        raise ValueError("return_kv takes a uniform full-attention stack")
     x = embed_tokens(params["embed"], tokens, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for bp in params["blocks"]:
-        out = apply_block(bp, x, positions, cfg, return_kv=return_kv)
+    for i, bp in enumerate(params["blocks"]):
+        out = apply_block(bp, x, positions, cfg,
+                          window=layer_window(cfg, i), return_kv=return_kv)
         if return_kv:
             x, a, (kt, vt) = out
             ks.append(kt)
@@ -203,23 +252,102 @@ def decode_step_scanned(params: ParamsLike, cache: StackedKV,
     return logits[:, 0], StackedKV(k=cache.k, v=cache.v, pos=pos + 1)
 
 
+class LayerCache(NamedTuple):
+    """One layer's decode state in a heterogeneous stack: a hybrid layer
+    holds its attention cache (a ring buffer of ``window`` slots on a
+    sliding-window layer) and its SSM state."""
+    kind: str                                  # hybrid
+    kv: Optional[KVCache] = None
+    ssm: Optional[ssm_lib.SSMState] = None
+
+
+Caches = Union[StackedKV, List[LayerCache]]
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> StackedKV:
+               device=None) -> Caches:
+    """A StackedKV for uniform stacks; for hybrid, one LayerCache per
+    layer: sliding-window layers get ring buffers (O(window)), the SSM
+    O(1) recurrent state."""
     require_ported_family(cfg)
-    return init_stacked_cache(cfg, batch, max_len, device=device)
+    if cfg.family != "hybrid":
+        return init_stacked_cache(cfg, batch, max_len, device=device)
+    return [LayerCache("hybrid",
+                       kv=init_kv_cache(cfg, batch, max_len,
+                                        window=layer_window(cfg, i),
+                                        device=device),
+                       ssm=ssm_lib.init_ssm_state(cfg, batch, device=device))
+            for i in range(cfg.num_layers)]
 
 
-def decode_step(params: ParamsLike, caches: StackedKV,
-                tokens: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, StackedKV]:
-    """tokens: [B] -> (logits [B, V], caches')."""
+def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Caches]:
+    """tokens: [B] -> (logits [B, V], caches').
+
+    A StackedKV takes the uniform path; a list of LayerCache (hybrid)
+    loops over layers, each attending to its cache and stepping its SSM
+    state once."""
     require_ported_family(cfg)
-    return decode_step_scanned(params, caches, tokens, cfg)
+    if isinstance(caches, StackedKV):
+        return decode_step_scanned(params, caches, tokens, cfg)
+    x = embed_tokens(params["embed"], tokens[:, None], cfg)
+    new_caches: List[LayerCache] = []
+    for bp, c in zip(params["blocks"], caches):
+        h = apply_norm(cfg, bp["norm1"], x)
+        a, kv = attn_lib.decode_attention(bp["attn"], h, c.kv, cfg)
+        s, st = ssm_lib.ssm_block(bp["ssm"], h, cfg, state=c.ssm)
+        x = join_heads(cfg, bp, x, a, s)
+        new_caches.append(LayerCache("hybrid", kv=kv, ssm=st))
+        h = apply_norm(cfg, bp["norm2"], x)
+        x = x + apply_ffn(bp, h, cfg)[0]
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = unembed(params["embed"], x, cfg)
+    return logits[:, 0], new_caches
 
 
 def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: Optional[int] = None
-            ) -> Tuple[torch.Tensor, StackedKV]:
-    """Run the full prompt, returning (logits [B, S, V], filled cache)."""
+            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Caches]:
+    """Run the full prompt, returning (logits [B, S, V], filled caches)."""
     require_ported_family(cfg)
-    return prefill_scanned(params, tokens, cfg, max_len or tokens.shape[1])
+    b, s = tokens.shape
+    max_len = max_len or s
+    if cfg.family != "hybrid":
+        return prefill_scanned(params, tokens, cfg, max_len)
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    caches: List[LayerCache] = []
+    for i, bp in enumerate(params["blocks"]):
+        w = layer_window(cfg, i)
+        h = apply_norm(cfg, bp["norm1"], x)
+        a, (kt, vt) = attn_lib.self_attention(bp["attn"], h, positions, cfg,
+                                              window=w, return_kv=True)
+        s_out, st = ssm_lib.ssm_block(
+            bp["ssm"], h, cfg,
+            state=ssm_lib.init_ssm_state(cfg, b, device=x.device))
+        x = join_heads(cfg, bp, x, a, s_out)
+        caches.append(LayerCache("hybrid", kv=_fill_kv_cache(
+            cfg, kt, vt, w, max_len, s), ssm=st))
+        h = apply_norm(cfg, bp["norm2"], x)
+        x = x + apply_ffn(bp, h, cfg)[0]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x, cfg), caches
+
+
+def _fill_kv_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
+                   window: Optional[int], max_len: int, s: int) -> KVCache:
+    """A layer's cache holding the prompt's K/V [B, KV, S, hd]: a window
+    keeps the last ``window`` positions in the ring layout (position p at
+    slot p % size), a global layer all ``max_len`` slots."""
+    cache = init_kv_cache(cfg, kt.shape[0], max_len, window=window,
+                          dtype=kt.dtype, device=kt.device)
+    if window:
+        size = cache.k.shape[2]
+        take = min(window, s)
+        slots = torch.arange(s - take, s, device=kt.device) % size
+        cache.k[:, :, slots] = kt[:, :, s - take:s]
+        cache.v[:, :, slots] = vt[:, :, s - take:s]
+    else:
+        cache.k[:, :, :s] = kt
+        cache.v[:, :, :s] = vt
+    cache.pos = s
+    return cache

@@ -46,3 +46,6 @@ def test_walk_finds_the_port():
     assert "kernels/moe_dispatch/kernel.py" in rel
     assert "kernels/topk_reduce/kernel.py" in rel
     assert "models/moe.py" in rel
+    assert "kernels/ssm_scan/kernel.py" in rel
+    assert "kernels/ssm_scan/ops.py" in rel
+    assert "models/ssm.py" in rel

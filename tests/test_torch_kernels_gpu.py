@@ -1,7 +1,8 @@
 """On the card: each CUDA kernel (segment sum, flash attention, RMSNorm,
-MoE dispatch, top-k) against its plain version, the k-mer and
-virtual-screening paths on ``cuda`` against the same paths on the CPU,
-and the launches of the LM prefill (flash) and the MoE layers (dispatch).
+MoE dispatch, top-k, selective scan) against its plain version, the k-mer
+and virtual-screening paths on ``cuda`` against the same paths on the
+CPU, and the launches of the LM prefill (flash), the MoE layers
+(dispatch) and the hybrid layers (selective scan).
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -9,10 +10,15 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+import chip_smoke as cs
 from repro_torch.core import MaRe, collect_shard, from_host
 from repro_torch.kernels.flash_attention import kernel as fmod
 from repro_torch.kernels.moe_dispatch import kernel as dmod
@@ -24,6 +30,8 @@ from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
 from repro_torch.kernels.segment_reduce import kernel as kmod
 from repro_torch.kernels.segment_reduce import (segment_reduce, segment_sum,
                                                 segment_sum_ref)
+from repro_torch.kernels.ssm_scan import kernel as smod
+from repro_torch.kernels.ssm_scan import ssm_scan_fused, ssm_scan_ref
 from repro_torch.kernels.topk_reduce import kernel as tmod
 from repro_torch.kernels.topk_reduce import topk_reduce, topk_ref
 
@@ -147,6 +155,9 @@ FLASH_CASES = {
     "d96_window_long": (1, 4, 2, 300, 300, 96, True, 70),
     "llama_layer_short": (1, 32, 8, 200, 200, 64, True, None),
     "rows_without_keys": (1, 4, 2, 100, 37, 64, True, None),
+    # hymba's prefill: GQA group 5, head_dim 64, window 1024 (and global)
+    "hymba_window_1024": (1, 25, 5, 2048, 2048, 64, True, 1024),
+    "hymba_global": (1, 25, 5, 2048, 2048, 64, True, None),
 }
 # bf16 output rounds once to 8 mantissa bits (|o| < 4 here): 2e-2, as the
 # reference's kernel tests; f32 differs only in summation order: 2e-5
@@ -377,10 +388,6 @@ def test_virtual_screening_on_cuda_equals_cpu(cuda):
     """The VS pipeline at 8 shards: the same 30 molecules on both
     devices, scores within 1e-5 (the surrogate's matmuls), one top-k
     launch per toolbox/topk combine on the card."""
-    import os
-    import sys
-    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-    import chip_smoke as cs
     library = cs.make_library(50000, seed=2)
     out = {}
     for dev in ("cpu", cuda):
@@ -392,3 +399,112 @@ def test_virtual_screening_on_cuda_equals_cpu(cuda):
     (cs_, ci), (gs, gi) = out["cpu"], out[str(cuda)]
     np.testing.assert_array_equal(ci, gi)
     np.testing.assert_allclose(gs, cs_, rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# selective scan: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+SSM_CASES = {
+    # name: (b, t, d, n, carried h0)
+    "hymba_prefill": (4, 2048, 1600, 16, False),
+    "hymba_decode": (4, 1, 1600, 16, True),
+    "odd_t_33": (2, 33, 64, 16, True),
+    "odd_t_100": (1, 100, 48, 8, True),
+    "odd_d": (3, 50, 1001, 16, False),
+    "n2": (2, 40, 37, 2, True),
+    "n4": (2, 40, 37, 4, True),
+    "n5": (1, 17, 9, 5, True),
+    "n8": (2, 40, 37, 8, True),
+    "n32": (1, 20, 40, 32, True),
+}
+# chip_smoke.ssm_compare holds y (and h) within 1e-3 of the largest
+# magnitude: both versions accumulate in f32, in another order
+
+
+def ssm_inputs(dev, seed, b, t, d, n, dtype, carried=True):
+    """``chip_smoke.ssm_inputs`` from a seeded generator: inputs shaped
+    like the model's."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return cs.ssm_inputs(dev, g, b, t, d, n, dtype, carried)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(SSM_CASES))
+def test_ssm_kernel_matches_plain_version(cuda, name, dtype):
+    b, t, d, n, carried = SSM_CASES[name]
+    args = ssm_inputs(cuda, 13, b, t, d, n, dtype, carried)
+    before = smod.LAUNCHES
+    got = smod.ssm_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert smod.LAUNCHES - before == 1
+    cs.ssm_compare(name, got, ssm_scan_ref(*args))
+
+
+def test_ssm_kernel_halves_chain_to_one_pass(cuda):
+    xc, x_proj, dt_bias, a_log, h0 = ssm_inputs(cuda, 14, 2, 300, 96, 16,
+                                                torch.bfloat16)
+    y, h = ssm_scan_fused(xc, x_proj, dt_bias, a_log, h0)
+    y1, h1 = ssm_scan_fused(xc[:, :137], x_proj, dt_bias, a_log, h0)
+    y2, h2 = ssm_scan_fused(xc[:, 137:], x_proj, dt_bias, a_log, h1)
+    cs.ssm_compare("chained", (torch.cat([y1, y2], 1), h2), (y, h))
+
+
+def test_ssm_kernel_rejects_what_it_does_not_take(cuda):
+    xc, x_proj, dt_bias, a_log, h0 = ssm_inputs(cuda, 15, 1, 4, 8, 4,
+                                                torch.float32)
+    with pytest.raises(TypeError):
+        smod.ssm_scan_kernel(xc.bfloat16(), x_proj, dt_bias, a_log, h0)
+    with pytest.raises(TypeError):
+        smod.ssm_scan_kernel(xc, x_proj, dt_bias, a_log.double(), h0)
+    big = ssm_inputs(cuda, 15, 1, 4, 8, 33, torch.float32)
+    with pytest.raises(ValueError, match="n <="):
+        smod.ssm_scan_kernel(*big)
+    # ssm_scan_fused widens a mixed pair to f32 instead
+    y, _ = ssm_scan_fused(xc.bfloat16(), x_proj, dt_bias, a_log, h0)
+    cs.ssm_compare("mixed dtypes", (y,), ssm_scan_ref(
+        xc.bfloat16(), x_proj, dt_bias, a_log, h0)[:1])
+
+
+def test_hybrid_layers_launch_ssm_once_per_layer(cuda):
+    """Two layers of hymba-1.5b at full width (bf16; one sliding-window
+    layer, one global): one SSM launch per layer in a prefill and in a
+    decode step, one flash launch per layer in the prefill.  On an f32
+    copy of the weights the prefill's logits through the kernel are
+    within 1% of the largest |logit| of the chunked-scan route's (summation
+    order only; measured 4e-5).  The bf16 routes are not compared with
+    each other: the bf16 hybrid stack amplifies rounding (see
+    chip_smoke.py, SSM_ROUTE_TOL_FRAC)."""
+    import copy
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_lib
+    cfg = get_config("hymba-1.5b").scaled(num_layers=2, global_layers=(1,))
+    model = build_model(cfg, device=cuda)
+    params = model.init(8)
+    toks = torch.randint(0, cfg.vocab_size, (2, 1100), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(8))
+    s0, f0 = smod.LAUNCHES, fmod.LAUNCHES
+    with torch.no_grad():
+        logits, caches = model.prefill(params, {"tokens": toks}, 1104)
+        torch.cuda.synchronize()
+        assert smod.LAUNCHES - s0 == 2 and fmod.LAUNCHES - f0 == 2
+        lg, caches = model.decode_step(params, caches, toks[:, -1])
+        assert smod.LAUNCHES - s0 == 4 and fmod.LAUNCHES - f0 == 2
+        assert [c.kv.k.shape[2] for c in caches] == [1024, 1104]
+        assert bool(torch.isfinite(logits).all()) and lg.shape == (
+            2, cfg.vocab_size)
+        m32 = build_model(cfg.scaled(dtype="float32"), device=cuda)
+        p32 = copy.deepcopy(params).float()
+        kern, _ = m32.prefill(p32, {"tokens": toks}, 1100)
+        assert smod.LAUNCHES - s0 == 6
+        orig = ssm_lib.resolve_scan_impl
+        try:
+            ssm_lib.resolve_scan_impl = lambda device: "chunked"
+            plain, _ = m32.prefill(p32, {"tokens": toks}, 1100)
+        finally:
+            ssm_lib.resolve_scan_impl = orig
+        assert smod.LAUNCHES - s0 == 6
+    diff = float((kern - plain).abs().max())
+    assert diff <= 1e-2 * float(plain.abs().max()), diff

@@ -4,10 +4,10 @@
     python3 tools/torch_lm_profile.py [--arch llama3.2-1b] [--seed 0]
         [--reps 3] [--steps 16]
 
-Builds the port's model for ``--arch`` (``llama3.2-1b`` or
-``granite-moe-1b-a400m``) at full width (random weights from the seed,
-bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape (batch 4,
-prompt 2048), warms up one prefill and two decode steps, then:
+Builds the port's model for ``--arch`` (``llama3.2-1b``,
+``granite-moe-1b-a400m`` or ``hymba-1.5b``) at full width (random weights
+from the seed, bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape
+(batch 4, prompt 2048), warms up one prefill and two decode steps, then:
 
 * times ``--reps`` warm prefills and ``--reps`` runs of ``--steps``
   greedy decode steps (host clock around work that ends in a device
@@ -15,10 +15,10 @@ prompt 2048), warms up one prefill and two decode steps, then:
 * profiles one prefill and, apart, ``--steps`` decode steps with
   ``torch.profiler`` (CPU + CUDA) and prints for each the device time by
   kernel, the device busy share of the wall time, the device time of the
-  port's kernels (flash attention, MoE dispatch), of matrix products and
-  of device-to-host copies, and the host time spent waiting on the
-  device (``cudaStreamSynchronize``, ``cudaMemcpyAsync``: the MoE
-  layers' per-layer read of the expert sizes);
+  port's kernels (flash attention, MoE dispatch, selective scan), of
+  matrix products and of device-to-host copies, and the host time spent
+  waiting on the device (``cudaStreamSynchronize``, ``cudaMemcpyAsync``:
+  the MoE layers' per-layer read of the expert sizes);
 * writes the Chrome traces, gzipped, to ``chiprun_out/torch_lm_<arch>_
   {prefill,decode}_trace.json.gz``.
 
@@ -42,6 +42,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 GROUPS = {
     "flash_attention": ("flash_fwd",),
     "moe_dispatch": ("tile_rank", "scan_tiles", "add_base"),
+    "ssm_scan": ("ssm_proj_rows", "ssm_proj_sum", "ssm_scan_states"),
     "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
     "memcpy_dtoh": ("Memcpy DtoH",),
 }
@@ -93,7 +94,8 @@ def profile(name, fn, out_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b",
-                    choices=["llama3.2-1b", "granite-moe-1b-a400m"])
+                    choices=["llama3.2-1b", "granite-moe-1b-a400m",
+                             "hymba-1.5b"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--steps", type=int, default=16)
