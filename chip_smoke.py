@@ -27,10 +27,14 @@ seed):
 4. hold the flash-attention and RMSNorm kernels against their plain
    versions on the card, at the prefill's shapes and on edge cases, and
    time kernel, plain version and one library call
-   (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events;
+   (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events:
+   flash's bf16 (wgmma) route at every served prefill shape (Llama,
+   granite, hymba windowed and global), its f32 (simt) route and the
+   CUDA-core kernel on bf16 at Llama's; RMSNorm's one-pass path beside
+   ``F.rms_norm`` and the two-pass loop, in turns;
 5. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
    greedy tokens) with every launch counter read around it: one flash
-   launch per layer;
+   launch per layer, all on the wgmma route;
 6. the same prefill with plain attention, and teacher-forced decode
    against the forward pass, within stated bf16 tolerances;
 7. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
@@ -79,9 +83,11 @@ seed):
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
-Every phase prints its wall time; the first failure exits non-zero.  The
-last lines are a JSON object describing the kernels, the ``nvidia-smi``
-line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
+Every phase prints its wall time; the first failure exits non-zero.  A
+served bf16 prefill whose flash launches leave the wgmma route fails.
+The last lines are a JSON object describing the kernels (flash's
+``launches_by_path`` split by route), the ``nvidia-smi`` line, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device (or
 without the repository's ``src/`` beside it) the script exits non-zero
 and prints no result.
 """
@@ -95,6 +101,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -139,19 +146,28 @@ def reset_launches() -> None:
 
 
 #: Each main path's launch counts, read just after it ran with every
-#: counter set to 0 just before it.
+#: counter set to 0 just before it; flash's also by route.
 PATH_LAUNCHES: dict = {}
+FLASH_ROUTES: dict = {}
 
 
-def read_launches(path: str, expect: dict) -> dict:
+def read_launches(path: str, expect: dict,
+                  flash_route: str = "wgmma") -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
-    exactly that often and every other kernel not at all."""
+    exactly that often and every other kernel not at all, and unless
+    every flash launch took ``flash_route`` (a served bf16 prefill takes
+    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``)."""
     got = {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+    routes = dict(kernel_modules()["flash_attention"].LAUNCHES_BY_ROUTE)
     PATH_LAUNCHES[path] = got
+    FLASH_ROUTES[path] = routes
     want = {name: expect.get(name, 0) for name in got}
-    if got != want:
-        raise AssertionError(f"{path}: launches {got}, expected {want}")
+    want_routes = {r: got["flash_attention"] * (r == flash_route)
+                   for r in routes}
+    if got != want or routes != want_routes:
+        raise AssertionError(f"{path}: launches {got}, flash by route "
+                             f"{routes}; expected {want}, {want_routes}")
     return got
 
 
@@ -219,10 +235,16 @@ def kmer_bincount(seq: np.ndarray, k: int) -> np.ndarray:
 # kernel check and timing
 # ---------------------------------------------------------------------------
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: Optional[int] = None, warmup: int = 3) -> float:
+    """Mean device ms of ``fn`` over ``reps`` back-to-back calls, timed
+    with CUDA events after ``warmup`` calls.  ``reps`` defaults to 20, or
+    to 200 for a call under 0.1 ms (one timed call decides), so that two
+    short kernels are not told apart by noise."""
     import torch
     for _ in range(warmup):
         fn()
+    if reps is None:
+        reps = 200 if cuda_ms(fn, reps=1, warmup=0) < 0.1 else 20
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -232,6 +254,43 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 200) -> float:
+    """Device ms per call of ``fn``, replayed from a CUDA graph of
+    ``reps`` calls: the host's launch cost is left out, as it must be for
+    a latency-bound call (a decode step's few rows), whose back-to-back
+    launches would time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def in_turns(timer, fns) -> tuple:
+    """ms of each of ``fns`` by ``timer``, taken in turns (0, 1, ..., 1,
+    0) and averaged, so that a drift of the card's clock falls on all of
+    them alike; returns (the means, the single times in order)."""
+    order = list(range(len(fns))) + list(range(len(fns)))[::-1]
+    t = [timer(fns[i]) for i in order]
+    return [sum(v for i, v in zip(order, t) if i == k) / 2
+            for k in range(len(fns))], t
 
 
 def compare(name, kern, plain, atol: float = 0.0) -> float:
@@ -571,9 +630,43 @@ def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window):
     return err, (q, k, v)
 
 
+#: The served prefills' attention shapes: name, q heads, kv heads, window
+#: (batch BATCH, prompt PROMPT, head dim 64, causal, bf16).
+FLASH_SERVED = (("llama3.2-1b", 32, 8, None),
+                ("granite-moe-1b-a400m", 16, 8, None),
+                ("hymba-1.5b window 1024", 25, 5, 1024),
+                ("hymba-1.5b global", 25, 5, None))
+
+
+def flash_inputs(dev, g, b, hq, hkv, sq, sk, d, dt):
+    import torch
+    return (torch.randn((b, hq, sq, d), device=dev, generator=g).to(dt),
+            torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt),
+            torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt))
+
+
+def flash_simt_bf16(q3, k3, v3, group: int):
+    """The CUDA-core kernel on bf16 through its C entry: the route bf16
+    took before the tensor-core kernel, timed beside it.  Never a route
+    of the port's wrapper at head dims 64 and 128."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    out = torch.empty_like(q3)
+    bh, sq, d = q3.shape
+    err = fmod.LIBRARY.load().flash_attention_bf16(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), bh, sq,
+        k3.shape[1], d, group, d ** -0.5, 1, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
+    check_launch("flash_attention (simt, bf16)", err)
+    return out
+
+
 def flash_kernel_phase(dev) -> dict:
     """Flash kernel vs its plain version at the prefill shape and on edge
-    cases; times kernel, plain version and SDPA at the prefill shape."""
+    cases; at every served prefill shape, times the bf16 kernel (the
+    wgmma route) beside SDPA, and at Llama's also the plain version, the
+    f32 (simt) route and the CUDA-core kernel on bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fmod
@@ -583,6 +676,8 @@ def flash_kernel_phase(dev) -> dict:
         # name, b, hq, hkv, sq, sk, d, dtype, causal, window
         ("prefill", BATCH, 32, 8, PROMPT, PROMPT, 64, bf16, True, None),
         ("prefill f32", BATCH, 32, 8, PROMPT, PROMPT, 64, f32, True, None),
+        ("granite prefill", BATCH, 16, 8, PROMPT, PROMPT, 64, bf16, True,
+         None),
         ("right-aligned Sq<Sk", 2, 32, 8, 96, PROMPT, 64, bf16, True, None),
         ("window 256", 1, 32, 8, 1024, 1024, 64, bf16, True, 256),
         ("unaligned Sq, Sk", 1, 12, 4, 1000, 1037, 64, bf16, True, None),
@@ -591,66 +686,126 @@ def flash_kernel_phase(dev) -> dict:
         ("rows without keys", 1, 8, 2, 300, 100, 64, bf16, True, None),
     ]
     g = torch.Generator(device=dev).manual_seed(21)
-    errs = {}
-    prefill_inputs = None
+    errs = {"wgmma": 0.0, "simt": 0.0}
     for case in cases:
-        errs[case[0]], inputs = flash_check(dev, g, *case)
-        if case[0] == "prefill":
-            prefill_inputs = inputs
+        err, inputs = flash_check(dev, g, *case)
+        route = fmod.route(case[7], case[6], dev)
+        errs[route] = max(errs[route], err)
         del inputs
-    t0 = time.perf_counter()
-    q, k, v = prefill_inputs
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    q3, k3, v3 = (t.reshape(-1, t.shape[2], d) for t in (q, k, v))
-    ms = cuda_ms(lambda: fmod.flash_attention_kernel(q3, k3, v3,
-                                                     group=hq // hkv))
-    plain = cuda_ms(lambda: flash_attention_plain(q3, k3, v3, hq // hkv),
-                    reps=5, warmup=1)
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    bnd, by = flash_bound(b, hq, hkv, sq, sk, d, True, None, 2)
-    phase("flash timing prefill", t0,
-          f"q={tuple(q.shape)} kv={tuple(k.shape)} bf16 causal "
-          f"kernel_ms={ms:.4f} plain_ms={plain:.4f} sdpa_ms={lib:.4f} "
-          f"bound_ms={bnd:.4f} ({by}) pairs_per_head="
-          f"{flash_pairs(sq, sk, True, None)}")
+    by_shape = {}
+    for name, hq, hkv, window in FLASH_SERVED:
+        t0 = time.perf_counter()
+        q, k, v = flash_inputs(dev, g, BATCH, hq, hkv, PROMPT, PROMPT, 64,
+                               bf16)
+        q3, k3, v3 = (t.reshape(-1, PROMPT, 64) for t in (q, k, v))
+        group = hq // hkv
+        ms = cuda_ms(lambda: fmod.flash_attention_kernel(
+            q3, k3, v3, group=group, window=window))
+        if window is None:
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+        else:
+            # SDPA takes the window as a boolean mask (True = attend)
+            pos = torch.arange(PROMPT, device=dev)
+            keep = (pos[:, None] >= pos[None, :]) & \
+                (pos[None, :] > pos[:, None] - window)
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep, enable_gqa=True))
+        bnd, by = flash_bound(BATCH, hq, hkv, PROMPT, PROMPT, 64, True,
+                              window, 2)
+        by_shape[name] = {"q": list(q.shape), "kv": list(k.shape),
+                          "window": window, "ms": ms, "library_ms": lib,
+                          "library": "sdpa" + ("" if window is None
+                                               else " with a bool mask"),
+                          "bound_ms": bnd, "bound_by": by}
+        extra = ""
+        if name == "llama3.2-1b":
+            plain = cuda_ms(lambda: flash_attention_plain(q3, k3, v3, group),
+                            reps=5, warmup=1)
+            simt = cuda_ms(lambda: flash_simt_bf16(q3, k3, v3, group),
+                           reps=5, warmup=1)
+            qf, kf, vf = (t.float() for t in (q3, k3, v3))
+            f32_ms = cuda_ms(lambda: fmod.flash_attention_kernel(
+                qf, kf, vf, group=group), reps=5, warmup=1)
+            f32_plain = cuda_ms(lambda: flash_attention_plain(qf, kf, vf,
+                                                              group),
+                                reps=5, warmup=1)
+            f32_bnd, f32_by = flash_bound(BATCH, hq, hkv, PROMPT, PROMPT,
+                                          64, True, None, 4)
+            by_shape[name].update(plain_ms=plain, simt_bf16_ms=simt)
+            f32_rec = {"route": "simt", "ms": f32_ms, "plain_ms": f32_plain,
+                       "bound_ms": f32_bnd, "bound_by": f32_by}
+            extra = (f" plain_ms={plain:.4f} simt_bf16_ms={simt:.4f} "
+                     f"f32_simt_ms={f32_ms:.4f} f32_plain_ms="
+                     f"{f32_plain:.4f} f32_bound_ms={f32_bnd:.4f}")
+            del qf, kf, vf
+        phase(f"flash timing {name}", t0,
+              f"q={tuple(q.shape)} kv={tuple(k.shape)} bf16 causal "
+              f"window={window} kernel_ms={ms:.4f} sdpa_ms={lib:.4f} "
+              f"bound_ms={bnd:.4f} ({by}) pairs_per_head="
+              f"{flash_pairs(PROMPT, PROMPT, True, window)}" + extra)
+        del q, k, v, q3, k3, v3
+    main = by_shape["llama3.2-1b"]
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
-            "launches": None, "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib}
+            "launches": None, "max_abs_err": max(errs.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "max_abs_err_by_route": errs, "served_shapes": by_shape,
+            "f32": f32_rec}
+
+
+def rms_by_mode(x, w, eps: float, mode: int):
+    """One bf16 RMSNorm launch through the C entry with its path named
+    (1: the two-pass loop that bf16 rows of width 2048 took before the
+    one-pass path, to which the wrapper now sends them), to be timed
+    beside the wrapper."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.rmsnorm import kernel as rmod
+    out = torch.empty_like(x)
+    err = rmod.LIBRARY.load().rmsnorm_bf16(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1],
+        eps, mode, torch.cuda.current_stream().cuda_stream)
+    check_launch(f"rmsnorm (mode {mode})", err)
+    return out
 
 
 def rms_kernel_phase(dev, d_model: int) -> dict:
     """RMSNorm kernel vs its plain version at the prefill's and a decode
     step's rows and on edge cases; times kernel, plain version and
-    ``F.rms_norm`` at the prefill rows."""
+    ``F.rms_norm`` and the two-pass loop that the one-pass path replaced,
+    in turns, by their device time (CUDA graph replay), at the prefill's
+    and a decode step's rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import kernel as rmod
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     bf16, f32 = torch.bfloat16, torch.float32
     rows = BATCH * PROMPT
-    cases = [("prefill rows", rows, d_model, bf16),
-             ("decode rows", BATCH, d_model, bf16),
-             ("prefill rows f32", rows, d_model, f32),
-             ("d=2050 (no 16-byte path)", 64, d_model + 2, bf16),
-             ("d=100", 33, 100, bf16),
-             ("d=1000 f32", 7, 1000, f32)]
+    cases = [("prefill rows", rows, d_model, bf16, "one_pass"),
+             ("decode rows", BATCH, d_model, bf16, "one_pass"),
+             ("prefill rows f32", rows, d_model, f32, "one_pass"),
+             ("hymba rows d=1600", rows, 1600, bf16, "one_pass"),
+             ("d=8192", 64, 8192, bf16, "one_pass"),
+             ("d=2050 (no 16-byte path)", 64, d_model + 2, bf16, "loop"),
+             ("d=100", 33, 100, bf16, "loop"),
+             ("d=1000 f32", 7, 1000, f32, "one_pass")]
     g = torch.Generator(device=dev).manual_seed(22)
     errs = {}
-    for name, r, d, dt in cases:
+    for name, r, d, dt, want_path in cases:
         t0 = time.perf_counter()
         x = torch.randn((r, d), device=dev, generator=g).to(dt)
         # norm scales near 1, as a model's: |out| < 8
         w = (1 + 0.1 * torch.randn(d, device=dev, generator=g)).to(dt)
-        before = rmod.LAUNCHES
+        before = dict(rmod.LAUNCHES_BY_PATH)
         got = rmod.rmsnorm_kernel(x, w, 1e-6)
         torch.cuda.synchronize()
-        if rmod.LAUNCHES - before != 1:
-            raise AssertionError(f"rmsnorm {name}: "
-                                 f"{rmod.LAUNCHES - before} launches")
+        moved = {p: rmod.LAUNCHES_BY_PATH[p] - before[p] for p in before}
+        if moved != {p: int(p == want_path) for p in moved}:
+            raise AssertionError(f"rmsnorm {name}: launches by path "
+                                 f"{moved}, expected one on {want_path}")
         want = rmsnorm_ref(x.float(), w.float(), 1e-6)
         err_t = (got.float() - want).abs()
         tol = RMS_TOL[str(dt)]
@@ -664,25 +819,37 @@ def rms_kernel_phase(dev, d_model: int) -> dict:
                                  f"tolerance {tol} + {rtol} rel")
         errs[name] = err
         phase(f"rmsnorm check {name}", t0,
-              f"x={tuple(x.shape)} {dt} max_abs_err={err} tol={tol}"
-              f" rtol={rtol}")
+              f"x={tuple(x.shape)} {dt} path={want_path} max_abs_err={err}"
+              f" tol={tol} rtol={rtol}")
     t0 = time.perf_counter()
     x = torch.randn((rows, d_model), device=dev, generator=g).to(bf16)
     w = (1 + 0.1 * torch.randn(d_model, device=dev, generator=g)).to(bf16)
-    ms = cuda_ms(lambda: rmod.rmsnorm_kernel(x, w, 1e-6))
-    plain = cuda_ms(lambda: rmsnorm_ref(x, w, 1e-6))
-    lib = cuda_ms(lambda: F.rms_norm(x, (d_model,), w, 1e-6))
     xd = x[:BATCH].contiguous()
-    ms_dec = cuda_ms(lambda: rmod.rmsnorm_kernel(xd, w, 1e-6))
+    (ms, lib_ms, two_ms), t = in_turns(graph_ms, (
+        lambda: rmod.rmsnorm_kernel(x, w, 1e-6),
+        lambda: F.rms_norm(x, (d_model,), w, 1e-6),
+        lambda: rms_by_mode(x, w, 1e-6, 1)))
+    plain = cuda_ms(lambda: rmsnorm_ref(x, w, 1e-6))
+    (dec, dec_lib, dec_two), t_dec = in_turns(graph_ms, (
+        lambda: rmod.rmsnorm_kernel(xd, w, 1e-6),
+        lambda: F.rms_norm(xd, (d_model,), w, 1e-6),
+        lambda: rms_by_mode(xd, w, 1e-6, 1)))
     bnd, by = rms_bound(rows, d_model, 2)
-    phase("rmsnorm timing prefill rows", t0,
-          f"x={tuple(x.shape)} bf16 kernel_ms={ms:.4f} plain_ms={plain:.4f}"
-          f" rms_norm_ms={lib:.4f} bound_ms={bnd:.4f} ({by}) "
-          f"decode_rows_kernel_ms={ms_dec:.4f}")
+    phase("rmsnorm timing (device time from CUDA graphs)", t0,
+          f"prefill rows x={tuple(x.shape)} bf16: kernel_ms={ms:.5f} "
+          f"rms_norm_ms={lib_ms:.5f} two_pass_ms={two_ms:.5f} plain_ms="
+          f"{plain:.4f} bound_ms={bnd:.5f} ({by}) share_of_bound="
+          f"{bnd / ms:.3f} in_turns={['%.5f' % v for v in t]}; decode "
+          f"rows {tuple(xd.shape)}: kernel_ms={dec:.5f} rms_norm_ms="
+          f"{dec_lib:.5f} two_pass_ms={dec_two:.5f} in_turns="
+          f"{['%.5f' % v for v in t_dec]}")
     return {"name": "rmsnorm", "route": "cuda", "source": RMS_SOURCE,
             "replaces": RMS_REPLACES, "launches": None,
             "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib_ms,
+            "two_pass_ms": two_ms, "timed": "CUDA graph replay",
+            "decode_rows": {"ms": dec, "library_ms": dec_lib,
+                            "two_pass_ms": dec_two}}
 
 
 def max_abs_diff(a, b) -> float:
@@ -802,6 +969,7 @@ def lm_slice(seed: int) -> list:
           f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
     check_run(run, cfg)
     flash_rec["launches"] = launches["flash_attention"]
+    flash_rec["launches_by_route"] = FLASH_ROUTES[ARCH]
     warm_repeat(run)
 
     # the same prefill through plain attention, same weights
@@ -917,12 +1085,12 @@ def dispatch_kernel_phase(dev, n_prefill: int, n_decode: int,
               f"n={a.numel()} groups={G} bit-equal to plain version")
     t0 = time.perf_counter()
     a = cases[0][1]
-    ms = cuda_ms(lambda: dmod.moe_dispatch_kernel(a, groups), reps=50)
+    ms = cuda_ms(lambda: dmod.moe_dispatch_kernel(a, groups))
     plain = cuda_ms(lambda: dispatch_ref(a, groups))
     lib = cuda_ms(lambda: (torch.sort(a, stable=True),
-                           torch.bincount(a, minlength=groups)), reps=50)
+                           torch.bincount(a, minlength=groups)))
     ad = cases[1][1]
-    ms_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups), reps=50)
+    ms_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
     bnd, by = dispatch_bound(n_prefill, groups)
     phase("dispatch timing prefill", t0,
           f"n={n_prefill} groups={groups} kernel_ms={ms:.4f} "
@@ -1173,9 +1341,9 @@ def topk_kernel_phase(dev, n: int, k: int) -> dict:
               f"version")
     t0 = time.perf_counter()
     vct = torch.tensor(n, device=dev, dtype=torch.int32)
-    ms = cuda_ms(lambda: tmod.topk_reduce_kernel(s, k, vct), reps=50)
+    ms = cuda_ms(lambda: tmod.topk_reduce_kernel(s, k, vct))
     plain = cuda_ms(lambda: topk_ref(s, k, vct))
-    lib = cuda_ms(lambda: torch.topk(s, k), reps=50)
+    lib = cuda_ms(lambda: torch.topk(s, k))
     bnd, by = topk_bound(n, k)
     phase("top-k timing shard", t0,
           f"n={n} k={k} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
@@ -1388,7 +1556,7 @@ def ssm_kernel_phase(dev, d: int, n: int) -> dict:
     args = keep["prefill"]
     ms = cuda_ms(lambda: smod.ssm_scan_kernel(*args))
     plain = cuda_ms(lambda: ssm_scan_ref(*args), reps=2, warmup=1)
-    ms_dec = cuda_ms(lambda: smod.ssm_scan_kernel(*keep["decode"]), reps=50)
+    ms_dec = cuda_ms(lambda: smod.ssm_scan_kernel(*keep["decode"]))
     plain_dec = cuda_ms(lambda: ssm_scan_ref(*keep["decode"]))
     bnd, by = ssm_bound(BATCH, PROMPT, d, n, 2)
     bnd_dec, by_dec = ssm_bound(BATCH, 1, d, n, 2)
@@ -1525,7 +1693,8 @@ def scan_route_prefill(model, params, prompt, impl: str, path: str):
         with torch.no_grad():
             logits, _ = model.prefill(params, {"tokens": prompt}, PROMPT)
         read_launches(path, {"ssm_scan": L if impl == "kernel" else 0,
-                             "flash_attention": L})
+                             "flash_attention": L},
+                      "simt" if model.cfg.dtype == "float32" else "wgmma")
     finally:
         ssm_lib.resolve_scan_impl = kernel_route
     return logits
@@ -1675,6 +1844,9 @@ def main() -> int:
         rec["launches_by_path"] = {
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
             if got.get(rec["name"])}
+        if rec["name"] == "flash_attention":
+            rec["launches_by_path"] = {
+                path: FLASH_ROUTES[path] for path in rec["launches_by_path"]}
 
     t0 = time.perf_counter()
     smi = subprocess.run(

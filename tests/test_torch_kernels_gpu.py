@@ -158,6 +158,20 @@ FLASH_CASES = {
     # hymba's prefill: GQA group 5, head_dim 64, window 1024 (and global)
     "hymba_window_1024": (1, 25, 5, 2048, 2048, 64, True, 1024),
     "hymba_global": (1, 25, 5, 2048, 2048, 64, True, None),
+    # the wgmma route's 128-key tiles: Sk just under, at and past a tile
+    "sk_127": (1, 4, 2, 127, 127, 64, True, None),
+    "sk_128": (1, 4, 2, 128, 128, 64, True, None),
+    "sk_129": (1, 4, 2, 129, 129, 64, True, None),
+    "sk_255": (1, 4, 2, 255, 255, 64, True, None),
+    # query tiles shorter than 128 rows against a long cache
+    "sq_1_sk_2048": (2, 8, 2, 1, 2048, 64, True, None),
+    "sq_96_sk_2048": (2, 8, 2, 96, 2048, 64, True, None),
+    # a window of one key, and one that starts inside a key tile
+    "window_1": (1, 4, 2, 300, 300, 64, True, 1),
+    "window_200": (1, 4, 2, 700, 700, 64, True, 200),
+    "group_5_d128": (1, 10, 2, 300, 300, 128, True, None),
+    # Sq > Sk: whole query tiles of rows without keys
+    "sq_gt_sk_d128": (1, 4, 2, 300, 100, 128, True, None),
 }
 # bf16 output rounds once to 8 mantissa bits (|o| < 4 here): 2e-2, as the
 # reference's kernel tests; f32 differs only in summation order: 2e-5
@@ -173,10 +187,13 @@ def test_flash_kernel_matches_plain_version(cuda, name, dtype):
     q = torch.randn((b, hq, sq, d), device=cuda, generator=g).to(dtype)
     k = torch.randn((b, hkv, sk, d), device=cuda, generator=g).to(dtype)
     v = torch.randn((b, hkv, sk, d), device=cuda, generator=g).to(dtype)
-    before = fmod.LAUNCHES
+    before, by_route = fmod.LAUNCHES, dict(fmod.LAUNCHES_BY_ROUTE)
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fmod.LAUNCHES - before == 1
+    kind = fmod.route(dtype, d, cuda)
+    assert {r: fmod.LAUNCHES_BY_ROUTE[r] - by_route[r]
+            for r in by_route} == {r: int(r == kind) for r in by_route}
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(
         q.float().reshape(b * hq, sq, d), k.float().reshape(b * hkv, sk, d),
@@ -189,13 +206,48 @@ def test_flash_kernel_matches_plain_version(cuda, name, dtype):
         assert bool((got[:, :, :sq - sk] == 0).all())
 
 
+@pytest.mark.parametrize("sm_scale", [-0.1, 0.0, 0.3])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_wgmma_takes_any_scale(cuda, sm_scale, d):
+    """A scale >= 0 folds into the exponent's FFMA; a negative one keeps
+    the scaled maximum: both are the plain version's function."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((1, 8, 300, d), device=cuda, generator=g).bfloat16()
+    k = torch.randn((1, 2, 300, d), device=cuda, generator=g).bfloat16()
+    v = torch.randn((1, 2, 300, d), device=cuda, generator=g).bfloat16()
+    got = flash_attention(q, k, v, window=100, sm_scale=sm_scale)
+    want = flash_attention_plain(
+        q.float().reshape(8, 300, d), k.float().reshape(2, 300, d),
+        v.float().reshape(2, 300, d), 4, window=100,
+        sm_scale=sm_scale).reshape(1, 8, 300, d)
+    assert float((got.float() - want).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 32, "simt"), (torch.float32, 64, "simt"),
+    (torch.float32, 128, "simt")], ids=str)
+def test_flash_call_moves_only_its_route_counter(cuda, dtype, d, want):
+    q = torch.randn((4, 130, d), device=cuda).to(dtype)
+    k = torch.randn((2, 130, d), device=cuda).to(dtype)
+    fmod.reset_launches()
+    fmod.flash_attention_kernel(q, k, k, group=2)
+    torch.cuda.synchronize()
+    assert fmod.LAUNCHES == 1
+    assert fmod.LAUNCHES_BY_ROUTE == {"wgmma": int(want == "wgmma"),
+                                      "simt": int(want == "simt")}
+
+
 def test_flash_kernel_rejects_unsupported_head_dim(cuda):
     q = torch.zeros((2, 8, 24), device=cuda)
     with pytest.raises(ValueError):
         fmod.flash_attention_kernel(q, q, q, group=1)
 
 
-RMS_SHAPES = [(8192, 2048), (4, 2048), (33, 100), (7, 1000), (1, 8)]
+# (8192, 2048), (4, 2048): Llama's prefill and decode rows; 1600: hymba's
+# width; 8192: 128 threads a row on the one-pass path
+RMS_SHAPES = [(8192, 2048), (4, 2048), (33, 100), (7, 1000), (1, 8),
+              (300, 1600), (4, 1600), (64, 8192)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -208,10 +260,15 @@ def test_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
     # bf16 rounding of the output is under 2e-2
     w = (1 + 0.1 * torch.randn(shape[-1], device=cuda,
                                generator=g)).to(dtype)
-    before = rmod.LAUNCHES
+    before, by_path = rmod.LAUNCHES, dict(rmod.LAUNCHES_BY_PATH)
     got = rmsnorm(x, w, eps=1e-6)
     torch.cuda.synchronize()
     assert rmod.LAUNCHES - before == 1
+    kind = rmod.path(shape[-1], dtype)
+    assert rmod.LAUNCHES_BY_PATH[kind] - by_path[kind] == 1
+    if shape[-1] in (2048, 1600) or (shape[-1] == 8192
+                                     and dtype == torch.bfloat16):
+        assert kind == "one_pass"
     want = rmsnorm_ref(x.float(), w.float(), eps=1e-6)
     if dtype == torch.float32:
         # rsqrtf and the warp's summation order: within 1e-6 relative
@@ -226,8 +283,9 @@ def test_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
 
 def test_prefill_launches_flash_once_per_layer(cuda):
     """Two layers of Llama-3.2-1B at full width (bf16): the prefill makes
-    one flash launch per layer and no RMSNorm launch (the model's norms
-    take the plain version, as the reference's do), and its logits agree
+    one flash launch per layer, on the wgmma route, and no RMSNorm launch
+    (the model's norms take the plain version, as the reference's do),
+    and its logits agree
     with the plain-attention path within 10% of the largest |logit|
     (bf16 rounding at other places; see chip_smoke.py)."""
     from repro_torch.configs import get_config
@@ -238,10 +296,14 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     toks = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(5))
     f0, r0 = fmod.LAUNCHES, rmod.LAUNCHES
+    by_route = dict(fmod.LAUNCHES_BY_ROUTE)
     with torch.no_grad():
         logits, cache = model.prefill(params, {"tokens": toks}, 208)
         torch.cuda.synchronize()
         assert fmod.LAUNCHES - f0 == 2 and rmod.LAUNCHES == r0
+        # bf16 at head dim 64: both launches on the tensor-core route
+        assert fmod.LAUNCHES_BY_ROUTE["wgmma"] - by_route["wgmma"] == 2
+        assert fmod.LAUNCHES_BY_ROUTE["simt"] == by_route["simt"]
         assert logits.shape == (2, 200, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all()) and cache.pos == 200
         plain, _ = build_model(cfg.scaled(attn_impl="ref"),

@@ -40,7 +40,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 #: Device kernels by what they do, matched on the kernel's name.
 GROUPS = {
-    "flash_attention": ("flash_fwd",),
+    # flash_fwd_wgmma (bf16 at head dims 64, 128) and flash_fwd (others)
+    "flash_attention": ("flash_fwd_wgmma", "flash_fwd"),
     "moe_dispatch": ("tile_rank", "scan_tiles", "add_base"),
     "ssm_scan": ("ssm_proj_rows", "ssm_proj_sum", "ssm_scan_states"),
     "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
