@@ -72,22 +72,27 @@ layers, d_model 1600, 25/5 heads, window 1024 on all but the global layers
 seed):
 
 13. hold the selective-scan kernel against its plain version on the card
-    at hymba's prefill and decode shapes and on edge cases (odd T, d not a
-    multiple of the block, n of 2 to 16, two halves chained through h),
-    time kernel and plain version, and hold the flash kernel at hymba's
-    GQA group 5 with window 1024 and without;
+    at hymba's prefill and decode shapes, at the chunk's edges (T = L-1,
+    L, L+1, 2048+17), on a long carried case and on edge cases (odd T, d
+    not a multiple of the block, n of 2 to 16, two halves chained
+    through h), each asserted on its route (``chunked``
+    for T > 1, ``step`` for T = 1); time the chunked route against the
+    serial kernel it replaced in turns, the step route by CUDA-graph
+    replay and back to back, and the plain version; hold the flash kernel
+    at hymba's GQA group 5 with window 1024 and without;
 14. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
-    SSM launch per layer in the prefill and in every decode step (1,024 in
-    the request), one flash launch per layer in the prefill;
+    SSM launch per layer in the prefill (chunked route) and in every
+    decode step (step route): 1,024 in the request, 32 chunked and 992
+    step; one flash launch per layer in the prefill;
 15. the same prefill with the reference's chunked scan in place of the
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails.
-The last lines are a JSON object describing the kernels (flash's
-``launches_by_path`` split by route), the ``nvidia-smi`` line, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device (or
+The last lines are a JSON object describing the kernels (flash's and
+the SSM scan's ``launches_by_path`` split by route), the ``nvidia-smi``
+line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
 without the repository's ``src/`` beside it) the script exits non-zero
 and prints no result.
 """
@@ -146,28 +151,37 @@ def reset_launches() -> None:
 
 
 #: Each main path's launch counts, read just after it ran with every
-#: counter set to 0 just before it; flash's also by route.
+#: counter set to 0 just before it; flash's and the SSM scan's also by
+#: route.
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
+SSM_ROUTES: dict = {}
 
 
-def read_launches(path: str, expect: dict,
-                  flash_route: str = "wgmma") -> dict:
+def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
+                  ssm_routes: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
-    exactly that often and every other kernel not at all, and unless
-    every flash launch took ``flash_route`` (a served bf16 prefill takes
-    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``)."""
-    got = {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
-    routes = dict(kernel_modules()["flash_attention"].LAUNCHES_BY_ROUTE)
+    exactly that often and every other kernel not at all, unless every
+    flash launch took ``flash_route`` (a served bf16 prefill takes
+    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), and
+    unless the SSM scan's launches split by route as ``ssm_routes`` says
+    (none on any route when it is None)."""
+    mods = kernel_modules()
+    got = {name: mod.LAUNCHES for name, mod in mods.items()}
+    routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
+    ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
     PATH_LAUNCHES[path] = got
     FLASH_ROUTES[path] = routes
+    SSM_ROUTES[path] = ssm
     want = {name: expect.get(name, 0) for name in got}
     want_routes = {r: got["flash_attention"] * (r == flash_route)
                    for r in routes}
-    if got != want or routes != want_routes:
+    want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
+    if got != want or routes != want_routes or ssm != want_ssm:
         raise AssertionError(f"{path}: launches {got}, flash by route "
-                             f"{routes}; expected {want}, {want_routes}")
+                             f"{routes}, ssm_scan by route {ssm}; expected "
+                             f"{want}, {want_routes}, {want_ssm}")
     return got
 
 
@@ -1090,19 +1104,26 @@ def dispatch_kernel_phase(dev, n_prefill: int, n_decode: int,
     lib = cuda_ms(lambda: (torch.sort(a, stable=True),
                            torch.bincount(a, minlength=groups)))
     ad = cases[1][1]
-    ms_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
+    # a decode step's few ids: device time by graph replay (back-to-back
+    # launches of so short a call time the host), the latter beside it
+    ms_dec = graph_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
+    b2b_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
     bnd, by = dispatch_bound(n_prefill, groups)
+    bnd_dec, _ = dispatch_bound(n_decode, groups)
     phase("dispatch timing prefill", t0,
           f"n={n_prefill} groups={groups} kernel_ms={ms:.4f} "
           f"plain_ms={plain:.4f} sort_bincount_ms={lib:.4f} "
-          f"bound_ms={bnd:.6f} ({by}) decode_n={n_decode}_kernel_ms="
-          f"{ms_dec:.4f}")
+          f"bound_ms={bnd:.6f} ({by}); decode n={n_decode}: graph_ms="
+          f"{ms_dec:.5f} back_to_back_ms={b2b_dec:.5f} bound_ms="
+          f"{bnd_dec:.6f}")
     return {"name": "moe_dispatch", "route": "cuda",
             "source": DISPATCH_SOURCE, "replaces": DISPATCH_REPLACES,
             "launches": None, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib,
-            "library": "torch.sort(stable=True) + torch.bincount"}
+            "library": "torch.sort(stable=True) + torch.bincount",
+            "decode_ms": ms_dec, "decode_timed": "CUDA graph replay",
+            "decode_back_to_back_ms": b2b_dec, "decode_bound_ms": bnd_dec}
 
 
 def recording(fn, log: list):
@@ -1462,10 +1483,33 @@ def ssm_bound(b: int, t: int, d: int, n: int, itemsize: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool):
+# The chunked route's time is bounded by its transcendentals, not by the
+# bound above: one exp a state and step, an exp and a log1p (softplus) a
+# channel and step, on the MUFU units at 16 results a clock an SM (4 a
+# clock on each of an SM's 4 sub-partitions), at the H100 SXM's 1.98 GHz
+# boost clock (data sheet)
+MUFU_PER_S = 16 * 132 * 1.98e9
+
+
+def ssm_mufu_floor_ms(b: int, t: int, d: int, n: int, chunk: int) -> tuple:
+    """(the floor of one pass over the steps, the floor of the chunked
+    route at ``chunk``: the chunk-end pass runs every chunk but the last,
+    the re-run all of them, and the carries add an exp a state and chunk
+    end)."""
+    per_step = b * d * (n + 2)
+    nc = -(-t // chunk)
+    one = per_step * t
+    chunked = one + per_step * (nc - 1) * chunk + b * d * n * (nc - 1)
+    return one / MUFU_PER_S * 1e3, chunked / MUFU_PER_S * 1e3
+
+
+def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool,
+               h0_scale: float = 0.3, dt_shift: float = 0.0):
     """Inputs shaped like the model's: xc a SiLU output, x_proj at the
     init's 1/sqrt(d) scale, dt_bias and a_log near the init's, h0 zero
-    (a prefill) or carried (a decode step)."""
+    (a prefill) or carried (a decode step, ``h0_scale`` x a normal).
+    ``dt_shift`` moves dt_bias: a shift of -6 makes dt ~2.5e-3, so that
+    the state decays over thousands of steps, not a few."""
     import torch
 
     def rn(*shape):
@@ -1473,13 +1517,40 @@ def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool):
 
     xc = torch.nn.functional.silu(rn(b, t, d)).to(dtype)
     x_proj = (rn(d, 2 * n + 1) / d ** 0.5).to(dtype)
-    dt_bias = 0.5 * rn(d)
+    dt_bias = 0.5 * rn(d) + dt_shift
     a_log = torch.log(torch.arange(1, n + 1, device=dev,
                                    dtype=torch.float32)).repeat(d, 1) \
         + 0.1 * rn(d, n)
-    h0 = 0.3 * rn(b, d, n) if carried else torch.zeros((b, d, n),
-                                                       device=dev)
+    h0 = h0_scale * rn(b, d, n) if carried else torch.zeros((b, d, n),
+                                                            device=dev)
     return xc, x_proj, dt_bias, a_log, h0
+
+
+def ssm_serial(xc, x_proj, dt_bias, a_log, h0):
+    """The serial kernel (one thread a state walking all of T; the route
+    of every call before the chunked and step routes) through its C
+    entry, with its split projection as it was launched: timed beside the
+    routes in turns, never a route of the port's wrapper."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    b, t, d = xc.shape
+    n = a_log.shape[1]
+    lib = smod.LIBRARY.load()
+    # the C launcher picks the projection's d-split; the scratch holds it
+    splits = lib.ssm_scan_serial_splits(b, t, d)
+    proj = torch.empty((splits, b * t, 2 * n + 1), dtype=torch.float32,
+                       device=xc.device)
+    y = torch.empty((b, t, d), dtype=torch.float32, device=xc.device)
+    h = torch.empty((b, d, n), dtype=torch.float32, device=xc.device)
+    entry = ("ssm_scan_serial_bf16" if xc.dtype == torch.bfloat16
+             else "ssm_scan_serial_f32")
+    err = getattr(lib, entry)(
+        xc.data_ptr(), x_proj.data_ptr(), dt_bias.data_ptr(),
+        a_log.data_ptr(), h0.data_ptr(), proj.data_ptr(), y.data_ptr(),
+        h.data_ptr(), b, t, d, n, torch.cuda.current_stream().cuda_stream)
+    check_launch("ssm_scan (serial)", err)
+    return y, h
 
 
 def ssm_compare(name, got, want) -> tuple:
@@ -1500,44 +1571,89 @@ def ssm_compare(name, got, want) -> tuple:
     return err, frac
 
 
+def ssm_checked(name, args, **kw) -> tuple:
+    """One kernel call held to the plain version; raises unless it was
+    one launch on the route :func:`route` names for it.  Returns
+    (route, outputs, max abs error, its fraction of the largest
+    |value|)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    xc = args[0]
+    want_route = smod.route(xc.shape[1], xc.dtype, xc.device)
+    before = dict(smod.LAUNCHES_BY_ROUTE)
+    total = smod.LAUNCHES
+    got = smod.ssm_scan_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    moved = {r: smod.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+    if smod.LAUNCHES - total != 1 or moved != {
+            r: int(r == want_route) for r in moved}:
+        raise AssertionError(f"ssm {name}: launches by route {moved}, "
+                             f"expected one on {want_route}")
+    err, frac = ssm_compare(name, got, ssm_scan_ref(*args))
+    return want_route, got, err, frac
+
+
 def ssm_kernel_phase(dev, d: int, n: int) -> dict:
     """SSM kernel vs its plain version at hymba's prefill and decode
-    shapes and on edge cases; times kernel and plain version."""
+    shapes, at the chunk's edges and on edge cases, each on the route it
+    should take; times the chunked route against the serial kernel in
+    turns, the step route by graph replay and back
+    to back, and the plain version."""
     import torch
     from repro_torch.kernels.ssm_scan import kernel as smod
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     bf16, f32 = torch.bfloat16, torch.float32
+    L = smod.CHUNK
     cases = [
         # name, b, t, d, n, xc dtype, carried h0
         ("prefill", BATCH, PROMPT, d, n, bf16, False),
         ("decode", BATCH, 1, d, n, bf16, True),
         ("prefill f32", BATCH, PROMPT, d, n, f32, False),
+        ("decode f32", BATCH, 1, d, n, f32, True),
         ("odd T=33", 2, 33, d, n, bf16, True),
         ("T=100", 1, 100, d, n, f32, True),
+        (f"T=L-1={L - 1}", 2, L - 1, d, n, bf16, True),
+        (f"T=L={L}", 2, L, d, n, bf16, True),
+        (f"T=L+1={L + 1}", 2, L + 1, d, n, f32, True),
+        (f"T={PROMPT}+17", BATCH, PROMPT + 17, d, n, bf16, True),
         ("d=1001 (not a multiple of the block)", 3, 50, 1001, n, bf16, True),
+        ("d=1001 decode", 3, 1, 1001, n, bf16, True),
         ("n=2", 2, 40, 37, 2, f32, True),
         ("n=4", 2, 40, 37, 4, bf16, True),
         ("n=8", 2, 40, 37, 8, f32, True),
         ("n=5 (not a power of two)", 1, 17, 9, 5, f32, True),
+        ("n=5 decode", 2, 1, 9, 5, bf16, True),
     ]
     g = torch.Generator(device=dev).manual_seed(51)
     errs, fracs, keep = {}, {}, {}
     for name, b, t, dd, nn, dt, carried in cases:
         t0 = time.perf_counter()
         args = ssm_inputs(dev, g, b, t, dd, nn, dt, carried)
-        before = smod.LAUNCHES
-        got = smod.ssm_scan_kernel(*args)
-        torch.cuda.synchronize()
-        if smod.LAUNCHES - before != 1:
-            raise AssertionError(f"ssm {name}: "
-                                 f"{smod.LAUNCHES - before} launches")
-        errs[name], fracs[name] = ssm_compare(name, got, ssm_scan_ref(*args))
+        kind, _, errs[name], fracs[name] = ssm_checked(name, args)
         phase(f"ssm check {name}", t0,
               f"xc={tuple(args[0].shape)} {dt} n={nn} carried_h0={carried}"
-              f" max_abs_err={errs[name]} frac_of_max={fracs[name]:.3e}"
-              f" tol_frac={SSM_TOL_FRAC}")
+              f" route={kind} max_abs_err={errs[name]} frac_of_max="
+              f"{fracs[name]:.3e} tol_frac={SSM_TOL_FRAC}")
         if name in ("prefill", "decode"):
             keep[name] = args
+    # a long carried case: dt ~2.5e-3, so a large h0 reaches every chunk
+    # through the carries; its weight in y past the first chunk shows the
+    # carry path is taken
+    t0 = time.perf_counter()
+    name = f"long carried T={PROMPT}, large h0"
+    args = ssm_inputs(dev, g, 2, PROMPT, d, n, bf16, True, h0_scale=10.0,
+                      dt_shift=-6.0)
+    kind, (y, _), errs[name], fracs[name] = ssm_checked(name, args)
+    y0, _ = smod.ssm_scan_kernel(*args[:4], torch.zeros_like(args[4]))
+    carry = float((y - y0)[:, L:].abs().max())
+    if not carry > 100 * errs[name]:
+        raise AssertionError(f"ssm {name}: h0 moves y past the first chunk "
+                             f"by {carry} only (error {errs[name]})")
+    phase(f"ssm check {name}", t0,
+          f"route={kind} max_abs_err={errs[name]} frac_of_max="
+          f"{fracs[name]:.3e}; h0's part of y past the first chunk: max "
+          f"{carry} (last step {float((y - y0)[:, -1].abs().max())})")
     # two halves chained through h == one pass
     t0 = time.perf_counter()
     xc, x_proj, dt_bias, a_log, h0 = ssm_inputs(dev, g, 2, 300, d, n, bf16,
@@ -1551,20 +1667,39 @@ def ssm_kernel_phase(dev, d: int, n: int) -> dict:
         "chained halves", (torch.cat([y1, y2], 1), h2), (y, h))
     phase("ssm check two halves chained == one pass", t0,
           f"T=300 split at 137 max_abs_err={errs['chained']}")
+    # the serial kernel, timed below, is held to the plain version too
+    t0 = time.perf_counter()
+    for what in ("prefill", "decode"):
+        name = f"serial kernel {what}"
+        errs[name], fracs[name] = ssm_compare(
+            name, ssm_serial(*keep[what]), ssm_scan_ref(*keep[what]))
+    phase("ssm check serial kernel", t0,
+          f"prefill max_abs_err={errs['serial kernel prefill']} decode "
+          f"max_abs_err={errs['serial kernel decode']}")
 
     t0 = time.perf_counter()
-    args = keep["prefill"]
-    ms = cuda_ms(lambda: smod.ssm_scan_kernel(*args))
+    args, dec = keep["prefill"], keep["decode"]
+    (ms, serial), t_pre = in_turns(cuda_ms, (
+        lambda: smod.ssm_scan_kernel(*args), lambda: ssm_serial(*args)))
     plain = cuda_ms(lambda: ssm_scan_ref(*args), reps=2, warmup=1)
-    ms_dec = cuda_ms(lambda: smod.ssm_scan_kernel(*keep["decode"]))
-    plain_dec = cuda_ms(lambda: ssm_scan_ref(*keep["decode"]))
+    (ms_dec, serial_dec), t_dec = in_turns(graph_ms, (
+        lambda: smod.ssm_scan_kernel(*dec), lambda: ssm_serial(*dec)))
+    b2b_dec = cuda_ms(lambda: smod.ssm_scan_kernel(*dec))
+    plain_dec = cuda_ms(lambda: ssm_scan_ref(*dec))
     bnd, by = ssm_bound(BATCH, PROMPT, d, n, 2)
     bnd_dec, by_dec = ssm_bound(BATCH, 1, d, n, 2)
+    one_pass, floor = ssm_mufu_floor_ms(BATCH, PROMPT, d, n, L)
+    floor_dec, _ = ssm_mufu_floor_ms(BATCH, 1, d, n, L)
     phase("ssm timing", t0,
-          f"prefill xc={tuple(args[0].shape)} bf16 kernel_ms={ms:.4f} "
-          f"plain_ms={plain:.4f} bound_ms={bnd:.4f} ({by}); decode "
-          f"kernel_ms={ms_dec:.4f} plain_ms={plain_dec:.4f} "
-          f"bound_ms={bnd_dec:.6f} ({by_dec}); library: none")
+          f"prefill xc={tuple(args[0].shape)} bf16 chunked_ms={ms:.4f} "
+          f"(chunk {L}) serial_kernel_ms={serial:.4f}"
+          f" in_turns={['%.4f' % v for v in t_pre]} plain_ms={plain:.4f} "
+          f"bound_ms={bnd:.4f} ({by}) mufu_floor_ms={floor:.4f} (one pass "
+          f"{one_pass:.4f}); decode step graph_ms={ms_dec:.5f} "
+          f"serial_graph_ms={serial_dec:.5f} in_turns="
+          f"{['%.5f' % v for v in t_dec]} back_to_back_ms={b2b_dec:.5f} "
+          f"plain_ms={plain_dec:.4f} bound_ms={bnd_dec:.6f} ({by_dec}) "
+          f"mufu_floor_ms={floor_dec:.6f}; library: none")
     return {"name": "ssm_scan", "route": "cuda", "source": SSM_SOURCE,
             "replaces": SSM_REPLACES, "launches": None,
             "max_abs_err": max(errs.values()),
@@ -1573,7 +1708,10 @@ def ssm_kernel_phase(dev, d: int, n: int) -> dict:
             "library_ms": None,
             "library": "none: no single PyTorch call computes a selective "
                        "scan",
-            "decode_ms": ms_dec, "decode_plain_ms": plain_dec,
+            "serial_kernel_ms": serial, "decode_ms": ms_dec,
+            "decode_timed": "CUDA graph replay",
+            "decode_serial_kernel_ms": serial_dec,
+            "decode_back_to_back_ms": b2b_dec, "decode_plain_ms": plain_dec,
             "decode_bound_ms": bnd_dec}
 
 
@@ -1613,7 +1751,9 @@ def hybrid_slice(seed: int) -> dict:
     # the SSM kernel once per layer in the prefill and in each of GEN - 1
     # decode steps; flash once per layer in the prefill
     launches = read_launches(HYBRID_ARCH, {"ssm_scan": L * GEN,
-                                           "flash_attention": L})
+                                           "flash_attention": L},
+                             ssm_routes={"chunked": L,
+                                         "step": L * (GEN - 1)})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     params = sum(p.numel() for p in run.params.parameters())
     for line in serve.report_lines(args, run):
@@ -1643,15 +1783,17 @@ def hybrid_slice(seed: int) -> dict:
         logits, cache = run.model.prefill(run.params, {"tokens": run.prompt},
                                           PROMPT + 1)
         read_launches(f"{HYBRID_ARCH} prefill", {"ssm_scan": L,
-                                                 "flash_attention": L})
+                                                 "flash_attention": L},
+                      ssm_routes={"chunked": L})
         reset_launches()
         run.model.decode_step(run.params, cache, torch.from_numpy(
             run.generated[:, 0]).to(dev))
-        read_launches(f"{HYBRID_ARCH} decode step", {"ssm_scan": L})
+        read_launches(f"{HYBRID_ARCH} decode step", {"ssm_scan": L},
+                      ssm_routes={"step": L})
         del cache
     phase("prefill and decode step launches", t0,
-          f"prefill ssm_scan={L} flash_attention={L}; decode step "
-          f"ssm_scan={L}")
+          f"prefill ssm_scan={L} (chunked route) flash_attention={L}; "
+          f"decode step ssm_scan={L} (step route)")
     # the bf16 checks below are taken against this f32 copy of the weights
     import copy
     from repro_torch.models import build_model
@@ -1694,7 +1836,8 @@ def scan_route_prefill(model, params, prompt, impl: str, path: str):
             logits, _ = model.prefill(params, {"tokens": prompt}, PROMPT)
         read_launches(path, {"ssm_scan": L if impl == "kernel" else 0,
                              "flash_attention": L},
-                      "simt" if model.cfg.dtype == "float32" else "wgmma")
+                      "simt" if model.cfg.dtype == "float32" else "wgmma",
+                      {"chunked": L} if impl == "kernel" else None)
     finally:
         ssm_lib.resolve_scan_impl = kernel_route
     return logits
@@ -1844,9 +1987,11 @@ def main() -> int:
         rec["launches_by_path"] = {
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
             if got.get(rec["name"])}
-        if rec["name"] == "flash_attention":
+        by_route = {"flash_attention": FLASH_ROUTES,
+                    "ssm_scan": SSM_ROUTES}.get(rec["name"])
+        if by_route is not None:
             rec["launches_by_path"] = {
-                path: FLASH_ROUTES[path] for path in rec["launches_by_path"]}
+                path: by_route[path] for path in rec["launches_by_path"]}
 
     t0 = time.perf_counter()
     smi = subprocess.run(

@@ -15,8 +15,8 @@ def ssm_scan_fused(xc: torch.Tensor, x_proj: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xc: [B, T, d] -> (y [B, T, d] f32, h_final [B, d, n] f32), without
     d_skip; ``h0`` defaults to zeros.  ``chunk`` is the reference's TPU
-    block length: the CUDA kernel loops over T whole, so it changes
-    nothing here."""
+    block length; the CUDA kernel's chunked route cuts T by its own
+    measured length (``kernel.CHUNK``), so it changes nothing here."""
     b, _, d = xc.shape
     n = a_log.shape[1]
     if h0 is None:

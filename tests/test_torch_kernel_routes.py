@@ -1,8 +1,10 @@
-"""Which kernel a call takes, decided from dtype, head dim (or row width)
-and device alone, on the CPU: the flash wrapper's routes (``wgmma`` for
-bf16 at head dims 64 and 128, ``simt`` for every other CUDA call, the
-plain version for a CPU tensor) and RMSNorm's paths (one pass where the
-row fits in registers, else the two-pass loop).  A CPU call moves no
+"""Which kernel a call takes, decided from dtype, head dim (or row width,
+or steps) and device alone, on the CPU: the flash wrapper's routes
+(``wgmma`` for bf16 at head dims 64 and 128, ``simt`` for every other
+CUDA call, the plain version for a CPU tensor), RMSNorm's paths (one pass
+where the row fits in registers, else the two-pass loop) and the
+selective scan's routes (``step`` for a decode step, T = 1; ``chunked``
+for T > 1; the plain version for a CPU tensor).  A CPU call moves no
 launch counter; the wrappers' argument checks raise before any route is
 taken.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
@@ -13,6 +15,8 @@ from repro_torch.kernels.flash_attention import kernel as fmod
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.rmsnorm import kernel as rmod
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssm_scan import kernel as smod
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 BF16, F32 = torch.bfloat16, torch.float32
 CUDA = torch.device("cuda")   # a device name only: no card is touched
@@ -132,3 +136,75 @@ def test_rmsnorm_reset_launches_zeroes_every_path():
     rmod.reset_launches()
     assert rmod.LAUNCHES == 0
     assert set(rmod.LAUNCHES_BY_PATH.values()) == {0}
+
+
+SSM_ROUTES = [
+    # steps, dtype, device, route
+    (1, BF16, CUDA, "step"),            # a decode step
+    (1, F32, CUDA, "step"),
+    (2, BF16, CUDA, "chunked"),
+    (127, F32, CUDA, "chunked"),
+    (2048, BF16, CUDA, "chunked"),      # hymba's prefill
+    (2065, F32, CUDA, "chunked"),
+    (1, BF16, "cpu", "plain"),
+    (2048, BF16, torch.device("cpu"), "plain"),
+    (3, F32, "cpu", "plain"),
+]
+
+
+@pytest.mark.parametrize("t,dtype,device,want", SSM_ROUTES, ids=str)
+def test_ssm_route_is_a_function_of_steps_dtype_device(t, dtype, device,
+                                                       want):
+    assert smod.route(t, dtype, device) == want
+
+
+def _ssm_args(b=2, t=9, d=8, n=4, dtype=F32, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((b, t, d), generator=g).to(dtype),
+            (0.3 * torch.randn((d, 2 * n + 1), generator=g)).to(dtype),
+            0.1 * torch.randn(d, generator=g),
+            torch.log(1 + torch.rand((d, n), generator=g)),
+            0.2 * torch.randn((b, d, n), generator=g))
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("t", [1, 9], ids=["step", "chunked"])
+def test_ssm_cpu_tensor_takes_plain_version_and_moves_no_counter(t, dtype):
+    args = _ssm_args(t=t, dtype=dtype)
+    total, by_route = smod.LAUNCHES, dict(smod.LAUNCHES_BY_ROUTE)
+    got = smod.ssm_scan_kernel(*args)
+    assert smod.LAUNCHES == total and smod.LAUNCHES_BY_ROUTE == by_route
+    want = ssm_scan_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_ssm_reset_launches_zeroes_every_route():
+    smod.LAUNCHES_BY_ROUTE["chunked"] += 2
+    smod.LAUNCHES_BY_ROUTE["step"] += 5
+    smod.LAUNCHES += 7
+    smod.reset_launches()
+    assert smod.LAUNCHES == 0
+    assert smod.LAUNCHES_BY_ROUTE == {"chunked": 0, "step": 0}
+
+
+@pytest.mark.parametrize("which", ["x_proj", "h0", "rank", "steps"])
+def test_ssm_wrapper_checks_shapes_first(which):
+    xc, x_proj, dt_bias, a_log, h0 = _ssm_args()
+    bad = {"x_proj": (xc, x_proj[:, :-1], dt_bias, a_log, h0),
+           "h0": (xc, x_proj, dt_bias, a_log, h0[:, :3]),
+           "rank": (xc[0], x_proj, dt_bias, a_log, h0),
+           "steps": (xc[:, :0], x_proj, dt_bias, a_log, h0)}[which]
+    before = (smod.LAUNCHES, dict(smod.LAUNCHES_BY_ROUTE))
+    with pytest.raises(ValueError):
+        smod.ssm_scan_kernel(*(a.to("meta") for a in bad))
+    with pytest.raises(ValueError):
+        smod.ssm_scan_kernel(*bad)
+    assert (smod.LAUNCHES, smod.LAUNCHES_BY_ROUTE) == before
+
+
+def test_ssm_wrapper_rejects_foreign_devices():
+    args = _ssm_args()
+    with pytest.raises(ValueError, match="several devices"):
+        smod.ssm_scan_kernel(args[0].to("meta"), *args[1:])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        smod.ssm_scan_kernel(*(a.to("meta") for a in args))

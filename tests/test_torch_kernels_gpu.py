@@ -468,40 +468,69 @@ def test_virtual_screening_on_cuda_equals_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 SSM_CASES = {
-    # name: (b, t, d, n, carried h0)
+    # name: (b, t, d, n, carried h0); the chunked route's chunk is
+    # smod.CHUNK = 128 steps
     "hymba_prefill": (4, 2048, 1600, 16, False),
     "hymba_decode": (4, 1, 1600, 16, True),
     "odd_t_33": (2, 33, 64, 16, True),
     "odd_t_100": (1, 100, 48, 8, True),
+    "chunk_minus_1": (2, 127, 96, 16, True),
+    "chunk": (2, 128, 96, 16, True),
+    "chunk_plus_1": (2, 129, 96, 16, True),
+    "t_2048_plus_17": (2, 2065, 200, 16, True),
     "odd_d": (3, 50, 1001, 16, False),
+    "odd_d_decode": (3, 1, 1001, 16, True),
     "n2": (2, 40, 37, 2, True),
     "n4": (2, 40, 37, 4, True),
     "n5": (1, 17, 9, 5, True),
+    "n5_decode": (2, 1, 9, 5, True),
     "n8": (2, 40, 37, 8, True),
     "n32": (1, 20, 40, 32, True),
+    "n32_decode": (2, 1, 40, 32, True),
 }
 # chip_smoke.ssm_compare holds y (and h) within 1e-3 of the largest
 # magnitude: both versions accumulate in f32, in another order
 
 
-def ssm_inputs(dev, seed, b, t, d, n, dtype, carried=True):
+def ssm_inputs(dev, seed, b, t, d, n, dtype, carried=True, **kw):
     """``chip_smoke.ssm_inputs`` from a seeded generator: inputs shaped
     like the model's."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return cs.ssm_inputs(dev, g, b, t, d, n, dtype, carried)
+    return cs.ssm_inputs(dev, g, b, t, d, n, dtype, carried, **kw)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("name", sorted(SSM_CASES))
 def test_ssm_kernel_matches_plain_version(cuda, name, dtype):
+    """One launch, on the route ``route`` names (step for T = 1, chunked
+    otherwise), within 1e-3 of the largest |value| of the plain
+    version."""
     b, t, d, n, carried = SSM_CASES[name]
     args = ssm_inputs(cuda, 13, b, t, d, n, dtype, carried)
-    before = smod.LAUNCHES
-    got = smod.ssm_scan_kernel(*args)
-    torch.cuda.synchronize()
-    assert smod.LAUNCHES - before == 1
-    cs.ssm_compare(name, got, ssm_scan_ref(*args))
+    kind, _, _, _ = cs.ssm_checked(name, args)
+    assert kind == ("step" if t == 1 else "chunked")
+
+
+def test_ssm_long_carried_state_reaches_every_chunk(cuda):
+    """dt ~2.5e-3 and a large h0: h0 still weighs in y past the first
+    chunk, so the carries between chunks are what the check holds."""
+    args = ssm_inputs(cuda, 17, 2, 2048, 256, 16, torch.bfloat16,
+                      h0_scale=10.0, dt_shift=-6.0)
+    _, (y, _), err, _ = cs.ssm_checked("long carried", args)
+    y0, _ = smod.ssm_scan_kernel(*args[:4], torch.zeros_like(args[4]))
+    assert float((y - y0)[:, smod.CHUNK:].abs().max()) > 100 * err
+
+
+def test_ssm_serial_kernel_matches_plain_version(cuda):
+    """The serial kernel the routes replaced, kept for timing beside
+    them: still right, and no launch counted."""
+    for t in (1, 300):
+        args = ssm_inputs(cuda, 18, 2, t, 96, 16, torch.bfloat16)
+        before = (smod.LAUNCHES, dict(smod.LAUNCHES_BY_ROUTE))
+        got = cs.ssm_serial(*args)
+        assert (smod.LAUNCHES, smod.LAUNCHES_BY_ROUTE) == before
+        cs.ssm_compare("serial", got, ssm_scan_ref(*args))
 
 
 def test_ssm_kernel_halves_chain_to_one_pass(cuda):
@@ -511,6 +540,11 @@ def test_ssm_kernel_halves_chain_to_one_pass(cuda):
     y1, h1 = ssm_scan_fused(xc[:, :137], x_proj, dt_bias, a_log, h0)
     y2, h2 = ssm_scan_fused(xc[:, 137:], x_proj, dt_bias, a_log, h1)
     cs.ssm_compare("chained", (torch.cat([y1, y2], 1), h2), (y, h))
+    # a decode step after a prefill == one pass over both
+    yd, hd = ssm_scan_fused(xc[:, 299:], x_proj, dt_bias, a_log,
+                            ssm_scan_fused(xc[:, :299], x_proj, dt_bias,
+                                           a_log, h0)[1])
+    cs.ssm_compare("prefill then step", (yd, hd), (y[:, 299:], h))
 
 
 def test_ssm_kernel_rejects_what_it_does_not_take(cuda):
@@ -548,12 +582,19 @@ def test_hybrid_layers_launch_ssm_once_per_layer(cuda):
     toks = torch.randint(0, cfg.vocab_size, (2, 1100), device=cuda,
                          generator=torch.Generator(device=cuda).manual_seed(8))
     s0, f0 = smod.LAUNCHES, fmod.LAUNCHES
+    r0 = dict(smod.LAUNCHES_BY_ROUTE)
+
+    def by_route():
+        return {r: smod.LAUNCHES_BY_ROUTE[r] - r0[r] for r in r0}
+
     with torch.no_grad():
         logits, caches = model.prefill(params, {"tokens": toks}, 1104)
         torch.cuda.synchronize()
         assert smod.LAUNCHES - s0 == 2 and fmod.LAUNCHES - f0 == 2
+        assert by_route() == {"chunked": 2, "step": 0}
         lg, caches = model.decode_step(params, caches, toks[:, -1])
         assert smod.LAUNCHES - s0 == 4 and fmod.LAUNCHES - f0 == 2
+        assert by_route() == {"chunked": 2, "step": 2}
         assert [c.kv.k.shape[2] for c in caches] == [1024, 1104]
         assert bool(torch.isfinite(logits).all()) and lg.shape == (
             2, cfg.vocab_size)

@@ -4,8 +4,11 @@
 CUDA kernel's plain version; it is held to the reference's Pallas kernel
 (``ssm_scan_fused(..., interpret=True)``, as ``tests/test_kernels_ssm.py``
 runs it) and to its sequential oracle ``ssm_scan_ref``, on inputs made
-with numpy from a seed.  Tolerance 1e-4 in f32, as the reference's own
-test.
+with numpy from a seed.  So is ``ssm_scan_chunked_ref``, the CUDA chunked
+route's two-level algebra (local scans from zero, the carries between
+chunks, the fix-up with ``exp(-A * cumdt)``) in tensor code, at chunk
+lengths 4, 16 and 128 and at T = 1, L-1, L, L+1 and 3L+5.  Tolerance
+1e-4 in f32, as the reference's own test.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +20,7 @@ from repro.kernels import ssm_scan_ref as R_ref
 from repro_torch.kernels.ssm_scan import (ssm_scan_fused, ssm_scan_kernel,
                                           ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import kernel as smod
-from repro_torch.kernels.ssm_scan.ref import softplus
+from repro_torch.kernels.ssm_scan.ref import softplus, ssm_scan_chunked_ref
 
 TOL = 1e-4
 
@@ -138,3 +141,51 @@ def test_softplus_matches_jax_past_the_threshold():
     want = np.asarray(jax.nn.softplus(jnp.asarray(x)))
     got = softplus(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-7, atol=0)
+
+
+@pytest.mark.parametrize("xc_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carried", [True, False], ids=["carried", "zero"])
+@pytest.mark.parametrize("chunk", [4, 16, 128])
+@pytest.mark.parametrize("t_of", ["1", "L-1", "L", "L+1", "3L+5"])
+def test_chunked_ref_matches_reference(t_of, chunk, carried, xc_dtype):
+    """The chunked route's algebra against the reference's kernel (run
+    with the same chunk) and its sequential oracle, at the chunk's
+    edges; a bf16 xc is widened to f32 by all three, so f32's TOL."""
+    t = {"1": 1, "L-1": chunk - 1, "L": chunk, "L+1": chunk + 1,
+         "3L+5": 3 * chunk + 5}[t_of]
+    xc, xp, dtb, al, h0 = _inputs(t + chunk, 2, t, 8, 4)
+    if not carried:
+        h0 = np.zeros_like(h0)
+    if xc_dtype == "bfloat16":
+        xc = np.array(jnp.asarray(xc, jnp.bfloat16).astype(jnp.float32))
+    ja = [jnp.asarray(a) for a in (xc, xp, dtb, al, h0)]
+    if xc_dtype == "bfloat16":
+        ja[0] = ja[0].astype(jnp.bfloat16)
+    ky, kh = R_fused(*ja, chunk=chunk, interpret=True)
+    ry, rh = R_ref(*ja)
+    xt = torch.from_numpy(xc).to(getattr(torch, xc_dtype))
+    y, h = ssm_scan_chunked_ref(xt, *[torch.from_numpy(a)
+                                      for a in (xp, dtb, al, h0)], chunk)
+    assert y.dtype == h.dtype == torch.float32
+    assert y.shape == (2, t, 8) and h.shape == (2, 8, 4)
+    for want_y, want_h in ((ky, kh), (ry, rh)):
+        _close(want_y, y)
+        _close(want_h, h)
+
+
+def test_chunked_ref_carries_a_slow_state_across_chunks():
+    """dt ~ 2.5e-3 and a large h0: h0 still weighs in y three chunks on,
+    so the carries (not the local scans) set y there; the chunked algebra
+    holds to the sequential oracle all the same, and never overflows
+    (no exp(+A * cumdt))."""
+    xc, xp, dtb, al, h0 = _inputs(9, 2, 64, 8, 4)
+    dtb = dtb - 6.0
+    h0 = h0 * 50.0
+    args = [torch.from_numpy(a) for a in (xc, xp, dtb, al, h0)]
+    y, h = ssm_scan_chunked_ref(*args, 8)
+    want_y, want_h = R_ref(*[jnp.asarray(a) for a in (xc, xp, dtb, al, h0)])
+    y0, _ = ssm_scan_chunked_ref(*args[:4], torch.zeros_like(args[4]), 8)
+    assert float((y - y0)[:, 24:].abs().max()) > 1.0    # h0 still there
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    _close(want_y, y)
+    _close(want_h, h)

@@ -43,7 +43,10 @@ GROUPS = {
     # flash_fwd_wgmma (bf16 at head dims 64, 128) and flash_fwd (others)
     "flash_attention": ("flash_fwd_wgmma", "flash_fwd"),
     "moe_dispatch": ("tile_rank", "scan_tiles", "add_base"),
-    "ssm_scan": ("ssm_proj_rows", "ssm_proj_sum", "ssm_scan_states"),
+    # chunked route: projection (tensor cores for bf16, CUDA cores for
+    # f32), chunk ends, carries and re-run; step route: one fused kernel
+    "ssm_scan": ("ssm_proj_mma", "ssm_proj_rows", "ssm_chunk_end",
+                 "ssm_chunk_carry", "ssm_chunk_scan", "ssm_step"),
     "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
     "memcpy_dtoh": ("Memcpy DtoH",),
 }
