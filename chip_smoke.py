@@ -11,20 +11,25 @@ Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
 chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
 runs), split into 8 logical shards:
 
-1. hold the segment-sum kernel against its plain PyTorch version on the
-   card, at the shapes the k-mer path gives it (combiner and merge) and on
-   edge cases, and time kernel, plain version and ``index_add_`` with
-   CUDA events;
+1. hold the segment-sum kernels against their plain PyTorch version on
+   the card, each case asserted on its route, at the shapes the k-mer path
+   gives them (combiner and merge), on edge cases, one hot key, and rows
+   too wide for the binned route's tiles (the atomic route);
 2. GC count (the paper's Listing 1: ``grep-chars GC`` -> ``awk-sum``)
    against an exact numpy count;
 3. k-mer statistics (``kmer-stats`` k=12 -> ``reduce_by_key`` sum) against
-   a numpy ``bincount``, with every launch counter read around it.
+   a numpy ``bincount``, with every launch counter read around it: 16
+   segment-sum calls (a combine and a merge a shard), all on the binned
+   route; the first combine's and the first merge's inputs are kept;
+4. on those real inputs, on a uniform stress merge and on one hot key,
+   time the binned route and the atomic kernel it replaced in turns with
+   CUDA events, beside the plain version, ``index_add_`` and the bound.
 
 Slice 2, LM serving at the full width of Llama-3.2-1B (16 layers,
 d_model 2048, 32/8 heads, vocab 128256, bf16, random weights from the
 seed):
 
-4. hold the flash-attention and RMSNorm kernels against their plain
+5. hold the flash-attention and RMSNorm kernels against their plain
    versions on the card, at the prefill's shapes and on edge cases, and
    time kernel, plain version and one library call
    (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events:
@@ -32,36 +37,36 @@ seed):
    granite, hymba windowed and global), its f32 (simt) route and the
    CUDA-core kernel on bf16 at Llama's; RMSNorm's one-pass path beside
    ``F.rms_norm`` and the two-pass loop, in turns;
-5. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
+6. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
    greedy tokens) with every launch counter read around it: one flash
    launch per layer, all on the wgmma route;
-6. the same prefill with plain attention, and teacher-forced decode
+7. the same prefill with plain attention, and teacher-forced decode
    against the forward pass, within stated bf16 tolerances;
-7. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
+8. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
    on the prefill's and a decode step's hidden-state shapes.
 
 Slice 3a, MoE serving at the full width of granite-moe-1b-a400m (24
 layers, d_model 1024, 16/8 heads, 32 experts top-8, expert d_ff 512,
 vocab 49155, bf16, random weights from the seed):
 
-8. hold the MoE-dispatch kernel against its plain version on the card,
+9. hold the MoE-dispatch kernel against its plain version on the card,
    bit for bit, at a prefill's and a decode step's shapes and on edge
    cases, and time it beside ``torch.sort(stable=True)`` +
    ``torch.bincount``;
-9. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
+10. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
    dispatch launch per layer in the prefill and in every decode step, one
    flash launch per layer in the prefill;
-10. the same prefill with the dispatch's plain version: the same
+11. the same prefill with the dispatch's plain version: the same
     positions and counts in every layer and the same logits; then
     teacher-forced decode against the forward pass.
 
 Slice 3b, the paper's virtual-screening pipeline (Listing 2) over a
 library of 2,097,152 molecules x 16 float32 features in 8 logical shards:
 
-11. hold the top-k kernel against its plain version on the card, bit for
+12. hold the top-k kernel against its plain version on the card, bit for
     bit, at a shard's shape (262,144 scores, k = 30) and on edge cases,
     and time it beside ``torch.topk``;
-12. ``map(tools/fred, rounds=8) -> reduce(toolbox/topk, k=30, depth=2) ->
+13. ``map(tools/fred, rounds=8) -> reduce(toolbox/topk, k=30, depth=2) ->
     collect()``: one top-k launch per ``toolbox/topk`` combine, the 30
     molecules equal to an oracle's over the whole library, the records
     equal to a plain top-k over the pipeline's own mapped scores.
@@ -71,7 +76,7 @@ layers, d_model 1600, 25/5 heads, window 1024 on all but the global layers
 0, 15 and 31, SSM state 16, vocab 32001, bf16, random weights from the
 seed):
 
-13. hold the selective-scan kernel against its plain version on the card
+14. hold the selective-scan kernel against its plain version on the card
     at hymba's prefill and decode shapes, at the chunk's edges (T = L-1,
     L, L+1, 2048+17), on a long carried case and on edge cases (odd T, d
     not a multiple of the block, n of 2 to 16, two halves chained
@@ -80,18 +85,21 @@ seed):
     serial kernel it replaced in turns, the step route by CUDA-graph
     replay and back to back, and the plain version; hold the flash kernel
     at hymba's GQA group 5 with window 1024 and without;
-14. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
+15. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
     SSM launch per layer in the prefill (chunked route) and in every
     decode step (step route): 1,024 in the request, 32 chunked and 992
     step; one flash launch per layer in the prefill;
-15. the same prefill with the reference's chunked scan in place of the
+16. the same prefill with the reference's chunked scan in place of the
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
 Every phase prints its wall time; the first failure exits non-zero.  A
-served bf16 prefill whose flash launches leave the wgmma route fails.
-The last lines are a JSON object describing the kernels (flash's and
-the SSM scan's ``launches_by_path`` split by route), the ``nvidia-smi``
+served bf16 prefill whose flash launches leave the wgmma route fails, as
+does a segment-sum launch off the binned route on the k-mer path.
+The last lines are a JSON object describing the kernels (flash's, the
+SSM scan's and the segment sum's ``launches_by_path`` split by route;
+the segment sum's times of the real merge, the stress merge and the hot
+key beside its real combine's), the ``nvidia-smi``
 line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
 without the repository's ``src/`` beside it) the script exits non-zero
 and prints no result.
@@ -151,11 +159,12 @@ def reset_launches() -> None:
 
 
 #: Each main path's launch counts, read just after it ran with every
-#: counter set to 0 just before it; flash's and the SSM scan's also by
-#: route.
+#: counter set to 0 just before it; flash's, the SSM scan's and the
+#: segment sum's also by route.
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
 SSM_ROUTES: dict = {}
+SEGMENT_ROUTES: dict = {}
 
 
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
@@ -164,24 +173,31 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
     flash launch took ``flash_route`` (a served bf16 prefill takes
-    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), and
-    unless the SSM scan's launches split by route as ``ssm_routes`` says
-    (none on any route when it is None)."""
+    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), unless
+    every segment-sum launch took the ``binned`` route, and unless the SSM
+    scan's launches split by route as ``ssm_routes`` says (none on any
+    route when it is None)."""
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
+    seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
     PATH_LAUNCHES[path] = got
     FLASH_ROUTES[path] = routes
     SSM_ROUTES[path] = ssm
+    SEGMENT_ROUTES[path] = seg
     want = {name: expect.get(name, 0) for name in got}
     want_routes = {r: got["flash_attention"] * (r == flash_route)
                    for r in routes}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
-    if got != want or routes != want_routes or ssm != want_ssm:
+    want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
+    if (got != want or routes != want_routes or ssm != want_ssm
+            or seg != want_seg):
         raise AssertionError(f"{path}: launches {got}, flash by route "
-                             f"{routes}, ssm_scan by route {ssm}; expected "
-                             f"{want}, {want_routes}, {want_ssm}")
+                             f"{routes}, ssm_scan by route {ssm}, "
+                             f"segment_sum by route {seg}; expected "
+                             f"{want}, {want_routes}, {want_ssm}, "
+                             f"{want_seg}")
     return got
 
 
@@ -339,15 +355,13 @@ def bound_ms(n: int, n_valid: int, d: int, num_keys: int) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def time_kernel(keys, vals, valid, num_keys):
-    """ms of kernel, plain version and one ``index_add_`` call (the
+def plain_and_library_ms(keys, vals, valid, num_keys):
+    """ms of the plain version and of one ``index_add_`` call (the
     library yardstick: pre-masked sentinel keys, counts as an extra
     column), same inputs."""
     import torch
-    from repro_torch.kernels.segment_reduce.kernel import segment_sum
     from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
     n, d = vals.shape
-    ms = cuda_ms(lambda: segment_sum(keys, vals, num_keys, valid))
     plain = cuda_ms(lambda: segment_sum_ref(keys, vals, num_keys, valid))
     idx = torch.where(valid & (keys >= 0) & (keys < num_keys), keys,
                       num_keys).long()
@@ -356,16 +370,63 @@ def time_kernel(keys, vals, valid, num_keys):
     table = torch.zeros((num_keys + 1, d + 1), dtype=vals.dtype,
                         device=vals.device)
     lib = cuda_ms(lambda: table.index_add_(0, idx, aug))
-    return ms, plain, lib
+    return plain, lib
 
 
-def kernel_phase(ds, cap2: int):
-    """Kernel vs plain version on the card at the k-mer path's shapes,
-    plus edge cases; returns the JSON record for the combiner shape."""
+def time_kernel(keys, vals, valid, num_keys):
+    """ms of the kernel wrapper, the plain version and ``index_add_``."""
+    from repro_torch.kernels.segment_reduce.kernel import segment_sum
+    ms = cuda_ms(lambda: segment_sum(keys, vals, num_keys, valid))
+    return (ms, *plain_and_library_ms(keys, vals, valid, num_keys))
+
+
+def segment_atomic(keys, vals, num_keys, valid):
+    """The parent's segment sum (one thread a record, global atomics into
+    outputs zero-filled first; the atomic route now) through its C entry,
+    memsets included: timed beside the binned route in turns, never a
+    route of the port's wrapper here, so it counts no launch."""
+    import torch
+    from repro_torch.kernels.build import check_launch
+    from repro_torch.kernels.segment_reduce import kernel as kmod
+    n, d = vals.shape
+    dev = vals.device
+    table = torch.zeros((num_keys, d), dtype=vals.dtype, device=dev)
+    counts = torch.zeros((num_keys,), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((1,), dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    entry = ("segment_sum_atomic_i32" if vals.dtype == torch.int32
+             else "segment_sum_atomic_f32")
+    err = getattr(kmod.LIBRARY.load(), entry)(
+        keys.data_ptr(), vals.data_ptr(), valid.data_ptr(), n, d, num_keys,
+        table.data_ptr(), counts.data_ptr(), overflow.data_ptr(), sms * 16,
+        torch.cuda.current_stream().cuda_stream)
+    check_launch("segment_sum (atomic)", err)
+    return table, counts, overflow
+
+
+def segment_check(name, got, keys, vals, valid, nk) -> tuple:
+    """(max abs error, atol) of a segment sum's outputs against the plain
+    version; raises on disagreement.  A float32 table is held to the plain
+    version in float64 (the kernels add in another order): atol 1e-6 x
+    the largest per-key count x the largest valid |value|."""
+    import torch
+    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
+    if vals.dtype != torch.float32:
+        return compare(name, got, segment_sum_ref(keys, vals, nk, valid)), 0.0
+    want = segment_sum_ref(keys, vals.double(), nk, valid)
+    vmax = float(vals[valid].abs().max()) if bool(valid.any()) else 0.0
+    atol = 1e-6 * int(want[1].max()) * vmax
+    return compare(name, got, want, atol), atol
+
+
+def kernel_phase(ds, cap2: int) -> dict:
+    """The segment-sum kernels against the plain version on the card, each
+    case asserted on its route: the combiner's shape, a uniform merge,
+    edge cases, one hot key, rows too wide for a tile (the atomic route);
+    returns the errors by case."""
     import torch
     from repro_torch.core import images
     from repro_torch.kernels.segment_reduce import kernel as kmod
-    from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
     seg = kmod.segment_sum
     dev = ds.device
     g = torch.Generator(device=dev).manual_seed(1)
@@ -376,13 +437,7 @@ def kernel_phase(ds, cap2: int):
     cvalid = part.mask()
     cvals = cones.reshape(-1, 1).contiguous()
     n_c = ckeys.shape[0]
-    # merge input: 8 received buckets of (key, value, count) partials
-    n_m = NUM_SHARDS * cap2
-    mkeys = torch.randint(0, num_keys, (n_m,), device=dev,
-                          dtype=torch.int32, generator=g)
-    mvals = torch.randint(1, 50, (n_m, 2), device=dev, dtype=torch.int32,
-                          generator=g)
-    mvalid = torch.rand(n_m, device=dev, generator=g) < 0.95
+    mkeys, mvals, mvalid = uniform_merge(dev, g, NUM_SHARDS * cap2)
     cases = [
         ("combiner", ckeys, cvals, cvalid, num_keys),
         ("merge d=2", mkeys, mvals, mvalid, num_keys),
@@ -396,58 +451,125 @@ def kernel_phase(ds, cap2: int):
     evalid = torch.rand(n_e, device=dev, generator=g) < 0.7
     fvals = torch.randn((n_e, 3), device=dev, generator=g)
     fvals[~evalid] = float("nan")      # padding may hold NaN
+    wide = torch.randint(-100, 100, (n_e // 8, 100), device=dev,
+                         dtype=torch.int32, generator=g)
     cases += [
         ("out-of-range keys, odd num_keys", ekeys, evals, evalid, 1000003),
         ("float32", ekeys, fvals, evalid, 1000003),
         ("all masked", ekeys, evals, torch.zeros_like(evalid), 1000003),
-        ("one hot key", torch.full((n_c,), 12345, device=dev,
-                                   dtype=torch.int32), cvals, cvalid,
+        ("one hot key", hot_keys(n_c, dev), cvals, cvalid, num_keys),
+        ("one hot key, float32", hot_keys(n_c, dev), cvals.float(), cvalid,
          num_keys),
+        ("rows of 100 (atomic route)", ekeys[:n_e // 8], wide,
+         evalid[:n_e // 8], 1000003),
+        ("rows of 100, float32 (atomic route)", ekeys[:n_e // 8],
+         wide.float(), evalid[:n_e // 8], 1000003),
         ("n=0", ekeys[:0], evals[:0], evalid[:0], 1000003),
     ]
     errs = {}
     for name, keys, vals, valid, nk in cases:
         t0 = time.perf_counter()
-        before = kmod.LAUNCHES
+        n, d = vals.shape
+        kind = kmod.route(nk, d, n, dev)
+        before = kmod.LAUNCHES, dict(kmod.LAUNCHES_BY_ROUTE)
         got = seg(keys, vals, nk, valid)
         torch.cuda.synchronize()
-        launched = kmod.LAUNCHES - before
-        atol = 0.0
-        if vals.dtype == torch.float32:
-            # plain version in float64; the atomics add in another order,
-            # so allow 1e-6 x (largest per-key count) x max |valid value|
-            want = segment_sum_ref(keys, vals.double(), nk, valid)
-            atol = (1e-6 * int(want[1].max())
-                    * float(vals[valid].abs().max()))
-        else:
-            want = segment_sum_ref(keys, vals, nk, valid)
-        errs[name] = compare(name, got, want, atol)
-        expect = 0 if keys.shape[0] == 0 else 1
-        if launched != expect:
-            raise AssertionError(f"{name}: {launched} launches, expected "
-                                 f"{expect}")
+        errs[name], atol = segment_check(name, got, keys, vals, valid, nk)
+        want = dict(before[1])
+        if n:
+            want[kind] += 1
+        launched = kmod.LAUNCHES - before[0]
+        if (launched, kmod.LAUNCHES_BY_ROUTE) != (int(n > 0), want):
+            raise AssertionError(f"{name}: {launched} launches, by route "
+                                 f"{kmod.LAUNCHES_BY_ROUTE}; expected "
+                                 f"{int(n > 0)} on {kind}")
         phase(f"kernel check {name}", t0,
-              f"n={keys.shape[0]} d={vals.shape[1]} num_keys={nk} "
+              f"n={n} d={d} num_keys={nk} route={kind} "
               f"max_abs_err={errs[name]} atol={atol} "
               f"overflow={int(got[2][0])}")
-    timings = {}
-    for name, keys, vals, valid, nk in (
-            ("combiner", ckeys, cvals, cvalid, num_keys),
-            ("merge d=2", mkeys, mvals, mvalid, num_keys)):
+    return errs
+
+
+def uniform_merge(dev, g, n: int):
+    """A stress merge: n keys drawn uniformly over all 4**K keys, (value,
+    count) columns, 95% valid."""
+    import torch
+    keys = torch.randint(0, 4 ** K, (n,), device=dev, dtype=torch.int32,
+                         generator=g)
+    vals = torch.randint(1, 50, (n, 2), device=dev, dtype=torch.int32,
+                         generator=g)
+    return keys, vals, torch.rand(n, device=dev, generator=g) < 0.95
+
+
+def hot_keys(n: int, dev):
+    import torch
+    return torch.full((n,), 12345, device=dev, dtype=torch.int32)
+
+
+def timing_phase(real: dict, ds, cap2: int, errs: dict) -> dict:
+    """Time the binned route against the parent's atomic kernel in turns
+    (binned, atomic, atomic, binned), with the plain version, one
+    ``index_add_`` and the bytes bound, on the k-mer action's own first
+    combine and first merge inputs (``real``, by d), on the uniform stress
+    merge and on one hot key over the combine's records; returns the
+    segment-sum JSON record (``ms`` etc. of the real combine)."""
+    import torch
+    from repro_torch.kernels.segment_reduce.kernel import segment_sum
+    dev = ds.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    ckeys, cvals, cvalid, nk = real[1]
+    cases = {"real combine": real[1], "real merge": real[2],
+             "stress merge": (*uniform_merge(dev, g, NUM_SHARDS * cap2), nk),
+             "one hot key": (hot_keys(ckeys.shape[0], dev), cvals, cvalid,
+                             nk)}
+    out = {}
+    for name, (keys, vals, valid, nk) in cases.items():
         t0 = time.perf_counter()
-        ms, plain, lib = time_kernel(keys, vals, valid, nk)
         n, d = vals.shape
-        bnd = bound_ms(n, int(valid.sum()), d, nk)
-        timings[name] = (ms, plain, lib, bnd)
+        n_valid = int(valid.sum())
+        errs[f"{name} (atomic)"] = segment_check(
+            name, segment_atomic(keys, vals, nk, valid), keys, vals, valid,
+            nk)[0]
+        (binned, atomic), singles = in_turns(cuda_ms, [
+            lambda: segment_sum(keys, vals, nk, valid),
+            lambda: segment_atomic(keys, vals, nk, valid)])
+        plain, lib = plain_and_library_ms(keys, vals, valid, nk)
+        bnd = bound_ms(n, n_valid, d, nk)
+        out[name] = dict(ms=binned, atomic_ms=atomic, plain_ms=plain,
+                         library_ms=lib, bound_ms=bnd)
+        turns = [round(t, 4) for t in singles]
         phase(f"kernel timing {name}", t0,
-              f"n={n} d={d} num_keys={nk} kernel_ms={ms:.4f} "
-              f"plain_ms={plain:.4f} index_add_ms={lib:.4f} "
-              f"bound_ms={bnd:.4f}")
-    ms, plain, lib, bnd = timings["combiner"]
+              f"n={n} d={d} num_keys={nk} valid={n_valid} "
+              f"valid_share={n_valid / n:.4f} binned_ms={binned:.4f} "
+              f"atomic_ms={atomic:.4f} in_turns={turns} plain_ms="
+              f"{plain:.4f} index_add_ms={lib:.4f} bound_ms={bnd:.4f}")
+    comb, merge = out["real combine"], out["real merge"]
     return {"name": "segment_sum", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES, "launches": None,
-            "max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": "bytes", "library_ms": lib}
+            "max_abs_err": max(errs.values()), "ms": comb["ms"],
+            "plain_ms": comb["plain_ms"], "bound_ms": comb["bound_ms"],
+            "bound_by": "bytes", "library_ms": comb["library_ms"],
+            "atomic_ms": comb["atomic_ms"], "merge_ms": merge["ms"],
+            "merge_atomic_ms": merge["atomic_ms"],
+            "merge_plain_ms": merge["plain_ms"],
+            "merge_bound_ms": merge["bound_ms"],
+            "merge_library_ms": merge["library_ms"],
+            "stress_merge_ms": out["stress merge"]["ms"],
+            "stress_merge_atomic_ms": out["stress merge"]["atomic_ms"],
+            "hot_key_ms": out["one hot key"]["ms"],
+            "hot_key_atomic_ms": out["one hot key"]["atomic_ms"]}
+
+
+def capturing(fn, keep: dict, calls: list):
+    """``fn`` (the segment sum) that also logs each call's d in ``calls``
+    and keeps clones of the first call's inputs at each d in ``keep``."""
+    def segment_sum(keys, values, num_keys, valid):
+        d = values.shape[1]
+        calls.append(d)
+        if d not in keep:
+            keep[d] = (keys.clone(), values.clone(), valid.clone(), num_keys)
+        return fn(keys, values, num_keys, valid)
+    return segment_sum
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +584,7 @@ def kmer_slice(seed: int) -> dict:
     from repro_torch.core.shuffle import keyed_bucket_capacity
     from repro_torch.io import fasta_source
     from repro_torch.kernels.segment_reduce import kernel as kmod
+    from repro_torch.kernels.segment_reduce import ops
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -481,7 +604,8 @@ def kmer_slice(seed: int) -> dict:
               f"width={ds.records['data'].shape[1]} "
               f"records={int(ds.counts.sum())} device={ds.device}")
 
-        record = kernel_phase(ds, keyed_bucket_capacity(4 ** K, NUM_SHARDS))
+        cap2 = keyed_bucket_capacity(4 ** K, NUM_SHARDS)
+        errs = kernel_phase(ds, cap2)
 
         # GC count: the paper's Listing 1
         t0 = time.perf_counter()
@@ -505,24 +629,31 @@ def kmer_slice(seed: int) -> dict:
         phase("numpy k-mer reference", t0,
               f"windows={int(want_table.sum())} "
               f"distinct={int((want_table > 0).sum())}")
+        # the action's own segment-sum inputs are kept (first combine,
+        # d = 1; first merge, d = 2) for the timing phase
         t0 = time.perf_counter()
+        real: dict = {}
+        calls: list = []
         reset_launches()
-        stats = (MaRe.from_source(src, num_shards=NUM_SHARDS)
-                 .map(image="kmer-stats", command=f"kmer-stats {K}")
-                 .reduce_by_key(lambda r: r[0], value_by=lambda r: (r[1],),
-                                op="sum"))
-        desc = stats.describe()
-        keys, (occ,), cnt = stats.collect()
-        launches = kmod.LAUNCHES
-        if launches == 0:
-            raise AssertionError("the k-mer path launched no segment-sum "
-                                 "kernel")
-        read_launches("kmer", {"segment_sum": launches})
+        ops.segment_sum = capturing(kmod.segment_sum, real, calls)
+        try:
+            stats = (MaRe.from_source(src, num_shards=NUM_SHARDS)
+                     .map(image="kmer-stats", command=f"kmer-stats {K}")
+                     .reduce_by_key(lambda r: r[0],
+                                    value_by=lambda r: (r[1],), op="sum"))
+            desc = stats.describe()
+            keys, (occ,), cnt = stats.collect()
+        finally:
+            ops.segment_sum = kmod.segment_sum
+        # one combine and one merge a shard
+        read_launches("kmer", {"segment_sum": 2 * NUM_SHARDS})
+        if calls != [1] * NUM_SHARDS + [2] * NUM_SHARDS:
+            raise AssertionError(f"k-mer segment-sum calls by d: {calls}")
         report = stats.report()
-        record["launches"] = launches
         print(desc, flush=True)
         phase("k-mer reduce_by_key", t0,
-              f"keys={len(keys)} launches={launches} "
+              f"keys={len(keys)} launches={kmod.LAUNCHES} "
+              f"by_route={json.dumps(kmod.LAUNCHES_BY_ROUTE)} "
               f"action_wall_s={report.wall_s:.6f} "
               f"diagnostics={json.dumps(report.diagnostics)}")
         print("[report] phases " + json.dumps(report.phases), flush=True)
@@ -544,6 +675,8 @@ def kmer_slice(seed: int) -> dict:
         if not np.array_equal(occ, cnt):
             raise AssertionError("occurrences != record counts")
         phase("k-mer check", t0, "table == numpy bincount, on cuda")
+        record = timing_phase(real, ds, cap2, errs)
+        record["launches"] = 2 * NUM_SHARDS
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1988,7 +2121,8 @@ def main() -> int:
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
             if got.get(rec["name"])}
         by_route = {"flash_attention": FLASH_ROUTES,
-                    "ssm_scan": SSM_ROUTES}.get(rec["name"])
+                    "ssm_scan": SSM_ROUTES,
+                    "segment_sum": SEGMENT_ROUTES}.get(rec["name"])
         if by_route is not None:
             rec["launches_by_path"] = {
                 path: by_route[path] for path in rec["launches_by_path"]}

@@ -11,10 +11,15 @@ one-sync-per-action error channel instead of silently corrupting rows.
   (``scatter_add_`` / ``scatter_reduce_`` per leaf into a
   sentinel-extended table).
 * :func:`segment_sum_ref` is the plain version of the CUDA segment-sum
-  kernel (``kernel.py``) with the kernel's exact signature — one
-  ``[n, d]`` value matrix — as a thin call into
-  :func:`segment_reduce_ref`.  The CPU path and the on-card comparison
-  use it.
+  kernels (``kernel.py``) with their exact signature — one ``[n, d]``
+  value matrix — as a thin call into :func:`segment_reduce_ref`.  The CPU
+  path and the on-card comparison use it.
+* :func:`segment_sum_binned_ref` is the binned route's algebra in tensor
+  code (tile histogram, partition by tile, per-tile fold, hot tiles split
+  into items of ``split`` records), so that its tile arithmetic is tested
+  on the CPU.  Nothing on the CUDA path calls it.  (The CUDA partition
+  takes two steps, by buckets of 64 tiles and then by tile, and orders
+  rows within a tile as its atomics fall; int32 sums do not see it.)
 """
 from __future__ import annotations
 
@@ -25,6 +30,11 @@ import torch
 from repro_torch.core import tree
 
 MONOIDS = ("sum", "max", "min")
+
+#: Records a fold item of the binned route takes: a tile holding more is
+#: folded in several items (the first writes the tile, the others add to
+#: it), so that one hot tile does not serialise on one block.
+SPLIT = 8192
 
 
 class SegmentReduceResult(NamedTuple):
@@ -74,6 +84,76 @@ def segment_sum_ref(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
     (table,), counts, overflow = segment_reduce_ref(keys, (values,), num_keys,
                                                     valid=valid)
     return table, counts, overflow.reshape(1)
+
+
+def bin_tiles(keys: torch.Tensor, valid: torch.Tensor, num_keys: int,
+              key_block: int, split: int = SPLIT):
+    """The binned route's layout: ``(ok, tile, tile_start, extra_start,
+    overflow)``.  ``ok`` marks valid in-range records and ``tile`` is
+    their key tile (``key // key_block``); ``tile_start`` [tiles + 1] is
+    the exclusive scan of the tiles' record counts, ``extra_start``
+    [tiles + 1] that of their extra fold items (``(c - 1) // split`` for a
+    tile of c > split records), and ``overflow`` [1] counts the valid
+    out-of-range records once."""
+    keys = keys.to(torch.int32)
+    tiles = -(-num_keys // key_block)
+    in_range = (keys >= 0) & (keys < num_keys)
+    ok = valid & in_range
+    overflow = (valid & ~in_range).sum().to(torch.int32).reshape(1)
+    tile = torch.where(ok, keys // key_block, tiles).long()
+    per_tile = torch.bincount(tile[ok], minlength=tiles)
+    extras = torch.where(per_tile > split, (per_tile - 1) // split, 0)
+    zero = per_tile.new_zeros(1)
+    tile_start = torch.cat([zero, per_tile.cumsum(0)])
+    extra_start = torch.cat([zero, extras.cumsum(0)])
+    return ok, tile, tile_start, extra_start, overflow
+
+
+def segment_sum_binned_ref(keys: torch.Tensor, values: torch.Tensor,
+                           num_keys: int, valid: torch.Tensor,
+                           key_block: int, split: int = SPLIT):
+    """The binned route in tensor code; same signature and results as
+    :func:`segment_sum_ref` (int32 bit for bit).
+
+    1-3. bin the valid in-range records by key tile (:func:`bin_tiles`);
+    4. partition them into tile order (stable: record order in a tile);
+    5. fold each tile's first ``split`` records into a zeroed tile and
+       write the whole tile, zeros included;
+    6. fold each extra item ``j`` (item ``q >= 1`` of the last tile whose
+       ``extra_start <= j``) the same way and add it to its tile.
+    """
+    n, d = values.shape
+    dev = keys.device
+    ok, tile, tile_start, extra_start, overflow = bin_tiles(
+        keys, valid, num_keys, key_block, split)
+    tiles = tile_start.numel() - 1
+    order = torch.argsort(tile, stable=True)[:int(tile_start[-1])]
+    local = (keys.long() - tile * key_block)[order]
+    rows = values[order]
+
+    def fold(t: int, q: int):
+        first = t * key_block
+        width = min(key_block, num_keys - first)
+        lo = int(tile_start[t]) + q * split
+        hi = min(int(tile_start[t + 1]), lo + split)
+        tab = torch.zeros((width, d), dtype=values.dtype, device=dev)
+        cnt = torch.zeros((width,), dtype=torch.int32, device=dev)
+        tab.index_add_(0, local[lo:hi], rows[lo:hi])
+        cnt.index_add_(0, local[lo:hi], torch.ones(hi - lo, dtype=torch.int32,
+                                                   device=dev))
+        return slice(first, first + width), tab, cnt
+
+    table = torch.empty((num_keys, d), dtype=values.dtype, device=dev)
+    counts = torch.empty((num_keys,), dtype=torch.int32, device=dev)
+    for t in range(tiles):
+        rng, tab, cnt = fold(t, 0)
+        table[rng], counts[rng] = tab, cnt
+    for j in range(int(extra_start[-1])):
+        t = int(torch.searchsorted(extra_start[:tiles], j, right=True)) - 1
+        rng, tab, cnt = fold(t, j - int(extra_start[t]) + 1)
+        table[rng] += tab
+        counts[rng] += cnt
+    return table, counts, overflow
 
 
 def segment_reduce_ref(keys: torch.Tensor, values: Any, num_keys: int,

@@ -4,7 +4,10 @@ or steps) and device alone, on the CPU: the flash wrapper's routes
 CUDA call, the plain version for a CPU tensor), RMSNorm's paths (one pass
 where the row fits in registers, else the two-pass loop) and the
 selective scan's routes (``step`` for a decode step, T = 1; ``chunked``
-for T > 1; the plain version for a CPU tensor).  A CPU call moves no
+for T > 1; the plain version for a CPU tensor) and the segment sum's
+(``binned`` for one to three value columns over a key space it can
+tile, ``atomic`` otherwise, from the key space, the value columns and
+the record count alone).  A CPU call moves no
 launch counter; the wrappers' argument checks raise before any route is
 taken.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
@@ -15,6 +18,8 @@ from repro_torch.kernels.flash_attention import kernel as fmod
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.rmsnorm import kernel as rmod
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.segment_reduce import kernel as kmod
+from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
 from repro_torch.kernels.ssm_scan import kernel as smod
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -208,3 +213,64 @@ def test_ssm_wrapper_rejects_foreign_devices():
         smod.ssm_scan_kernel(args[0].to("meta"), *args[1:])
     with pytest.raises(ValueError, match="cpu or cuda"):
         smod.ssm_scan_kernel(*(a.to("meta") for a in args))
+
+
+SEGMENT_ROUTES = [
+    # num_keys, d, n, device, route
+    (4 ** 12, 1, 5_383_104, CUDA, "binned"),      # the k-mer combine
+    (4 ** 12, 2, 16_784_112, CUDA, "binned"),     # the k-mer merge
+    (4 ** 12, 3, 10, CUDA, "binned"),             # 8,192 tiles of 2,048
+    (2 * 4 ** 12, 3, 10, CUDA, "atomic"),         # 16,384 tiles
+    (2 ** 25, 1, 10, CUDA, "binned"),             # 8,192 tiles of 4,096
+    (2 ** 25 + 1, 1, 10, CUDA, "atomic"),
+    (1000003, 4, 10, CUDA, "atomic"),             # rows past 16 bytes
+    (100, 128, 3000, CUDA, "atomic"),
+    (100, 0, 3000, CUDA, "atomic"),               # counts only
+    (1, 1, 1, CUDA, "binned"),
+    (10, 1, 2 ** 31 - 1, CUDA, "binned"),
+    (10, 1, 2 ** 31, CUDA, "atomic"),             # positions past int32
+    (4 ** 12, 1, 5_383_104, "cpu", "plain"),
+    (100, 128, 3000, torch.device("cpu"), "plain"),
+]
+
+
+@pytest.mark.parametrize("num_keys,d,n,device,want", SEGMENT_ROUTES,
+                         ids=str)
+def test_segment_route_is_a_function_of_keys_columns_records(num_keys, d,
+                                                             n, device,
+                                                             want):
+    assert kmod.route(num_keys, d, n, device) == want
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_segment_cpu_tensor_takes_plain_version_and_moves_no_counter(d):
+    g = torch.Generator().manual_seed(3)
+    keys = torch.randint(-2, 40, (500,), dtype=torch.int32, generator=g)
+    valid = torch.rand(500, generator=g) < 0.7
+    vals = torch.randint(-9, 9, (500, d), dtype=torch.int32, generator=g)
+    total, by_route = kmod.LAUNCHES, dict(kmod.LAUNCHES_BY_ROUTE)
+    got = kmod.segment_sum(keys, vals, 37, valid)
+    assert kmod.LAUNCHES == total and kmod.LAUNCHES_BY_ROUTE == by_route
+    want = segment_sum_ref(keys, vals, 37, valid)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_segment_reset_launches_zeroes_every_route():
+    kmod.LAUNCHES_BY_ROUTE["binned"] += 16
+    kmod.LAUNCHES_BY_ROUTE["atomic"] += 1
+    kmod.LAUNCHES += 17
+    kmod.reset_launches()
+    assert kmod.LAUNCHES == 0
+    assert kmod.LAUNCHES_BY_ROUTE == {"binned": 0, "atomic": 0}
+
+
+def test_segment_wrapper_rejects_foreign_devices_before_a_route():
+    keys = torch.zeros(4, dtype=torch.int32, device="meta")
+    vals = torch.zeros((4, 1), dtype=torch.int32, device="meta")
+    valid = torch.ones(4, dtype=torch.bool, device="meta")
+    before = (kmod.LAUNCHES, dict(kmod.LAUNCHES_BY_ROUTE))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kmod.segment_sum(keys, vals, 3, valid)
+    with pytest.raises(ValueError, match="several devices"):
+        kmod.segment_sum(torch.zeros(4, dtype=torch.int32), vals, 3, valid)
+    assert (kmod.LAUNCHES, kmod.LAUNCHES_BY_ROUTE) == before

@@ -52,49 +52,99 @@ CASES = {
     "all_masked": dict(n=1280, num_keys=16, valid_frac=0.0),
     "hot_key": dict(n=40000, num_keys=50, hot=7),
     "empty": dict(n=0, num_keys=9),
+    # every record on one key: one tile past SPLIT, folded in many items
+    "one_hot_key": dict(n=100000, num_keys=4 ** 12, hot=12345,
+                        hot_frac=1.0, valid_frac=1.0),
+    # many tiles, a tile edge every key_block keys
+    "k_mer_space": dict(n=300000, num_keys=4 ** 12),
+    # rows of more than three value columns: the atomic route
+    "wide_rows": dict(n=3000, num_keys=1000, cols=100),
+    "wide_rows_hot": dict(n=20000, num_keys=100, cols=128, hot=3),
+    "rows_of_4": dict(n=20000, num_keys=3000, cols=5),
+    # one value column (the float32 table of a two-column case)
+    "rows_of_1": dict(n=30000, num_keys=70001, cols=2),
 }
 
 
-def _case(seed, n, num_keys, hot=None, valid_frac=0.8):
+def _case(seed, n, num_keys, hot=None, valid_frac=0.8, hot_frac=0.9,
+          cols=3):
     rng = np.random.default_rng(seed)
     keys = rng.integers(-3, num_keys + 5, size=n).astype(np.int32)
     if hot is not None:
-        keys[rng.random(n) < 0.9] = hot
+        keys[rng.random(n) < hot_frac] = hot
     valid = rng.random(n) < valid_frac
-    ints = rng.integers(-50, 100, size=(n, 3)).astype(np.int32)
-    floats = rng.normal(size=(n, 2)).astype(np.float32)
+    ints = rng.integers(-50, 100, size=(n, cols)).astype(np.int32)
+    floats = rng.normal(size=(n, max(cols - 1, 1))).astype(np.float32)
     floats[~valid] = np.nan            # padding may hold NaN
     return keys, valid, ints, floats
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain_version(cuda, name):
-    c = CASES[name]
+    c = dict(CASES[name])
     keys, valid, ints, floats = _case(6, **c)
     k = torch.from_numpy(keys).to(cuda)
     v = torch.from_numpy(valid).to(cuda)
     before = kmod.LAUNCHES
+    by_route = dict(kmod.LAUNCHES_BY_ROUTE)
     for vals in (ints, floats):
         vals = torch.from_numpy(vals).to(cuda)
+        kind = kmod.route(c["num_keys"], vals.shape[1], c["n"], cuda)
         got = segment_sum(k, vals, c["num_keys"], v)
         torch.cuda.synchronize()
-        want = segment_sum_ref(k, vals, c["num_keys"], v)
-        for a, b in zip(got, want):
-            assert a.dtype == b.dtype and a.device == b.device
-        # counts and overflow are int32 in both cases: exact
-        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-        if vals.dtype == torch.int32:
-            assert torch.equal(got[0], want[0])
-        else:
-            # atomics add in another order: hold the table to the plain
-            # version in float64, atol tied to the largest per-key count
-            # and the largest valid value
-            want64 = segment_sum_ref(k, vals.double(), c["num_keys"], v)[0]
-            vmax = float(vals[v].abs().max()) if bool(v.any()) else 0.0
-            atol = 1e-6 * int(want[1].max()) * vmax
-            torch.testing.assert_close(got[0].double(), want64, rtol=1e-5,
-                                       atol=atol)
+        # counts, overflow and an int32 table bit for bit; a float32
+        # table to the plain version in float64 (stated in segment_check)
+        cs.segment_check(name, got, k, vals, v, c["num_keys"])
+        if c["n"]:
+            by_route[kind] += 1
     assert kmod.LAUNCHES - before == (2 if c["n"] else 0)
+    assert kmod.LAUNCHES_BY_ROUTE == by_route
+
+
+def test_merge_like_runs_match_plain_version(cuda):
+    """A merge's input: eight buckets, each an ascending run of distinct
+    keys compacted to the front, ~25% of the slots valid."""
+    rng = np.random.default_rng(9)
+    num_keys, cap = 4 ** 12, 1 << 18
+    keys = np.zeros((8, cap), np.int32)
+    valid = np.zeros((8, cap), bool)
+    for b in range(8):
+        m = int(cap * rng.uniform(0.2, 0.3))
+        keys[b, :m] = np.sort(rng.choice(num_keys, m, replace=False))
+        keys[b, m:] = rng.integers(-9, num_keys + 9, cap - m)  # stale slots
+        valid[b, :m] = True
+    ints = rng.integers(1, 60, size=(8 * cap, 2)).astype(np.int32)
+    k = torch.from_numpy(keys.reshape(-1)).to(cuda)
+    v = torch.from_numpy(valid.reshape(-1)).to(cuda)
+    vals = torch.from_numpy(ints).to(cuda)
+    assert kmod.route(num_keys, 2, k.numel(), cuda) == "binned"
+    cs.segment_check("merge-like", segment_sum(k, vals, num_keys, v), k,
+                     vals, v, num_keys)
+
+
+@pytest.mark.parametrize("cols", [1, 2, 3])
+def test_binned_route_writes_every_row_of_dirty_memory(cuda, cols):
+    """The binned route allocates its outputs with torch.empty: after a
+    large tensor full of a nonzero pattern is freed, the allocator hands
+    its memory back, and every absent key must still read 0."""
+    num_keys = 1000003
+    junk = torch.full((num_keys * 8,), -7, dtype=torch.int32, device=cuda)
+    del junk
+    rng = np.random.default_rng(10)
+    keys = rng.integers(0, num_keys, 5000).astype(np.int32)
+    k = torch.from_numpy(keys).to(cuda)
+    v = torch.ones(5000, dtype=torch.bool, device=cuda)
+    vals = torch.from_numpy(
+        rng.integers(1, 9, size=(5000, cols)).astype(np.int32)).to(cuda)
+    assert kmod.route(num_keys, cols, 5000, cuda) == "binned"
+    table, counts, overflow = segment_sum(k, vals, num_keys, v)
+    absent = torch.ones(num_keys, dtype=torch.bool, device=cuda)
+    absent[k.long()] = False
+    assert int(absent.sum()) > num_keys - 5000
+    assert not bool(counts[absent].any()) and not bool(table[absent].any())
+    assert int(overflow[0]) == 0
+    want = segment_sum_ref(k, vals, num_keys, v)
+    assert torch.equal(table, want[0]) and torch.equal(counts, want[1])
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
