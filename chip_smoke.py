@@ -51,11 +51,16 @@ vocab 49155, bf16, random weights from the seed):
 
 9. hold the MoE-dispatch kernel against its plain version on the card,
    bit for bit, at a prefill's and a decode step's shapes and on edge
-   cases, and time it beside ``torch.sort(stable=True)`` +
-   ``torch.bincount``;
+   cases, each asserted on its route (``cluster`` up to the cluster's
+   reach of 131,072 ids over at most 1,024 groups, ``tiled`` past
+   either); time the cluster route and the kernel it replaced (the
+   tiled route) in turns, by CUDA-graph replay and back to back, at both
+   shapes, beside the plain version and ``torch.sort(stable=True)`` +
+   counts (``index_add_`` by graph replay, ``torch.bincount`` back to
+   back);
 10. ``serve --model-smoke`` at batch 4, prompt 2048, 32 greedy tokens: one
-   dispatch launch per layer in the prefill and in every decode step, one
-   flash launch per layer in the prefill;
+   dispatch launch per layer in the prefill and in every decode step, all
+   on the cluster route, one flash launch per layer in the prefill;
 11. the same prefill with the dispatch's plain version: the same
     positions and counts in every layer and the same logits; then
     teacher-forced decode against the forward pass.
@@ -64,12 +69,18 @@ Slice 3b, the paper's virtual-screening pipeline (Listing 2) over a
 library of 2,097,152 molecules x 16 float32 features in 8 logical shards:
 
 12. hold the top-k kernel against its plain version on the card, bit for
-    bit, at a shard's shape (262,144 scores, k = 30) and on edge cases,
-    and time it beside ``torch.topk``;
+    bit, at a shard's shape (262,144 scores, k = 30), at the tree
+    combines' sizes (``tree_reduce.split_factors(8, 2)`` groups of 30
+    rows) and on edge cases, each asserted on its route (``select`` for
+    k <= 32, ``tree`` past it); time the select route and the kernel
+    it replaced (the tree route) in turns, by CUDA-graph replay and back to
+    back, at a shard's and each tree combine's size, beside the plain
+    version and ``torch.topk``;
 13. ``map(tools/fred, rounds=8) -> reduce(toolbox/topk, k=30, depth=2) ->
-    collect()``: one top-k launch per ``toolbox/topk`` combine, the 30
-    molecules equal to an oracle's over the whole library, the records
-    equal to a plain top-k over the pipeline's own mapped scores.
+    collect()``: one top-k launch per ``toolbox/topk`` combine, all on
+    the select route, the 30 molecules equal to an oracle's over the
+    whole library, the records equal to a plain top-k over the
+    pipeline's own mapped scores, and the combines' sizes those timed.
 
 Slice 4, hybrid serving at the full width and depth of hymba-1.5b (32
 layers, d_model 1600, 25/5 heads, window 1024 on all but the global layers
@@ -95,14 +106,16 @@ seed):
 
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
-does a segment-sum launch off the binned route on the k-mer path.
-The last lines are a JSON object describing the kernels (flash's, the
-SSM scan's and the segment sum's ``launches_by_path`` split by route;
-the segment sum's times of the real merge, the stress merge and the hot
-key beside its real combine's), the ``nvidia-smi``
-line, and ``{"ok": true, "device": {...}}``.  Without a CUDA device (or
-without the repository's ``src/`` beside it) the script exits non-zero
-and prints no result.
+does a segment-sum launch off the binned route on the k-mer path, a
+dispatch launch off the cluster route or a top-k launch off the select
+route on theirs.  The last lines are a JSON object describing the
+kernels (every kernel's ``launches_by_path`` but RMSNorm's split by
+route; the segment sum's times of the real merge, the stress merge and
+the hot key beside its real combine's; the dispatch's and the top-k's
+by graph replay and back to back beside the kernels they replaced),
+the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without
+a CUDA device (or without the repository's ``src/`` beside it) the script
+exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -159,12 +172,14 @@ def reset_launches() -> None:
 
 
 #: Each main path's launch counts, read just after it ran with every
-#: counter set to 0 just before it; flash's, the SSM scan's and the
-#: segment sum's also by route.
+#: counter set to 0 just before it; flash's, the SSM scan's, the segment
+#: sum's, the dispatch's and the top-k's also by route.
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
 SSM_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
+DISPATCH_ROUTES: dict = {}
+TOPK_ROUTES: dict = {}
 
 
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
@@ -174,30 +189,40 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     exactly that often and every other kernel not at all, unless every
     flash launch took ``flash_route`` (a served bf16 prefill takes
     ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), unless
-    every segment-sum launch took the ``binned`` route, and unless the SSM
-    scan's launches split by route as ``ssm_routes`` says (none on any
-    route when it is None)."""
+    every segment-sum launch took the ``binned`` route, every dispatch
+    launch the ``cluster`` route and every top-k launch the ``select``
+    route, and unless the SSM scan's launches split by route as
+    ``ssm_routes`` says (none on any route when it is None)."""
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
     seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
+    disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
+    topk = dict(mods["topk_reduce"].LAUNCHES_BY_ROUTE)
     PATH_LAUNCHES[path] = got
     FLASH_ROUTES[path] = routes
     SSM_ROUTES[path] = ssm
     SEGMENT_ROUTES[path] = seg
+    DISPATCH_ROUTES[path] = disp
+    TOPK_ROUTES[path] = topk
     want = {name: expect.get(name, 0) for name in got}
     want_routes = {r: got["flash_attention"] * (r == flash_route)
                    for r in routes}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
     want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
+    want_disp = {r: got["moe_dispatch"] * (r == "cluster") for r in disp}
+    want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
     if (got != want or routes != want_routes or ssm != want_ssm
-            or seg != want_seg):
+            or seg != want_seg or disp != want_disp
+            or topk != want_topk):
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, ssm_scan by route {ssm}, "
-                             f"segment_sum by route {seg}; expected "
-                             f"{want}, {want_routes}, {want_ssm}, "
-                             f"{want_seg}")
+                             f"segment_sum by route {seg}, moe_dispatch "
+                             f"by route {disp}, topk_reduce by route "
+                             f"{topk}; expected {want}, {want_routes}, "
+                             f"{want_ssm}, {want_seg}, {want_disp}, "
+                             f"{want_topk}")
     return got
 
 
@@ -286,11 +311,13 @@ def cuda_ms(fn, reps: Optional[int] = None, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps: int = 200) -> float:
+def graph_ms(fn, reps: int = 200, replays: int = 5) -> float:
     """Device ms per call of ``fn``, replayed from a CUDA graph of
     ``reps`` calls: the host's launch cost is left out, as it must be for
     a latency-bound call (a decode step's few rows), whose back-to-back
-    launches would time the host."""
+    launches would time the host.  The median of ``replays`` timed
+    replays: a call of a microsecond or two reads up to one more in a
+    single replay now and then."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -305,18 +332,25 @@ def graph_ms(fn, reps: int = 200) -> float:
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(replays):
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
 
 
 def in_turns(timer, fns) -> tuple:
     """ms of each of ``fns`` by ``timer``, taken in turns (0, 1, ..., 1,
     0) and averaged, so that a drift of the card's clock falls on all of
-    them alike; returns (the means, the single times in order)."""
+    them alike, after one untimed round (the first timing after other
+    work can read a cold card); returns (the means, the single times in
+    order)."""
+    for fn in fns:
+        timer(fn)
     order = list(range(len(fns))) + list(range(len(fns)))[::-1]
     t = [timer(fns[i]) for i in order]
     return [sum(v for i, v in zip(order, t) if i == k) / 2
@@ -1190,21 +1224,37 @@ def dispatch_bound(n: int, groups: int):
     return bytes_bound(4 * (2 * n + groups), 2 * n)
 
 
+def sort_index_add(a, groups, ones):
+    """The library's dispatch as a CUDA graph can hold it:
+    ``torch.sort(stable=True)``, and the counts by ``index_add_`` of
+    ``ones`` into zeros (``torch.bincount`` reads the ids' largest value
+    on the host, so no graph captures it)."""
+    import torch
+    return (torch.sort(a, stable=True),
+            torch.zeros((groups,), dtype=torch.int32,
+                        device=a.device).index_add_(0, a, ones))
+
+
 def dispatch_kernel_phase(dev, n_prefill: int, n_decode: int,
                           groups: int) -> dict:
     """Dispatch kernel vs its plain version, bit for bit, at the prefill's
-    and a decode step's sizes and on edge cases; times kernel, plain
-    version and ``torch.sort(stable=True)`` + ``torch.bincount`` at the
-    prefill's size."""
+    and a decode step's sizes and on edge cases, each asserted on its
+    route (the cluster's reach and one id past it, the most groups the
+    cluster route takes and one more); then, at the prefill's and a
+    decode step's sizes, the cluster route and the kernel it replaced
+    (the tiled route) timed in turns by graph replay and back to back, beside
+    the plain version, the library and the bound."""
     import torch
     from repro_torch.kernels.moe_dispatch import kernel as dmod
     from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
     g = torch.Generator(device=dev).manual_seed(31)
+    reach, most = dmod.CLUSTER_REACH, dmod.CLUSTER_GROUPS
 
     def ids(n, lo, hi):
         return torch.randint(lo, hi, (n,), device=dev, dtype=torch.int32,
                              generator=g)
 
+    at_reach = ids(reach, 0, groups)
     cases = [
         ("prefill", ids(n_prefill, 0, groups), groups),
         ("decode", ids(n_decode, 0, groups), groups),
@@ -1218,45 +1268,97 @@ def dispatch_kernel_phase(dev, n_prefill: int, n_decode: int,
         ("ids outside [0, G)", ids(10000, -3, groups + 3), groups),
         ("G=5000", ids(100000, 0, 5000), 5000),
         ("n=0", ids(0, 0, groups), groups),
+        ("n=4097 (a second block)", ids(4097, 0, groups), groups),
+        (f"n = the cluster's reach {reach}", at_reach, groups),
+        ("n = reach + 1", ids(reach + 1, 0, groups), groups),
+        ("one hot group at the reach", torch.full(
+            (reach,), groups - 1, device=dev, dtype=torch.int32), groups),
+        (f"G = {most}, ids outside", ids(30000, -5, most + 5), most),
+        (f"G = {most + 1}", ids(30000, 0, most + 1), most + 1),
     ]
     for name, a, G in cases:
         t0 = time.perf_counter()
-        before = dmod.LAUNCHES
+        before = (dmod.LAUNCHES, dict(dmod.LAUNCHES_BY_ROUTE))
         got = dmod.moe_dispatch_kernel(a, G)
         torch.cuda.synchronize()
-        launched = dmod.LAUNCHES - before
+        kind = dmod.route(a.numel(), G, dev)
+        launched = dmod.LAUNCHES - before[0]
+        by_route = {r: v - before[1][r]
+                    for r, v in dmod.LAUNCHES_BY_ROUTE.items()}
         compare(f"dispatch {name}", got, dispatch_ref(a, G))
-        if launched != (1 if a.numel() else 0):
-            raise AssertionError(f"dispatch {name}: {launched} launches")
+        want = 1 if a.numel() else 0
+        if launched != want or by_route[kind] != want:
+            raise AssertionError(f"dispatch {name}: {launched} launches, "
+                                 f"by route {by_route}; expected {want} "
+                                 f"on {kind}")
         phase(f"dispatch check {name}", t0,
-              f"n={a.numel()} groups={G} bit-equal to plain version")
+              f"n={a.numel()} groups={G} route={kind} bit-equal to plain "
+              f"version")
     t0 = time.perf_counter()
-    a = cases[0][1]
-    ms = cuda_ms(lambda: dmod.moe_dispatch_kernel(a, groups))
-    plain = cuda_ms(lambda: dispatch_ref(a, groups))
-    lib = cuda_ms(lambda: (torch.sort(a, stable=True),
-                           torch.bincount(a, minlength=groups)))
-    ad = cases[1][1]
-    # a decode step's few ids: device time by graph replay (back-to-back
-    # launches of so short a call time the host), the latter beside it
-    ms_dec = graph_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
-    b2b_dec = cuda_ms(lambda: dmod.moe_dispatch_kernel(ad, groups))
-    bnd, by = dispatch_bound(n_prefill, groups)
-    bnd_dec, _ = dispatch_bound(n_decode, groups)
-    phase("dispatch timing prefill", t0,
-          f"n={n_prefill} groups={groups} kernel_ms={ms:.4f} "
-          f"plain_ms={plain:.4f} sort_bincount_ms={lib:.4f} "
-          f"bound_ms={bnd:.6f} ({by}); decode n={n_decode}: graph_ms="
-          f"{ms_dec:.5f} back_to_back_ms={b2b_dec:.5f} bound_ms="
-          f"{bnd_dec:.6f}")
+    for name, a, G in cases[:2]:
+        compare(f"dispatch tiled kernel {name}", dmod.tiled_launch(a, G),
+                dispatch_ref(a, G))
+    torch.cuda.synchronize()
+    width = dmod.LIBRARY.load().moe_dispatch_cluster_width()
+    phase("dispatch check tiled kernel", t0,
+          f"prefill and decode bit-equal to plain version; widest "
+          f"cluster on this card: {width} blocks")
+
+    times = {}
+    for what, a in (("prefill", cases[0][1]), ("decode", cases[1][1])):
+        t0 = time.perf_counter()
+        ones = torch.ones_like(a)
+        fns = (lambda: dmod.moe_dispatch_kernel(a, groups),
+               lambda: dmod.tiled_launch(a, groups))
+        (ms, parent), t_graph = in_turns(graph_ms, fns)
+        (b2b, parent_b2b), t_b2b = in_turns(cuda_ms, fns)
+        plain = cuda_ms(lambda: dispatch_ref(a, groups))
+        lib = graph_ms(lambda: sort_index_add(a, groups, ones))
+        lib_b2b = cuda_ms(lambda: (torch.sort(a, stable=True),
+                                   torch.bincount(a, minlength=groups)))
+        bnd, by = dispatch_bound(a.numel(), groups)
+        times[what] = (ms, parent, b2b, parent_b2b, plain, lib, lib_b2b,
+                       bnd, by)
+        phase(f"dispatch timing {what}", t0,
+              f"n={a.numel()} groups={groups} cluster graph_ms={ms:.5f} "
+              f"tiled (replaced) graph_ms={parent:.5f} in_turns="
+              f"{['%.5f' % v for v in t_graph]}; back_to_back cluster="
+              f"{b2b:.5f} tiled={parent_b2b:.5f} in_turns="
+              f"{['%.5f' % v for v in t_b2b]}; plain_ms={plain:.4f}; "
+              f"sort+index_add_ graph_ms={lib:.5f}; sort+bincount "
+              f"back_to_back_ms={lib_b2b:.5f}; bound_ms={bnd:.7f} ({by})")
+    # the cluster route at its reach, where no ported path goes: graph
+    # replay only, in turns with the tiled kernel
+    t0 = time.perf_counter()
+    (reach_ms, reach_parent), t_graph = in_turns(graph_ms, (
+        lambda: dmod.moe_dispatch_kernel(at_reach, groups),
+        lambda: dmod.tiled_launch(at_reach, groups)))
+    phase("dispatch timing at the reach", t0,
+          f"n={reach} groups={groups} cluster graph_ms={reach_ms:.5f} "
+          f"tiled graph_ms={reach_parent:.5f} in_turns="
+          f"{['%.5f' % v for v in t_graph]}")
+    ms, parent, b2b, parent_b2b, plain, lib, lib_b2b, bnd, by = \
+        times["prefill"]
+    dec = times["decode"]
     return {"name": "moe_dispatch", "route": "cuda",
             "source": DISPATCH_SOURCE, "replaces": DISPATCH_REPLACES,
             "launches": None, "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib,
-            "library": "torch.sort(stable=True) + torch.bincount",
-            "decode_ms": ms_dec, "decode_timed": "CUDA graph replay",
-            "decode_back_to_back_ms": b2b_dec, "decode_bound_ms": bnd_dec}
+            "timed": "CUDA graph replay", "plain_ms": plain,
+            "bound_ms": bnd, "bound_by": by, "library_ms": lib,
+            "library": "torch.sort(stable=True) + index_add_ counts (graph "
+                       "replay; torch.bincount cannot be captured)",
+            "back_to_back_ms": b2b, "parent_kernel_ms": parent,
+            "parent_kernel_back_to_back_ms": parent_b2b,
+            "library_back_to_back_ms": lib_b2b,
+            "library_back_to_back": "torch.sort(stable=True) + "
+                                    "torch.bincount",
+            "cluster_blocks": width,
+            "decode_ms": dec[0], "decode_parent_kernel_ms": dec[1],
+            "decode_back_to_back_ms": dec[2],
+            "decode_parent_kernel_back_to_back_ms": dec[3],
+            "decode_plain_ms": dec[4], "decode_library_ms": dec[5],
+            "decode_bound_ms": dec[7], "reach_ms": reach_ms,
+            "reach_parent_kernel_ms": reach_parent}
 
 
 def recording(fn, log: list):
@@ -1454,9 +1556,31 @@ def topk_bound(n: int, k: int):
     return bytes_bound(4 * n + 8 * k + 4, n)
 
 
-def topk_kernel_phase(dev, n: int, k: int) -> dict:
-    """Top-k kernel vs its plain version, bit for bit, at a shard's size
-    and on edge cases; times kernel, plain version and ``torch.topk``."""
+def special_scores(dev, n: int, seed: int):
+    """n scores with NaNs of both signs, -inf, +inf and signed zeros
+    among ties: the bits' total order decides them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.normal(size=n) * 2) / 2
+    bits = x.astype(np.float32).view(np.int32)
+    bits[rng.random(n) < 0.01] = 0x7FC00000            # +NaN
+    bits[rng.random(n) < 0.01] = -0x00400000           # -NaN (0xFFC00000)
+    x = bits.view(np.float32)
+    x[rng.random(n) < 0.05] = -0.0
+    x[rng.random(n) < 0.05] = 0.0
+    x[rng.random(n) < 0.01] = -np.inf
+    x[rng.random(n) < 0.001] = np.inf
+    return torch.from_numpy(x).to(dev)
+
+
+def topk_kernel_phase(dev, n: int, k: int, tree_sizes) -> dict:
+    """Top-k kernel vs its plain version, bit for bit, at a shard's size,
+    at the tree combines' sizes ``tree_sizes`` and on edge cases, each
+    asserted on its route (k = 32 and 33, ascending, descending and
+    all-equal scores, NaNs and signed zeros); then, at a shard's and each
+    tree combine's size, the select route and the kernel it replaced
+    (the tree route) timed in turns by graph replay and back to back, beside
+    the plain version, ``torch.topk`` and the bound."""
     import torch
     from repro_torch.kernels.topk_reduce import kernel as tmod
     from repro_torch.kernels.topk_reduce.ref import topk_ref
@@ -1466,6 +1590,8 @@ def topk_kernel_phase(dev, n: int, k: int) -> dict:
     small = torch.randn((100,), device=dev, generator=g)
     ties = torch.tensor([1.0, float("-inf"), 0.0, -0.0, 1.0, float("-inf"),
                          2.0, 0.0], device=dev)
+    asc = torch.arange(n, device=dev, dtype=torch.float32)
+    special = special_scores(dev, n, 43)
     cases = [
         ("shard", s, k, n),
         ("shard, count < n", s, k, n - 12345),
@@ -1479,45 +1605,106 @@ def topk_kernel_phase(dev, n: int, k: int) -> dict:
         ("+-0 and -inf ties", ties, 8, 7),
         ("8 shards at once", torch.randn((8 * n,), device=dev,
                                          generator=g), k, 8 * n),
-    ]
+        ("k = 32", s, 32, n),
+        ("k = 33", s, 33, n),
+        ("k = 1", s, 1, n),
+        ("ascending", asc, k, n),
+        ("descending", asc.flip(0).contiguous(), k, n),
+        ("all equal", torch.full((n,), 0.5, device=dev), k, n),
+        ("NaNs, +-inf and +-0", special, k, n),
+        ("NaNs, +-inf and +-0, k = 32, count < n", special, 32, n - 999),
+        ("valid_count = 0, k = 32", s[:5000], 32, 0),
+        ("k = 32 = n", s[:32], 32, 32),
+        ("one block's ids + 1", s[:2049], k, 2049),
+    ] + [(f"tree combine n={m}", s[:m], k, m) for m in tree_sizes]
     for name, x, kk, vc in cases:
         t0 = time.perf_counter()
         vct = torch.tensor(vc, device=dev, dtype=torch.int32)
-        before = tmod.LAUNCHES
+        before = (tmod.LAUNCHES, dict(tmod.LAUNCHES_BY_ROUTE))
         got = tmod.topk_reduce_kernel(x, kk, vct)
         torch.cuda.synchronize()
-        if tmod.LAUNCHES - before != 1:
+        kind = tmod.route(kk, x.numel(), dev)
+        by_route = {r: v - before[1][r]
+                    for r, v in tmod.LAUNCHES_BY_ROUTE.items()}
+        if tmod.LAUNCHES - before[0] != 1 or by_route[kind] != 1:
             raise AssertionError(f"top-k {name}: "
-                                 f"{tmod.LAUNCHES - before} launches")
-        compare(f"top-k {name}", got, topk_ref(x, kk, vct))
+                                 f"{tmod.LAUNCHES - before[0]} launches, "
+                                 f"by route {by_route}; expected 1 on "
+                                 f"{kind}")
+        want = topk_ref(x, kk, vct)
+        # the values' bits: NaNs and signed zeros must come out as they
+        # went in
+        compare(f"top-k {name}", (got[0].view(torch.int32), got[1]),
+                (want[0].view(torch.int32), want[1]))
         phase(f"top-k check {name}", t0,
-              f"n={x.numel()} k={kk} valid_count={vc} bit-equal to plain "
-              f"version")
+              f"n={x.numel()} k={kk} valid_count={vc} route={kind} "
+              f"bit-equal to plain version")
     t0 = time.perf_counter()
     vct = torch.tensor(n, device=dev, dtype=torch.int32)
-    ms = cuda_ms(lambda: tmod.topk_reduce_kernel(s, k, vct))
-    plain = cuda_ms(lambda: topk_ref(s, k, vct))
-    lib = cuda_ms(lambda: torch.topk(s, k))
-    bnd, by = topk_bound(n, k)
-    phase("top-k timing shard", t0,
-          f"n={n} k={k} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-          f"torch_topk_ms={lib:.4f} bound_ms={bnd:.6f} ({by})")
+    compare("top-k tree kernel shard", tmod.tree_launch(s, k, vct),
+            topk_ref(s, k, vct))
+    phase("top-k check tree kernel", t0, "shard bit-equal to plain version")
+
+    times = {}
+    for m, x in [(n, s)] + [(m, s[:m]) for m in tree_sizes]:
+        t0 = time.perf_counter()
+        vct = torch.tensor(m, device=dev, dtype=torch.int32)
+        fns = (lambda: tmod.topk_reduce_kernel(x, k, vct),
+               lambda: tmod.tree_launch(x, k, vct))
+        (ms, parent), t_graph = in_turns(graph_ms, fns)
+        (b2b, parent_b2b), t_b2b = in_turns(cuda_ms, fns)
+        plain = cuda_ms(lambda: topk_ref(x, k, vct))
+        lib = graph_ms(lambda: torch.topk(x, k))
+        lib_b2b = cuda_ms(lambda: torch.topk(x, k))
+        bnd, by = topk_bound(m, k)
+        times[m] = (ms, parent, b2b, parent_b2b, plain, lib, lib_b2b, bnd,
+                    by)
+        phase(f"top-k timing n={m}", t0,
+              f"k={k} select graph_ms={ms:.5f} tree (replaced) graph_ms="
+              f"{parent:.5f} in_turns={['%.5f' % v for v in t_graph]}; "
+              f"back_to_back select={b2b:.5f} tree={parent_b2b:.5f} "
+              f"in_turns={['%.5f' % v for v in t_b2b]}; plain_ms="
+              f"{plain:.4f}; torch.topk graph_ms={lib:.5f} back_to_back_ms"
+              f"={lib_b2b:.5f}; bound_ms={bnd:.7f} ({by})")
+    ms, parent, b2b, parent_b2b, plain, lib, lib_b2b, bnd, by = times[n]
     return {"name": "topk_reduce", "route": "cuda", "source": TOPK_SOURCE,
             "replaces": TOPK_REPLACES, "launches": None,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-            "bound_ms": bnd, "bound_by": by, "library_ms": lib}
+            "max_abs_err": 0.0, "ms": ms, "timed": "CUDA graph replay",
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib, "library": "torch.topk (graph replay)",
+            "back_to_back_ms": b2b, "parent_kernel_ms": parent,
+            "parent_kernel_back_to_back_ms": parent_b2b,
+            "library_back_to_back_ms": lib_b2b,
+            "tree_combines": {
+                str(m): {"ms": t[0], "parent_kernel_ms": t[1],
+                         "back_to_back_ms": t[2],
+                         "parent_kernel_back_to_back_ms": t[3],
+                         "library_ms": t[5], "bound_ms": t[7]}
+                for m, t in times.items() if m != n}}
+
+
+def tree_combine_sizes(num_shards: int, depth: int, k: int) -> list:
+    """The rows each level's ``toolbox/topk`` combine takes in a depth-K
+    tree reduce: k rows of each of a group's g members
+    (``core/tree_reduce``), once per distinct g."""
+    from repro_torch.core.tree_reduce import split_factors
+    return sorted({g * k for g in split_factors(num_shards, depth)
+                   if g > 1})
 
 
 def vs_slice(seed: int) -> dict:
     """Top-k kernel checks, then the virtual-screening pipeline over 2M
     molecules in 8 shards; returns the top-k kernel's JSON record."""
     import torch
-    from repro_torch.core import MaRe
+    from repro_torch.core import MaRe, images
     from repro_torch.kernels.topk_reduce.ref import topk_ref
 
     dev = torch.device("cuda")
     shard = VS_MOLECULES // NUM_SHARDS
-    rec = topk_kernel_phase(dev, shard, VS_TOP)
+    sizes = tree_combine_sizes(NUM_SHARDS, VS_DEPTH, VS_TOP)
+    print(f"tree combines: split_factors({NUM_SHARDS}, {VS_DEPTH}) -> "
+          f"{sizes} rows", flush=True)
+    rec = topk_kernel_phase(dev, shard, VS_TOP, sizes)
 
     t0 = time.perf_counter()
     library = make_library(VS_MOLECULES, seed)
@@ -1551,6 +1738,25 @@ def vs_slice(seed: int) -> dict:
         if not (np.array_equal(s2, scores) and np.array_equal(i2, ids)):
             raise AssertionError("a warm VS action gave other records")
     phase("VS warm actions", t0, f"action_wall_s={warm}")
+    # the sizes the combines really took: a shard's capacity 8 times, then
+    # the tree combines' (timed above)
+    t0 = time.perf_counter()
+    real, calls = images.topk_reduce, []
+
+    def sized(x, k, vc):
+        calls.append(x.shape[0])
+        return real(x, k, vc)
+
+    try:
+        images.topk_reduce = sized
+        virtual_screening(ds, top=VS_TOP).collect(shard=0)
+    finally:
+        images.topk_reduce = real
+    if (calls[:NUM_SHARDS] != [ds.capacity] * NUM_SHARDS
+            or sorted(set(calls[NUM_SHARDS:])) != sizes):
+        raise AssertionError(f"top-k calls took {calls} rows; expected "
+                             f"{NUM_SHARDS} x {ds.capacity}, then {sizes}")
+    phase("VS top-k call sizes", t0, f"rows in call order: {calls}")
 
     # records == a plain top-k over the pipeline's own mapped scores
     t0 = time.perf_counter()
@@ -2122,7 +2328,9 @@ def main() -> int:
             if got.get(rec["name"])}
         by_route = {"flash_attention": FLASH_ROUTES,
                     "ssm_scan": SSM_ROUTES,
-                    "segment_sum": SEGMENT_ROUTES}.get(rec["name"])
+                    "segment_sum": SEGMENT_ROUTES,
+                    "moe_dispatch": DISPATCH_ROUTES,
+                    "topk_reduce": TOPK_ROUTES}.get(rec["name"])
         if by_route is not None:
             rec["launches_by_path"] = {
                 path: by_route[path] for path in rec["launches_by_path"]}

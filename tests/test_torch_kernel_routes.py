@@ -7,7 +7,10 @@ selective scan's routes (``step`` for a decode step, T = 1; ``chunked``
 for T > 1; the plain version for a CPU tensor) and the segment sum's
 (``binned`` for one to three value columns over a key space it can
 tile, ``atomic`` otherwise, from the key space, the value columns and
-the record count alone).  A CPU call moves no
+the record count alone), the MoE dispatch's (``cluster`` up to the
+cluster's reach of ids over at most ``CLUSTER_GROUPS`` groups, ``tiled``
+otherwise, from n and the group count alone) and the top-k's (``select``
+for k <= 32, ``tree`` otherwise, from k alone).  A CPU call moves no
 launch counter; the wrappers' argument checks raise before any route is
 taken.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
@@ -15,6 +18,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as fmod
+from repro_torch.kernels.moe_dispatch import kernel as dmod
+from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 from repro_torch.kernels.rmsnorm import kernel as rmod
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -22,6 +27,8 @@ from repro_torch.kernels.segment_reduce import kernel as kmod
 from repro_torch.kernels.segment_reduce.ref import segment_sum_ref
 from repro_torch.kernels.ssm_scan import kernel as smod
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.topk_reduce import kernel as tmod
+from repro_torch.kernels.topk_reduce.ref import topk_ref
 
 BF16, F32 = torch.bfloat16, torch.float32
 CUDA = torch.device("cuda")   # a device name only: no card is touched
@@ -274,3 +281,101 @@ def test_segment_wrapper_rejects_foreign_devices_before_a_route():
     with pytest.raises(ValueError, match="several devices"):
         kmod.segment_sum(torch.zeros(4, dtype=torch.int32), vals, 3, valid)
     assert (kmod.LAUNCHES, kmod.LAUNCHES_BY_ROUTE) == before
+
+
+REACH = 8 * 1024 * 16
+DISPATCH_ROUTES = [
+    # n, groups, device, route
+    (65536, 32, CUDA, "cluster"),             # granite's prefill
+    (32, 32, CUDA, "cluster"),                # a decode step
+    (1, 1, CUDA, "cluster"),
+    (REACH, 32, CUDA, "cluster"),             # the cluster's reach
+    (REACH + 1, 32, CUDA, "tiled"),
+    (1000, 1024, CUDA, "cluster"),            # the most groups it holds
+    (1000, 1025, CUDA, "tiled"),
+    (100000, 5000, CUDA, "tiled"),
+    (65536, 32, "cpu", "plain"),
+    (REACH + 1, 5000, torch.device("cpu"), "plain"),
+]
+
+
+@pytest.mark.parametrize("n,groups,device,want", DISPATCH_ROUTES, ids=str)
+def test_dispatch_route_is_a_function_of_ids_groups_device(n, groups,
+                                                           device, want):
+    assert dmod.route(n, groups, device) == want
+    assert dmod.CLUSTER_REACH == REACH
+
+
+@pytest.mark.parametrize("n,groups", [(300, 7), (REACH + 1, 32),
+                                      (2000, 1025)])
+def test_dispatch_cpu_tensor_takes_plain_version_and_moves_no_counter(
+        n, groups):
+    a = torch.randint(-1, groups + 1, (n,), dtype=torch.int32,
+                      generator=torch.Generator().manual_seed(4))
+    before = (dmod.LAUNCHES, dict(dmod.LAUNCHES_BY_ROUTE))
+    got = dmod.moe_dispatch_kernel(a, groups)
+    assert (dmod.LAUNCHES, dmod.LAUNCHES_BY_ROUTE) == before
+    assert all(torch.equal(x, y)
+               for x, y in zip(got, dispatch_ref(a, groups)))
+
+
+def test_dispatch_reset_launches_zeroes_every_route():
+    dmod.LAUNCHES_BY_ROUTE["cluster"] += 768
+    dmod.LAUNCHES_BY_ROUTE["tiled"] += 1
+    dmod.LAUNCHES += 769
+    dmod.reset_launches()
+    assert dmod.LAUNCHES == 0
+    assert dmod.LAUNCHES_BY_ROUTE == {"cluster": 0, "tiled": 0}
+
+
+def test_dispatch_wrapper_rejects_foreign_devices_before_a_route():
+    before = (dmod.LAUNCHES, dict(dmod.LAUNCHES_BY_ROUTE))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        dmod.moe_dispatch_kernel(torch.zeros(4, dtype=torch.int32,
+                                             device="meta"), 3)
+    assert (dmod.LAUNCHES, dmod.LAUNCHES_BY_ROUTE) == before
+
+
+TOPK_ROUTES = [
+    # k, n, device, route
+    (30, 262144, CUDA, "select"),             # a VS shard combine
+    (30, 60, CUDA, "select"),                 # the tree combines
+    (30, 120, CUDA, "select"),
+    (1, 1, CUDA, "select"),
+    (32, 1 << 30, CUDA, "select"),
+    (33, 262144, CUDA, "tree"),
+    (64, 33, CUDA, "tree"),
+    (1024, 1 << 23, CUDA, "tree"),
+    (30, 262144, "cpu", "plain"),
+    (1024, 5000, torch.device("cpu"), "plain"),
+]
+
+
+@pytest.mark.parametrize("k,n,device,want", TOPK_ROUTES, ids=str)
+def test_topk_route_is_a_function_of_k_n_device(k, n, device, want):
+    assert tmod.route(k, n, device) == want
+
+
+@pytest.mark.parametrize("k", [1, 30, 32, 33, 100])
+def test_topk_cpu_tensor_takes_plain_version_and_moves_no_counter(k):
+    s = torch.randn(500, generator=torch.Generator().manual_seed(5))
+    before = (tmod.LAUNCHES, dict(tmod.LAUNCHES_BY_ROUTE))
+    got = tmod.topk_reduce_kernel(s, k, 470)
+    assert (tmod.LAUNCHES, tmod.LAUNCHES_BY_ROUTE) == before
+    assert all(torch.equal(x, y) for x, y in zip(got, topk_ref(s, k, 470)))
+
+
+def test_topk_reset_launches_zeroes_every_route():
+    tmod.LAUNCHES_BY_ROUTE["select"] += 13
+    tmod.LAUNCHES_BY_ROUTE["tree"] += 1
+    tmod.LAUNCHES += 14
+    tmod.reset_launches()
+    assert tmod.LAUNCHES == 0
+    assert tmod.LAUNCHES_BY_ROUTE == {"select": 0, "tree": 0}
+
+
+def test_topk_wrapper_rejects_foreign_devices_before_a_route():
+    before = (tmod.LAUNCHES, dict(tmod.LAUNCHES_BY_ROUTE))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tmod.topk_reduce_kernel(torch.zeros(40, device="meta"), 3, 40)
+    assert (tmod.LAUNCHES, tmod.LAUNCHES_BY_ROUTE) == before

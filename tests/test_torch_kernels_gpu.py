@@ -459,6 +459,153 @@ def test_topk_kernel_rejects_bad_arguments(cuda):
         tmod.topk_reduce_kernel(s.double(), 3, 10)
 
 
+# each route at its edges, its counter asserted: the cluster route up to
+# dmod.CLUSTER_REACH ids over dmod.CLUSTER_GROUPS groups, the tiled route
+# past either; the select route for k <= 32, the tree route past it
+DISPATCH_ROUTE_CASES = {
+    # name: (n, groups, lowest id, highest id + 1, hot id or None)
+    "decode_one_warp": (32, 32, 0, 32, None),
+    "two_blocks": (4097, 32, 0, 32, None),
+    "prefill": (65536, 32, 0, 32, None),
+    "reach": (8 * 1024 * 16, 32, 0, 32, None),
+    "reach_plus_one": (8 * 1024 * 16 + 1, 32, 0, 32, None),
+    "reach_one_hot_group": (8 * 1024 * 16, 32, 0, 32, 31),
+    "most_groups": (30000, 1024, -5, 1029, None),
+    "most_groups_plus_one": (30000, 1025, 0, 1025, None),
+    "one_id_one_group": (1, 1, 0, 1, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH_ROUTE_CASES))
+def test_dispatch_route_matches_plain_version(cuda, name):
+    n, groups, lo, hi, hot = DISPATCH_ROUTE_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = torch.randint(lo, hi, (n,), device=cuda, dtype=torch.int32,
+                      generator=g)
+    if hot is not None:
+        a.fill_(hot)
+    kind = dmod.route(n, groups, cuda)
+    assert kind == ("tiled" if "plus_one" in name else "cluster")
+    before = dict(dmod.LAUNCHES_BY_ROUTE)
+    p, c = dmod.moe_dispatch_kernel(a, groups)
+    torch.cuda.synchronize()
+    assert {r: v - before[r] for r, v in dmod.LAUNCHES_BY_ROUTE.items()
+            } == {r: int(r == kind) for r in before}
+    rp, rc = dispatch_ref(a, groups)
+    assert torch.equal(p, rp) and torch.equal(c, rc)
+
+
+@pytest.mark.parametrize("n", [32, 65536])
+def test_dispatch_tiled_kernel_matches_plain_version(cuda, n):
+    """The first design's three passes, kept as the tiled route, at sizes
+    the wrapper sends to the cluster route (``chip_smoke.py`` times them
+    there in turns)."""
+    a = torch.randint(0, 32, (n,), device=cuda, dtype=torch.int32,
+                      generator=torch.Generator(device=cuda).manual_seed(16))
+    before = dmod.LAUNCHES
+    p, c = dmod.tiled_launch(a, 32)
+    torch.cuda.synchronize()
+    assert dmod.LAUNCHES == before
+    rp, rc = dispatch_ref(a, 32)
+    assert torch.equal(p, rp) and torch.equal(c, rc)
+
+
+TOPK_ROUTE_CASES = {
+    # name: (n, k, valid_count, scores: "randn", "asc", "desc", "equal",
+    # "special" (NaNs, +-inf, +-0 among ties))
+    "k1": (262144, 1, 262144, "randn"),
+    "k32": (262144, 32, 262144, "randn"),
+    "k33": (262144, 33, 262144, "randn"),
+    "ascending": (262144, 30, 262144, "asc"),
+    "descending": (262144, 30, 262144, "desc"),
+    "all_equal": (262144, 30, 262144, "equal"),
+    "special": (262144, 30, 262144, "special"),
+    "special_k32_count": (100000, 32, 99001, "special"),
+    "special_tree": (100000, 40, 99001, "special"),
+    "none_valid_k32": (5000, 32, 0, "randn"),
+    "tree_combine_60": (60, 30, 60, "randn"),
+    "tree_combine_120": (120, 30, 120, "randn"),
+    "k_is_n_32": (32, 32, 32, "randn"),
+    "one_block_plus_one": (2049, 30, 2049, "randn"),
+    "eight_shards": (8 * 262144, 30, 8 * 262144, "randn"),
+}
+
+
+def _topk_scores(dev, n, kind):
+    if kind == "asc":
+        return torch.arange(n, device=dev, dtype=torch.float32)
+    if kind == "desc":
+        return torch.arange(n, 0, -1, device=dev, dtype=torch.float32)
+    if kind == "equal":
+        return torch.full((n,), 0.5, device=dev)
+    if kind == "special":
+        return cs.special_scores(dev, n, 17)
+    return torch.randn((n,), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(17))
+
+
+@pytest.mark.parametrize("name", sorted(TOPK_ROUTE_CASES))
+def test_topk_route_matches_plain_version(cuda, name):
+    n, k, vc, kind = TOPK_ROUTE_CASES[name]
+    s = _topk_scores(cuda, n, kind)
+    vct = torch.tensor(vc, device=cuda, dtype=torch.int32)
+    want_route = tmod.route(k, n, cuda)
+    assert want_route == ("select" if k <= 32 else "tree")
+    before = dict(tmod.LAUNCHES_BY_ROUTE)
+    v, i = tmod.topk_reduce_kernel(s, k, vct)
+    torch.cuda.synchronize()
+    assert {r: c - before[r] for r, c in tmod.LAUNCHES_BY_ROUTE.items()
+            } == {r: int(r == want_route) for r in before}
+    rv, ri = topk_ref(s, k, vct)
+    # bits, so that NaNs and signed zeros count
+    assert torch.equal(v.view(torch.int32), rv.view(torch.int32))
+    assert torch.equal(i, ri)
+
+
+def test_topk_select_calls_in_a_row_and_in_a_graph(cuda):
+    """The select route's last-block ticket is reset by each call: many
+    calls in a row, and replays of a captured graph, stay right."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    xs = [torch.randn((262144,), device=cuda, generator=g)
+          for _ in range(4)]
+    vct = torch.tensor(262144, device=cuda, dtype=torch.int32)
+    for _ in range(3):
+        for x in xs:
+            v, i = topk_reduce(x, 30, vct)
+            rv, ri = topk_ref(x, 30, vct)
+            assert torch.equal(v, rv) and torch.equal(i, ri)
+    x = xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        topk_reduce(x, 30, vct)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = topk_reduce(x, 30, vct)
+    for src in xs[::-1]:
+        x.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        rv, ri = topk_ref(src, 30, vct)
+        assert torch.equal(out[0], rv) and torch.equal(out[1], ri)
+
+
+def test_topk_tree_kernel_matches_plain_version(cuda):
+    """The first design's levels of argmax rounds, kept as the tree
+    route, at a k the wrapper sends to the select route
+    (``chip_smoke.py`` times it there in turns)."""
+    s = torch.randn((262144,), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(19))
+    vct = torch.tensor(262100, device=cuda, dtype=torch.int32)
+    before = tmod.LAUNCHES
+    v, i = tmod.tree_launch(s, 30, vct)
+    torch.cuda.synchronize()
+    assert tmod.LAUNCHES == before
+    rv, ri = topk_ref(s, 30, vct)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
 def test_moe_layers_launch_dispatch_once_per_layer(cuda):
     """Two layers of granite-moe-1b-a400m at full width (bf16): one
     dispatch launch per layer in a prefill and in a decode step, and the

@@ -12,6 +12,13 @@ from the seed, bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape
 * times ``--reps`` warm prefills and ``--reps`` runs of ``--steps``
   greedy decode steps (host clock around work that ends in a device
   synchronise);
+* for an MoE arch, records the dispatch calls of one prefill and one
+  decode step (their sizes printed), and times the dispatch kernel's
+  wrapper, the plain version and the library (``torch.sort(stable=True)``
+  + ``torch.bincount``; by graph replay ``index_add_`` in place of
+  ``bincount``, which no graph captures) on the first call's ids of each,
+  by CUDA-graph replay (device time) and back to back (the host's launch
+  cost included), beside the bound (``chip_smoke.dispatch_bound``);
 * profiles one prefill and, apart, ``--steps`` decode steps with
   ``torch.profiler`` (CPU + CUDA) and prints for each the device time by
   kernel, the device busy share of the wall time, the device time of the
@@ -42,7 +49,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 GROUPS = {
     # flash_fwd_wgmma (bf16 at head dims 64, 128) and flash_fwd (others)
     "flash_attention": ("flash_fwd_wgmma", "flash_fwd"),
-    "moe_dispatch": ("tile_rank", "scan_tiles", "add_base"),
+    # cluster route: one kernel; tiled route: three passes
+    "moe_dispatch": ("dispatch_cluster", "tile_rank", "scan_tiles",
+                     "add_base"),
     # chunked route: projection (tensor cores for bf16, CUDA cores for
     # f32), chunk ends, carries and re-run; step route: one fused kernel
     "ssm_scan": ("ssm_proj_mma", "ssm_proj_rows", "ssm_chunk_end",
@@ -93,6 +102,54 @@ def profile(name, fn, out_dir):
               f"{e.key[:100]}")
     prof.export_chrome_trace(os.path.join(out_dir,
                                           f"torch_lm_{name}_trace.json.gz"))
+
+
+def recorder(fn, log: list):
+    """``fn`` (the MoE layer's dispatch) that also appends a clone of
+    each call's ids, as the kernel takes them, and its group count to
+    ``log``."""
+    def moe_dispatch(assignments, num_groups):
+        import torch
+        log.append((assignments.reshape(-1).to(torch.int32).contiguous()
+                    .clone(), num_groups))
+        return fn(assignments, num_groups)
+    return moe_dispatch
+
+
+def time_dispatch(cs, what, log) -> None:
+    """The dispatch's calls of one prefill or decode step, and its time
+    on the first call's ids: the kernel's wrapper, the plain version and
+    the library (``torch.sort(stable=True)`` + ``torch.bincount``), each
+    by graph replay and back to back.  ``torch.bincount`` reads the ids'
+    largest value on the host, so no graph can capture it: by graph
+    replay the library's counts are ``index_add_`` of ones into zeros."""
+    import torch
+    from repro_torch.kernels.moe_dispatch import kernel as dmod
+    from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
+    a, g = log[0]
+    n = a.numel()
+    ones = torch.ones_like(a)
+
+    def sort_index_add():
+        return (torch.sort(a, stable=True),
+                torch.zeros((g,), dtype=torch.int32,
+                            device=a.device).index_add_(0, a, ones))
+
+    def sort_bincount():
+        return torch.sort(a, stable=True), torch.bincount(a, minlength=g)
+
+    bnd, by = cs.dispatch_bound(n, g)
+    sizes = sorted({x.numel() for x, _ in log})
+    print(f"dispatch {what}: calls={len(log)} n={sizes} groups={g} "
+          f"bound_ms={bnd:.7f} ({by})")
+    for name, fn in (("kernel", lambda: dmod.moe_dispatch_kernel(a, g)),
+                     ("plain", lambda: dispatch_ref(a, g))):
+        print(f"  {name}: graph_ms={cs.graph_ms(fn):.5f} "
+              f"back_to_back_ms={cs.cuda_ms(fn):.5f}")
+    print(f"  library: sort+index_add_ graph_ms="
+          f"{cs.graph_ms(sort_index_add):.5f} back_to_back_ms="
+          f"{cs.cuda_ms(sort_index_add):.5f}; sort+bincount "
+          f"back_to_back_ms={cs.cuda_ms(sort_bincount):.5f}")
 
 
 def main() -> int:
@@ -155,6 +212,21 @@ def main() -> int:
             t_dec = (time.perf_counter() - t0) / args.steps
             print(f"warm rep {i}: prefill_ms={t_pre * 1e3:.3f} "
                   f"decode_ms_per_token={t_dec * 1e3:.3f}")
+        if getattr(cfg, "num_experts", 0):
+            from repro_torch.models import moe as moe_lib
+            real = moe_lib.moe_dispatch
+            for what in ("prefill", "decode step"):
+                log: list = []
+                moe_lib.moe_dispatch = recorder(real, log)
+                try:
+                    if what == "prefill":
+                        prefill()
+                    else:
+                        decode(cache, tok, 1)
+                finally:
+                    moe_lib.moe_dispatch = real
+                time_dispatch(cs, what, log)
+            logits, cache = prefill()
         profile(f"{args.arch}_prefill", prefill, out_dir)
         logits, cache = prefill()
         profile(f"{args.arch}_decode", lambda: decode(cache, tok, args.steps),
