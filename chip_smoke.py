@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the five slices of ``repro_torch`` through their public entry
+Drives the six slices of ``repro_torch`` through their public entry
 points.  First it builds the six CUDA kernels from
 ``src/repro_torch/csrc`` (one ``nvcc`` each, started together).
 
@@ -24,6 +24,30 @@ runs), split into 8 logical shards:
 4. on those real inputs, on a uniform stress merge and on one hot key,
    time the binned route and the atomic kernel it replaced in turns with
    CUDA events, beside the plain version, ``index_add_`` and the bound.
+
+Slice 5, the interactive and out-of-core runtime, on the same genome
+under an enabled tracer (it runs right after slice 1, which writes it):
+
+a. the paper's interactive session: ``map(kmer-stats, k=12).persist()``,
+   then five ``reduce_by_key`` sum queries from the device tier, each
+   starting from the persisted map (one cached stage), launching the
+   segment sum 16 times, with a table equal to numpy's bincount; the cold
+   query (no persisted prefix) timed beside them;
+b. the same query from the host tier: a cache whose device budget is
+   below the persisted entry's estimated bytes spills it to CPU tensors,
+   and the hit copies it back to the dataset's device;
+c. three asynchronous queries, back in FIFO order with equal tables, each
+   with its queue wait;
+d. out of core: the GC count (``grep-chars GC`` -> ``awk-sum``) through
+   ``io.WaveRunner`` in at least six waves of 8 splits (one a shard),
+   equal to numpy's count and to the one-shot action's, with at most two
+   programs built and a lower peak of allocated device memory than the
+   one-shot action's; timed in turns with the same waves without the
+   ingest lookahead (``prefetch=False``), each run's summed ``wave`` and
+   ``wave.ingest`` spans beside its wall;
+e. the exported Chrome trace holds the ``ingest``, ``wave``,
+   ``wave.ingest``, ``cache.spill`` and ``cache.host_restore`` spans, and
+   ``MaRe.metrics()`` counts the device-tier hits and every wave.
 
 Slice 2, LM serving at the full width of Llama-3.2-1B (16 layers,
 d_model 2048, 32/8 heads, vocab 128256, bf16, random weights from the
@@ -610,9 +634,11 @@ def capturing(fn, keep: dict, calls: list):
 # slice 1: the paper's pipeline at chr21 scale
 # ---------------------------------------------------------------------------
 
-def kmer_slice(seed: int) -> dict:
-    """GC count and k-mer statistics on a chr21-sized genome; returns the
-    segment-sum kernel's JSON record."""
+def kmer_slice(tmp: str, seed: int) -> tuple:
+    """GC count and k-mer statistics on a chr21-sized genome written under
+    ``tmp``; returns the segment-sum kernel's JSON record and the genome
+    (``fasta`` path, ``seq`` bases, numpy k-mer ``table``) for the
+    interactive and out-of-core paths."""
     import torch
     from repro_torch.core import MaRe, TextFile
     from repro_torch.core.shuffle import keyed_bucket_capacity
@@ -620,101 +646,422 @@ def kmer_slice(seed: int) -> dict:
     from repro_torch.kernels.segment_reduce import kernel as kmod
     from repro_torch.kernels.segment_reduce import ops
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    seq = make_genome(CHR21_BASES, seed)
+    fasta = os.path.join(tmp, "chr21.fa")
+    write_fasta(fasta, seq)
+    phase("write genome", t0, f"bases={len(seq)} "
+          f"N={int((seq == ord('N')).sum())} "
+          f"bytes={os.path.getsize(fasta)}")
+
+    t0 = time.perf_counter()
+    src = fasta_source(fasta)
+    ds = MaRe.from_source(src, num_shards=NUM_SHARDS).dataset
+    torch.cuda.synchronize()
+    phase("ingest", t0, f"shards={ds.num_shards} cap={ds.capacity} "
+          f"width={ds.records['data'].shape[1]} "
+          f"records={int(ds.counts.sum())} device={ds.device}")
+
+    cap2 = keyed_bucket_capacity(4 ** K, NUM_SHARDS)
+    errs = kernel_phase(ds, cap2)
+
+    # GC count: the paper's Listing 1
+    t0 = time.perf_counter()
+    gc = (MaRe.from_source(src, num_shards=NUM_SHARDS)
+          .map(input_mount=TextFile("/dna"),
+               output_mount=TextFile("/count"),
+               image="ubuntu", command="grep-chars GC")
+          .reduce(input_mount=TextFile("/counts"),
+                  output_mount=TextFile("/sum"),
+                  image="ubuntu", command="awk-sum"))
+    (total,) = gc.collect(shard=0)
+    want = int(np.count_nonzero((seq == ord("G")) | (seq == ord("C"))))
+    if int(total[0]) != want:
+        raise AssertionError(f"GC count {int(total[0])} != numpy {want}")
+    phase("GC count", t0, f"gc={int(total[0])} numpy={want} "
+          f"phases={json.dumps(gc.report().phases)}")
+
+    # k-mer statistics: the main path through the segment-sum kernel
+    t0 = time.perf_counter()
+    want_table = kmer_bincount(seq, K)
+    phase("numpy k-mer reference", t0,
+          f"windows={int(want_table.sum())} "
+          f"distinct={int((want_table > 0).sum())}")
+    # the action's own segment-sum inputs are kept (first combine,
+    # d = 1; first merge, d = 2) for the timing phase
+    t0 = time.perf_counter()
+    real: dict = {}
+    calls: list = []
+    reset_launches()
+    ops.segment_sum = capturing(kmod.segment_sum, real, calls)
     try:
-        t0 = time.perf_counter()
-        seq = make_genome(CHR21_BASES, seed)
-        fasta = os.path.join(tmp, "chr21.fa")
-        write_fasta(fasta, seq)
-        phase("write genome", t0, f"bases={len(seq)} "
-              f"N={int((seq == ord('N')).sum())} "
-              f"bytes={os.path.getsize(fasta)}")
-
-        t0 = time.perf_counter()
-        src = fasta_source(fasta)
-        ds = MaRe.from_source(src, num_shards=NUM_SHARDS).dataset
-        torch.cuda.synchronize()
-        phase("ingest", t0, f"shards={ds.num_shards} cap={ds.capacity} "
-              f"width={ds.records['data'].shape[1]} "
-              f"records={int(ds.counts.sum())} device={ds.device}")
-
-        cap2 = keyed_bucket_capacity(4 ** K, NUM_SHARDS)
-        errs = kernel_phase(ds, cap2)
-
-        # GC count: the paper's Listing 1
-        t0 = time.perf_counter()
-        gc = (MaRe.from_source(src, num_shards=NUM_SHARDS)
-              .map(input_mount=TextFile("/dna"),
-                   output_mount=TextFile("/count"),
-                   image="ubuntu", command="grep-chars GC")
-              .reduce(input_mount=TextFile("/counts"),
-                      output_mount=TextFile("/sum"),
-                      image="ubuntu", command="awk-sum"))
-        (total,) = gc.collect(shard=0)
-        want = int(np.count_nonzero((seq == ord("G")) | (seq == ord("C"))))
-        if int(total[0]) != want:
-            raise AssertionError(f"GC count {int(total[0])} != numpy {want}")
-        phase("GC count", t0, f"gc={int(total[0])} numpy={want} "
-              f"phases={json.dumps(gc.report().phases)}")
-
-        # k-mer statistics: the main path through the segment-sum kernel
-        t0 = time.perf_counter()
-        want_table = kmer_bincount(seq, K)
-        phase("numpy k-mer reference", t0,
-              f"windows={int(want_table.sum())} "
-              f"distinct={int((want_table > 0).sum())}")
-        # the action's own segment-sum inputs are kept (first combine,
-        # d = 1; first merge, d = 2) for the timing phase
-        t0 = time.perf_counter()
-        real: dict = {}
-        calls: list = []
-        reset_launches()
-        ops.segment_sum = capturing(kmod.segment_sum, real, calls)
-        try:
-            stats = (MaRe.from_source(src, num_shards=NUM_SHARDS)
-                     .map(image="kmer-stats", command=f"kmer-stats {K}")
-                     .reduce_by_key(lambda r: r[0],
-                                    value_by=lambda r: (r[1],), op="sum"))
-            desc = stats.describe()
-            keys, (occ,), cnt = stats.collect()
-        finally:
-            ops.segment_sum = kmod.segment_sum
-        # one combine and one merge a shard
-        read_launches("kmer", {"segment_sum": 2 * NUM_SHARDS})
-        if calls != [1] * NUM_SHARDS + [2] * NUM_SHARDS:
-            raise AssertionError(f"k-mer segment-sum calls by d: {calls}")
-        report = stats.report()
-        print(desc, flush=True)
-        phase("k-mer reduce_by_key", t0,
-              f"keys={len(keys)} launches={kmod.LAUNCHES} "
-              f"by_route={json.dumps(kmod.LAUNCHES_BY_ROUTE)} "
-              f"action_wall_s={report.wall_s:.6f} "
-              f"diagnostics={json.dumps(report.diagnostics)}")
-        print("[report] phases " + json.dumps(report.phases), flush=True)
-        t0 = time.perf_counter()
-        out = stats.dataset
-        on_cuda = all(leaf.is_cuda for leaf in
-                      [out.counts, *out.records[:1], *out.records[1],
-                       out.records[2]])
-        if not on_cuda:
-            raise AssertionError("k-mer result does not live on cuda")
-        if len(np.unique(keys)) != len(keys):
-            raise AssertionError("a k-mer key appears on two shards")
-        got_table = np.zeros(4 ** K, np.int64)
-        got_table[keys] = occ
-        if not np.array_equal(got_table, want_table):
-            bad = int((got_table != want_table).sum())
-            raise AssertionError(f"k-mer table differs from numpy at "
-                                 f"{bad} keys")
-        if not np.array_equal(occ, cnt):
-            raise AssertionError("occurrences != record counts")
-        phase("k-mer check", t0, "table == numpy bincount, on cuda")
-        record = timing_phase(real, ds, cap2, errs)
-        record["launches"] = 2 * NUM_SHARDS
+        stats = (MaRe.from_source(src, num_shards=NUM_SHARDS)
+                 .map(image="kmer-stats", command=f"kmer-stats {K}")
+                 .reduce_by_key(lambda r: r[0],
+                                value_by=lambda r: (r[1],), op="sum"))
+        desc = stats.describe()
+        keys, (occ,), cnt = stats.collect()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        ops.segment_sum = kmod.segment_sum
+    # one combine and one merge a shard
+    read_launches("kmer", {"segment_sum": 2 * NUM_SHARDS})
+    if calls != [1] * NUM_SHARDS + [2] * NUM_SHARDS:
+        raise AssertionError(f"k-mer segment-sum calls by d: {calls}")
+    report = stats.report()
+    print(desc, flush=True)
+    phase("k-mer reduce_by_key", t0,
+          f"keys={len(keys)} launches={kmod.LAUNCHES} "
+          f"by_route={json.dumps(kmod.LAUNCHES_BY_ROUTE)} "
+          f"action_wall_s={report.wall_s:.6f} "
+          f"diagnostics={json.dumps(report.diagnostics)}")
+    print("[report] phases " + json.dumps(report.phases), flush=True)
+    t0 = time.perf_counter()
+    out = stats.dataset
+    on_cuda = all(leaf.is_cuda for leaf in
+                  [out.counts, *out.records[:1], *out.records[1],
+                   out.records[2]])
+    if not on_cuda:
+        raise AssertionError("k-mer result does not live on cuda")
+    check_table("k-mer", (keys, (occ,), cnt), want_table)
+    phase("k-mer check", t0, "table == numpy bincount, on cuda")
+    record = timing_phase(real, ds, cap2, errs)
+    record["launches"] = 2 * NUM_SHARDS
+    return record, {"fasta": fasta, "seq": seq, "table": want_table}
 
-    return record
+
+# ---------------------------------------------------------------------------
+# slice 5: the interactive and out-of-core runtime on the same genome
+# ---------------------------------------------------------------------------
+
+INTERACTIVE_QUERIES = 5
+ASYNC_QUERIES = 3
+COLD_REPS = 3
+MIN_WAVES = 6
+
+
+def kmer_key(r):
+    return r[0]
+
+
+def kmer_count(r):
+    return (r[1],)
+
+
+def kmer_query(base):
+    """The k-mer table query over ``base`` (an ingested genome): the
+    ``kmer-stats`` map, persisted or not, then the keyed sum."""
+    return (base.map(image="kmer-stats", k=K)
+            .reduce_by_key(kmer_key, value_by=kmer_count, op="sum"))
+
+
+def kmer_table(out) -> np.ndarray:
+    """The collected keyed sum as a dense table; each key on one shard
+    (counted by ``bincount``: a sort of 15M keys takes seconds on the
+    card's host)."""
+    keys, (occ,), cnt = out
+    if np.bincount(keys, minlength=4 ** K).max(initial=0) > 1:
+        raise AssertionError("a k-mer key appears on two shards")
+    if not np.array_equal(occ, cnt):
+        raise AssertionError("occurrences != record counts")
+    table = np.zeros(4 ** K, np.int64)
+    table[keys] = occ
+    return table
+
+
+def check_table(what: str, out, want: np.ndarray) -> None:
+    got = kmer_table(out)
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{what}: k-mer table differs from numpy at "
+                             f"{int((got != want).sum())} keys")
+
+
+def check_cached(what: str, report, tier: str) -> None:
+    """The query started from the persisted map: one cached stage, from
+    ``tier``, and only the keyed reduce executed."""
+    if (report.cached_stages != 1 or report.executed_stages != 1
+            or report.cache_tier != tier):
+        raise AssertionError(f"{what}: {report.describe()}; expected the "
+                             f"map served from the {tier} tier")
+
+
+def timed_collect(m, **kw) -> tuple:
+    import torch
+    t0 = time.perf_counter()
+    out = m.collect(**kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def segment_launches() -> int:
+    from repro_torch.kernels.segment_reduce import kernel as kmod
+    return kmod.LAUNCHES
+
+
+def interactive_path(genome: dict) -> dict:
+    """The paper's interactive session (persisted prefix) on the chr21
+    genome: cold queries, then ``map(kmer-stats).persist()`` and
+    INTERACTIVE_QUERIES keyed-sum queries from the device tier, one from
+    the host tier after a forced spill, and ASYNC_QUERIES asynchronous
+    ones; every table equal to numpy's bincount.  Returns the numbers it
+    printed."""
+    import torch
+    from repro_torch.core import MaRe
+    from repro_torch.io import fasta_source
+    from repro_torch.runtime import (Executor, MaterializationCache,
+                                     estimate_nbytes)
+
+    want = genome["table"]
+    src = fasta_source(genome["fasta"])
+    t0 = time.perf_counter()
+    ds = MaRe.from_source(src, num_shards=NUM_SHARDS).dataset
+    torch.cuda.synchronize()
+    phase("interactive: ingest", t0, f"records={int(ds.counts.sum())}")
+
+    # cold: no persisted prefix, the map runs in every query
+    cold_walls = []
+    for i in range(COLD_REPS):
+        before = segment_launches()
+        out, wall = timed_collect(kmer_query(MaRe(ds, executor=Executor())))
+        check_table(f"cold query {i}", out, want)
+        if segment_launches() - before != 2 * NUM_SHARDS:
+            raise AssertionError("cold query: segment-sum launches "
+                                 f"{segment_launches() - before}")
+        cold_walls.append(wall)
+
+    t0 = time.perf_counter()
+    reset_launches()
+    ex = Executor()
+    base = MaRe(ds, executor=ex)
+    persisted = base.map(image="kmer-stats", k=K).persist()
+    entry = ex.mat_cache.entry(persisted.dataset.lineage)
+    if entry is None or entry.tier != "device":
+        raise AssertionError(f"persisted map not on the device tier: "
+                             f"{ex.mat_cache.stats()}")
+    nbytes = estimate_nbytes(persisted.dataset)
+    cached_walls, per_query = [], []
+    for i in range(INTERACTIVE_QUERIES):
+        before = segment_launches()
+        q = kmer_query(base)
+        out, wall = timed_collect(q)
+        per_query.append(segment_launches() - before)
+        check_table(f"cached query {i}", out, want)
+        check_cached(f"cached query {i}", q.report(), "device")
+        cached_walls.append(wall)
+    read_launches("interactive",
+                  {"segment_sum": 2 * NUM_SHARDS * INTERACTIVE_QUERIES})
+    if per_query != [2 * NUM_SHARDS] * INTERACTIVE_QUERIES:
+        raise AssertionError(f"segment-sum launches a query: {per_query}")
+    phase("interactive: persisted queries", t0,
+          f"queries={INTERACTIVE_QUERIES} segment_sum_per_query="
+          f"{per_query} cold_wall_ms={[w * 1e3 for w in cold_walls]} "
+          f"cached_wall_ms={[w * 1e3 for w in cached_walls]} "
+          f"cold_median_ms={np.median(cold_walls) * 1e3:.3f} "
+          f"cached_median_ms={np.median(cached_walls) * 1e3:.3f} "
+          f"entry_nbytes={nbytes}")
+
+    # the host tier: a cache whose device budget is below the estimate
+    t0 = time.perf_counter()
+    reset_launches()
+    spill_ex = Executor(mat_cache=MaterializationCache(
+        device_budget_bytes=nbytes - 1))
+    spill_base = MaRe(ds, executor=spill_ex)
+    spilled = spill_base.map(image="kmer-stats", k=K).persist()
+    entry = spill_ex.mat_cache.entry(spilled.dataset.lineage)
+    if (entry.tier != "host" or entry.dataset is not None
+            or any(t.is_cuda for t in [entry.host_counts,
+                                       *entry.host_records])):
+        raise AssertionError(f"spill left device tensors: "
+                             f"{spill_ex.mat_cache.stats()}")
+    del spilled
+    q = kmer_query(spill_base)
+    out, wall = timed_collect(q)
+    restored = q.report()
+    check_table("host-tier query", out, want)
+    check_cached("host-tier query", restored, "host")
+    if q.dataset.device != ds.device:
+        raise AssertionError(f"restored to {q.dataset.device}, the dataset "
+                             f"lives on {ds.device}")
+    read_launches("interactive_host", {"segment_sum": 2 * NUM_SHARDS})
+    phase("interactive: host-tier restore", t0,
+          f"query_wall_ms={wall * 1e3:.3f} "
+          f"cache_lookup_ms={restored.phases['cache_lookup'] * 1e3:.3f} "
+          f"device={q.dataset.device} stats="
+          f"{json.dumps(spill_ex.mat_cache.stats())}")
+    del q, spill_base, spill_ex
+
+    # asynchronous: the same query, FIFO, equal to the synchronous tables
+    t0 = time.perf_counter()
+    reset_launches()
+    handles = [kmer_query(base).collect(asynchronous=True, label=f"q{i}")
+               for i in range(ASYNC_QUERIES)]
+    for i, h in enumerate(handles):
+        check_table(f"async query {i}", h.result(timeout=600), want)
+        check_cached(f"async query {i}", h.report, "device")
+    ids = [h.report.action_id for h in handles]
+    labels = [r.label for r in ex.reports if r.label]
+    if ids != sorted(ids) or labels != [f"q{i}" for i in
+                                        range(ASYNC_QUERIES)]:
+        raise AssertionError(f"async queries out of order: ids {ids}, "
+                             f"labels {labels}")
+    read_launches("interactive_async",
+                  {"segment_sum": 2 * NUM_SHARDS * ASYNC_QUERIES})
+    waits = [h.queue_wait_s for h in handles]
+    phase("interactive: async queries", t0,
+          f"queue_wait_ms={[w * 1e3 for w in waits]} "
+          f"action_wall_ms={[h.report.wall_s * 1e3 for h in handles]}")
+    ex.mat_cache.clear()
+    return {"cold_ms": np.median(cold_walls) * 1e3,
+            "cached_ms": np.median(cached_walls) * 1e3,
+            "restore_ms": wall * 1e3, "entry_nbytes": nbytes,
+            "queue_wait_ms": [w * 1e3 for w in waits]}
+
+
+def wave_capacity(waves, num_shards: int) -> int:
+    """A per-shard record capacity that holds every wave's largest shard:
+    FASTA lines of LINE bases and a newline, plus one partial line a
+    split and the header."""
+    from repro_torch.io.splits import assign_splits
+    most = max(sum(sp.length for sp in b) // (LINE + 1) + len(b) + 1
+               for w in waves for b in assign_splits(w, num_shards))
+    return -(-most // 64) * 64
+
+
+def gc_pipeline(m):
+    return (m.map(image="ubuntu", command="grep-chars GC")
+            .reduce(image="ubuntu", command="awk-sum"))
+
+
+def waves_path(genome: dict) -> dict:
+    """Out of core: the GC count over the genome in at least MIN_WAVES
+    waves (8 splits of 1 MiB each, a card-sized budget cut down to force
+    waves), against numpy and the one-shot action, with the peak of
+    allocated device memory of each."""
+    import torch
+    from repro_torch.core import MaRe, PlanCache
+    from repro_torch.io import WaveRunner, fasta_source
+
+    seq = genome["seq"]
+    want = int(np.count_nonzero((seq == ord("G")) | (seq == ord("C"))))
+    src = fasta_source(genome["fasta"])
+    splits = src.splits()
+    wave_bytes = NUM_SHARDS * max(sp.length for sp in splits)
+    waves_planned = WaveRunner(src, num_shards=NUM_SHARDS,
+                               wave_bytes=wave_bytes).waves()
+    if len(waves_planned) < MIN_WAVES:
+        raise AssertionError(f"{len(waves_planned)} waves < {MIN_WAVES}")
+    cap = wave_capacity(waves_planned, NUM_SHARDS)
+    dev = torch.device("cuda")
+
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    (one,) = gc_pipeline(MaRe.from_source(src, num_shards=NUM_SHARDS)
+                         ).collect(shard=0)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+
+    def run_waves(prefetch: bool, plan_cache=None) -> tuple:
+        """One wave run: (runner, total, wall s, its wave / wave.ingest
+        span sums in ms)."""
+        from repro_torch.obs import TRACER
+        seen = len(TRACER.events())
+        runner = gc_pipeline(WaveRunner(src, num_shards=NUM_SHARDS,
+                                        wave_bytes=wave_bytes, capacity=cap,
+                                        width=64, prefetch=prefetch,
+                                        plan_cache=plan_cache))
+        t0 = time.perf_counter()
+        (total,) = runner.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if int(total[0]) != want:
+            raise AssertionError(f"GC count in waves (prefetch={prefetch}) "
+                                 f"{int(total[0])} != numpy {want}")
+        events = TRACER.events()[seen:]
+        spans = {n: sum(e["dur"] for e in events if e["name"] == n) / 1e3
+                 for n in ("wave", "wave.ingest")}
+        return runner, wall, spans
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    base_bytes = torch.cuda.memory_allocated(dev)
+    runner, wave_wall, wave_spans = run_waves(True, PlanCache())
+    wave_peak = torch.cuda.max_memory_allocated(dev) - base_bytes
+    stats = runner.stats
+    # in turns with the same waves without the ingest lookahead (each wave
+    # ingested only after the previous action resolved): with, without,
+    # without, with
+    t0 = time.perf_counter()
+    walls = {"lookahead": [wave_wall], "no_lookahead": []}
+    spans = {"lookahead": [wave_spans], "no_lookahead": []}
+    for prefetch in (False, False, True):
+        key = "lookahead" if prefetch else "no_lookahead"
+        _, wall, sp = run_waves(prefetch)
+        walls[key].append(wall * 1e3)
+        spans[key].append(sp)
+    walls["lookahead"][0] *= 1e3
+    read_launches("waves", {})
+    if int(one[0]) != want:
+        raise AssertionError(f"GC count one-shot {int(one[0])} != numpy "
+                             f"{want}")
+    if stats["num_waves"] < MIN_WAVES or stats["programs_compiled"] > 2:
+        raise AssertionError(f"wave stats {stats}")
+    if not wave_peak < one_peak:
+        raise AssertionError(f"wave peak {wave_peak} B >= one-shot peak "
+                             f"{one_peak} B")
+    phase("waves: GC count out of core", t0,
+          f"gc={want} numpy={want} stats={json.dumps(stats)} "
+          f"capacity={cap} wave_bytes={wave_bytes} "
+          f"wall_ms={json.dumps(walls)} span_ms={json.dumps(spans)} "
+          f"one_shot_wall_ms={one_wall * 1e3:.3f} "
+          f"wave_peak_bytes={wave_peak} one_shot_peak_bytes={one_peak}")
+    return {"num_waves": stats["num_waves"], "wall_ms": walls,
+            "span_ms": spans, "one_shot_ms": one_wall * 1e3,
+            "wave_peak": wave_peak, "one_shot_peak": one_peak}
+
+
+def runtime_slice(genome: dict, tmp: str) -> None:
+    """The interactive and the out-of-core paths under an enabled tracer;
+    the exported Chrome trace and the metrics are checked after both."""
+    from repro_torch.core import MaRe
+    from repro_torch.obs import METRICS, tracing
+
+    METRICS.reset()
+    with tracing() as tracer:
+        inter = interactive_path(genome)
+        wave = waves_path(genome)
+    # any handle: trace_to and metrics read the process-wide tracer and
+    # registry
+    handle = MaRe((np.zeros(1, np.int32),))
+    path = handle.trace_to(os.path.join(tmp, "runtime_trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events}
+    missing = {"ingest", "wave", "wave.ingest", "cache.spill",
+               "cache.host_restore"} - names
+    if missing:
+        raise AssertionError(f"trace lacks {sorted(missing)}")
+    spans = {n: sum(e["dur"] for e in events if e["name"] == n) / 1e3
+             for n in ("cache.spill", "cache.host_restore")}
+    snap = handle.metrics()
+    # four wave runs: two with and two without the ingest lookahead
+    if (snap.get("mat_cache.device.hits", 0) < INTERACTIVE_QUERIES
+            or snap.get("waves.completed") != 4 * wave["num_waves"]):
+        raise AssertionError(
+            f"metrics: mat_cache.device.hits="
+            f"{snap.get('mat_cache.device.hits')}, waves.completed="
+            f"{snap.get('waves.completed')} of 4 x {wave['num_waves']} "
+            f"waves")
+    print("[runtime] " + json.dumps({
+        "interactive": inter, "waves": wave, "span_ms": spans,
+        "trace_events": len(events), "events_dropped":
+        tracer.events_dropped, "metrics": {
+            k: snap[k] for k in ("mat_cache.device.hits",
+                                 "mat_cache.host.hits",
+                                 "mat_cache.device.evictions",
+                                 "waves.completed", "executor.actions",
+                                 "executor.submitted")}}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2313,7 +2660,14 @@ def main() -> int:
         f"{lib.name}_nvcc_s={build.BUILD_SECONDS.get(lib.name, 0.0):.3f}"
         for lib in libs) + f" libs={[str(p) for p in paths]}")
 
-    records = [kmer_slice(args.seed)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        record, genome = kmer_slice(tmp, args.seed)
+        records = [record]
+        runtime_slice(genome, tmp)
+        del genome
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     records += lm_slice(args.seed)
     torch.cuda.empty_cache()

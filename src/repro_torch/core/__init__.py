@@ -8,7 +8,8 @@ images.  Mirrors :mod:`repro.core` module by module.
 from repro_torch.core.container import (ContainerOp, Partition, Registry,
                                         DEFAULT_REGISTRY, container_op,
                                         make_partition, pull, register)
-from repro_torch.core.dataset import (ShardedDataset, collect, collect_shard,
+from repro_torch.core.dataset import (ShardedDataset, collect,
+                                      collect_first_shard, collect_shard,
                                       from_host, from_numpy, resolve_device)
 from repro_torch.core.manifests import (ArgSpec, CommandSpec, Contract,
                                         ImageManifest, PRESERVE,
@@ -36,10 +37,22 @@ from repro_torch.core.tree_reduce import (broadcast_from_zero,
                                           tree_reduce_partition)
 from repro_torch.core import images as _images  # registers standard images
 
+
+def __getattr__(name):
+    # execution lives in the runtime layer; `execute` stays importable
+    # from repro_torch.core as in the reference, resolved lazily so
+    # neither package requires the other at module-import time
+    if name == "execute":
+        from repro_torch.runtime.executor import execute
+        return execute
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "MaRe", "ContainerOp", "Partition", "Registry", "DEFAULT_REGISTRY",
     "container_op", "make_partition", "pull", "register",
-    "ShardedDataset", "collect", "collect_shard", "from_host", "from_numpy",
+    "ShardedDataset", "collect", "collect_first_shard", "collect_shard",
+    "from_host", "from_numpy",
     "resolve_device",
     "Mount", "RecordMount", "FileSetMount", "TextFile", "BinaryFiles",
     "Plan", "MapStage", "ShuffleStage", "ReduceStage", "KeyedReduceStage",
@@ -48,7 +61,7 @@ __all__ = [
     "PRESERVE", "SAME",
     "Field", "Schema", "SchemaMismatch", "bytes_record_schema", "field",
     "schema_of_records",
-    "PlanCache", "DEFAULT_CACHE", "compile_plan", "program_key",
+    "PlanCache", "DEFAULT_CACHE", "compile_plan", "execute", "program_key",
     "ShuffleResult", "all_to_all", "hash_keys", "shuffle_partition",
     "keyed_bucket_capacity",
     "broadcast_from_zero", "split_factors", "tree_reduce_partition",

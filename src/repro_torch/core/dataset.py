@@ -54,6 +54,20 @@ class ShardedDataset:
         """Per-shard record capacity."""
         return tree.leaves(self.records)[0].shape[0] // self.num_shards
 
+    def record_spec(self) -> Any:
+        """The records' shapes and dtypes as meta tensors (no data)."""
+        return tree.tree_map(
+            lambda l: torch.empty(l.shape, dtype=l.dtype, device="meta"),
+            self.records)
+
+    def with_records(self, records: Any,
+                     counts: Optional[torch.Tensor] = None
+                     ) -> "ShardedDataset":
+        # records changed by an unknown transformation -> provenance lost
+        return dataclasses.replace(
+            self, records=records, lineage=None,
+            counts=self.counts if counts is None else counts)
+
     def shard(self, s: int) -> Partition:
         """Shard ``s`` as a :class:`Partition` of views (no copy)."""
         return shard_partition(self.records, self.counts, self.num_shards, s)
@@ -210,6 +224,11 @@ def collect_shard(ds: ShardedDataset, shard: int = 0) -> Any:
         return leaf[lo:lo + min(cap, rows)].cpu().numpy()
 
     return tree.tree_map(one, ds.records)
+
+
+def collect_first_shard(ds: ShardedDataset) -> Any:
+    """Shard 0's valid records (for reduced/replicated results)."""
+    return collect_shard(ds, 0)
 
 
 def collect(ds: ShardedDataset) -> Any:

@@ -13,12 +13,15 @@ name computes, dtypes included (see :mod:`repro_torch.core.tensors`).
 """
 from __future__ import annotations
 
-from typing import Any
+import inspect
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import tree
-from repro_torch.core.container import Partition, container_op, make_partition
+from repro_torch.core.container import (DEFAULT_REGISTRY, ContainerOp,
+                                        Partition, Registry, container_op,
+                                        make_partition)
 from repro_torch.core.manifests import (ArgSpec, CommandSpec, ImageManifest,
                                         PRESERVE, SAME)
 from repro_torch.core.schema import Schema, bytes_record_schema, field
@@ -181,6 +184,48 @@ def kmer_stats(part: Partition, k: int = 8, **kw: Any) -> Partition:
 # ---------------------------------------------------------------------------
 # Generic combinators (used by evaluation pipelines and tests)
 # ---------------------------------------------------------------------------
+
+def _accepts_command(fn: Callable[..., Any]) -> bool:
+    """Whether ``fn`` can receive the ``command`` keyword (named param or
+    **kwargs)."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):  # builtins / C callables
+        return False
+    for p in sig.parameters.values():
+        if p.kind is inspect.Parameter.VAR_KEYWORD:
+            return True
+        if p.name == "command" and p.kind in (
+                inspect.Parameter.POSITIONAL_OR_KEYWORD,
+                inspect.Parameter.KEYWORD_ONLY):
+            return True
+    return False
+
+
+def fn_image(name: str, fn: Callable[..., Partition], *,
+             associative_commutative: bool = False,
+             manifest: Optional[ImageManifest] = None,
+             registry: Optional[Registry] = None,
+             **defaults: Any) -> Callable[..., ContainerOp]:
+    """Build + register an image from a python function at runtime
+    (the `docker build` analogue for ad-hoc tools).
+
+    The wrapped fn receives the pull-time ``command`` string whenever its
+    signature can accept it (a ``command`` parameter or ``**kwargs``) —
+    runtime-built images interpret their command like registered ones do.
+    """
+    reg = registry or DEFAULT_REGISTRY
+    forward_command = _accepts_command(fn)
+
+    @container_op(name, associative_commutative=associative_commutative,
+                  manifest=manifest, registry=reg, **defaults)
+    def _op(part: Partition, command: str = "", **kw: Any) -> Partition:
+        if forward_command:
+            return fn(part, command=command, **kw)
+        return fn(part, **kw)
+
+    return _op
+
 
 TOPK_MANIFEST = ImageManifest(
     output_schema=SAME,

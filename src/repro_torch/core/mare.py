@@ -18,11 +18,19 @@ records by key (hash shuffle); ``reduce_by_key`` folds equal keys.
 
 All primitives are **lazy**: they append stages to a logical plan and
 type-check it against the images' manifests.  An action (``collect`` /
-``dataset``) hands the chain to the runtime executor, which runs the
-planner's lowered program over the dataset's logical shards, syncs stage
-counters once, and appends an :class:`~repro_torch.runtime.reports.
-ActionReport` to the chain's history (:meth:`MaRe.report` /
-:meth:`MaRe.reports`).
+``persist`` / ``dataset``) hands the chain to the runtime executor, which
+runs the planner's lowered program over the dataset's logical shards,
+reusing any plan *prefix* previously materialized with
+:meth:`MaRe.persist` (lineage-keyed cache), syncs stage counters once,
+and appends an :class:`~repro_torch.runtime.reports.ActionReport` to the
+chain's history (:meth:`MaRe.report` / :meth:`MaRe.reports`).
+
+There is ONE action signature: ``collect(shard=..., asynchronous=...,
+label=...)``.  The former variants (``collect_async``,
+``collect_first_shard``, ``collect_first_shard_async``) and the
+``last_diagnostics`` dict survive as deprecated shims, as do the
+paper-spelling camelCase aliases — each warning once per process
+(:mod:`repro_torch.deprecations`).
 
 Where the reference takes a device ``Mesh``, the port takes
 ``num_shards`` (the logical shard count) and ``device`` (``cuda`` unless
@@ -45,7 +53,9 @@ from repro_torch.core.plan import (KEYED_MONOIDS, Plan, StageState,
 from repro_torch.core.planner import PlanCache
 from repro_torch.core.schema import schema_of_records
 from repro_torch.deprecations import warn_once
-from repro_torch.runtime.executor import DEFAULT_EXECUTOR, Executor
+from repro_torch.obs import METRICS, TRACER
+from repro_torch.runtime.executor import (DEFAULT_EXECUTOR, ActionHandle,
+                                          Executor)
 from repro_torch.runtime.reports import ActionReport, ReportLog
 
 #: Deprecated camelCase method -> canonical snake_case method, applied to
@@ -108,6 +118,24 @@ def paper_aliases(cls):
     return cls
 
 
+#: Per-shard finalizer cache: ``collect(shard=i)`` hands the runtime the
+#: SAME callable object for a given ``i`` every time (finalize identity
+#: keys the serving layer's batching, as in the reference).
+_SHARD_FINALIZERS: Dict[int, Callable] = {}
+
+
+def _finalizer(shard: Optional[int]) -> Callable:
+    """The dataset->host callable for ``collect(shard=...)``: whole-dataset
+    gather when ``shard`` is None, else a cached per-shard slicer."""
+    if shard is None:
+        return ds_lib.collect
+    fn = _SHARD_FINALIZERS.get(shard)
+    if fn is None:
+        fn = _SHARD_FINALIZERS[shard] = functools.partial(
+            ds_lib.collect_shard, shard=shard)
+    return fn
+
+
 def _resolve_monoid(image: str, command: str, registry: Registry) -> str:
     """Keyed-reduce combiner via the paper's container spelling: the image
     is pulled and its *manifest* must declare a monoid."""
@@ -144,7 +172,8 @@ class MaRe:
     arrays), which is split block-wise over ``num_shards`` logical shards
     (default 1) on ``device`` (default ``cuda``).  ``plan_cache``
     overrides the process-wide plan cache; ``fuse=False`` runs
-    stage-at-a-time; ``executor`` overrides the process-wide executor.
+    stage-at-a-time; ``executor`` overrides the process-wide executor
+    (its materialization cache is what ``persist()`` feeds).
     """
 
     def __init__(self, data: Any, num_shards: Optional[int] = None,
@@ -178,13 +207,17 @@ class MaRe:
                     width: Optional[int] = None,
                     workers: Optional[int] = None,
                     registry: Registry = DEFAULT_REGISTRY,
-                    executor: Optional[Executor] = None) -> "MaRe":
+                    executor: Optional[Executor] = None,
+                    parser: str = "vectorized") -> "MaRe":
         """Ingest a :class:`repro_torch.io.DataSource` (storage backend +
         format + split plan) into ``num_shards`` logical shards on
-        ``device`` — the paper's heterogeneous-storage entry point."""
+        ``device`` — the paper's heterogeneous-storage entry point.
+        ``parser`` selects the framing path: ``"vectorized"`` columnar
+        :class:`~repro_torch.io.formats.RecordBatch` (default) or the
+        ``"legacy"`` per-line oracle it is property-tested against."""
         from repro_torch.io.ingest import ingest  # io depends on core
         ds = ingest(source, num_shards, device=device, capacity=capacity,
-                    width=width, workers=workers)
+                    width=width, workers=workers, parser=parser)
         return cls(ds, registry=registry, executor=executor)
 
     # -- reports -------------------------------------------------------------
@@ -196,8 +229,19 @@ class MaRe:
         return self._report_log.latest
 
     def reports(self) -> ReportLog:
-        """The chain's full action history (shared across forked handles)."""
+        """The chain's full action history (shared across forked handles):
+        iterate, index, ``total(counter)``, ``summary()``."""
         return self._report_log
+
+    @property
+    def last_diagnostics(self) -> dict:
+        """Deprecated: counter totals of the newest action.  Use
+        ``report().diagnostics`` (and ``reports()`` for history)."""
+        warn_once(("property", "last_diagnostics"),
+                  "MaRe.last_diagnostics is deprecated; use "
+                  "MaRe.report().diagnostics (reports() for history)")
+        latest = self.report()
+        return latest.diagnostics if latest is not None else {}
 
     def _initial_state(self) -> StageState:
         ds = self._dataset
@@ -225,7 +269,8 @@ class MaRe:
 
     def _materialize(self, label: Optional[str] = None) -> ShardedDataset:
         """Run all pending stages through the executor: one lowered
-        program, one counter sync, one appended ActionReport."""
+        program for the suffix not already materialized in the lineage
+        cache, one counter sync, one appended ActionReport."""
         if not self.plan.empty:
             self._dataset, _ = self.executor.run(
                 self._dataset, self.plan, fuse=self.fuse,
@@ -340,6 +385,28 @@ class MaRe:
 
     # -- actions ------------------------------------------------------------
 
+    def persist(self, tier: str = "device") -> "MaRe":
+        """Materialize the pending plan and register the result in the
+        runtime's lineage-keyed materialization cache (Spark
+        ``RDD.persist`` analogue).
+
+        ``tier="device"`` keeps the dataset's tensors live on its device;
+        ``tier="host"`` stores a CPU copy that is copied back on a hit.
+        The cache is budgeted LRU per tier (device evictions spill to
+        host, host evictions drop — recomputable from lineage).  After
+        ``persist()``, ANY handle whose plan prefix reaches this lineage
+        node starts from the cached dataset and executes only the suffix.
+        """
+        ds = self._materialize()
+        self.executor.persist(ds, tier=tier)
+        return MaRe(ds, registry=self.registry, plan_cache=self.plan_cache,
+                    fuse=self.fuse, executor=self.executor,
+                    _reports=self._report_log)
+
+    def cache(self) -> "MaRe":
+        """Sugar for :meth:`persist` (``tier="device"``)."""
+        return self.persist(tier="device")
+
     def collect(self, *, shard: Optional[int] = None,
                 asynchronous: bool = False,
                 label: Optional[str] = None) -> Any:
@@ -348,39 +415,93 @@ class MaRe:
 
         ``shard=None`` gathers every shard's valid records; ``shard=i``
         ships only shard ``i``'s valid rows (the right call for reduced,
-        replicated results).  ``label`` tags the action's report.
-        ``asynchronous=True`` is not supported by this synchronous
-        executor and raises.
+        replicated results).
+
+        ``asynchronous=False`` (default) blocks and returns host arrays.
+        ``asynchronous=True`` dispatches on the executor's action thread
+        behind its bounded queue and returns an
+        :class:`~repro_torch.runtime.executor.ActionHandle` (``.result()``
+        blocks, ``.report`` carries the ActionReport).  Snapshot
+        semantics: the pending plan is captured at call time and this
+        handle is left lazy.
+
+        ``label`` tags the action's report either way.
         """
-        if asynchronous:
-            raise NotImplementedError(
-                "asynchronous actions are not ported yet; use "
-                "collect(asynchronous=False)")
         if shard is not None and not (0 <= shard
                                       < self._dataset.num_shards):
             raise ValueError(
                 f"shard index {shard} out of range for "
                 f"{self._dataset.num_shards}-shard dataset")
-        ds = self._materialize(label=label)
-        if shard is None:
-            return ds_lib.collect(ds)
-        return ds_lib.collect_shard(ds, shard)
+        finalize = _finalizer(shard)
+        if not asynchronous:
+            return finalize(self._materialize(label=label))
+        return self.executor.submit_action(
+            self._dataset, self.plan, finalize=finalize,
+            fuse=self.fuse, plan_cache=self.plan_cache,
+            reports=self._report_log, label=label)
+
+    # -- deprecated action shims (one collect() signature replaces them) -----
+
+    def collect_async(self, label: Optional[str] = None) -> ActionHandle:
+        """Deprecated: use ``collect(asynchronous=True)``."""
+        warn_once(("method", "collect_async"),
+                  "MaRe.collect_async(label=...) is deprecated; use "
+                  "MaRe.collect(asynchronous=True, label=...)")
+        return self.collect(asynchronous=True, label=label)
+
+    def collect_first_shard(self) -> Any:
+        """Deprecated: use ``collect(shard=0)``."""
+        warn_once(("method", "collect_first_shard"),
+                  "MaRe.collect_first_shard() is deprecated; use "
+                  "MaRe.collect(shard=0)")
+        return self.collect(shard=0)
+
+    def collect_first_shard_async(self, label: Optional[str] = None
+                                  ) -> ActionHandle:
+        """Deprecated: use ``collect(shard=0, asynchronous=True)``."""
+        warn_once(("method", "collect_first_shard_async"),
+                  "MaRe.collect_first_shard_async(label=...) is "
+                  "deprecated; use MaRe.collect(shard=0, "
+                  "asynchronous=True, label=...)")
+        return self.collect(shard=0, asynchronous=True, label=label)
 
     def num_partitions(self) -> int:
         return self._dataset.num_shards
+
+    # -- observability -------------------------------------------------------
+
+    def trace_to(self, path: str) -> str:
+        """Export everything the process-wide tracer has recorded as
+        Chrome-trace JSON (load at https://ui.perfetto.dev) and return
+        ``path``.  Recording must be on — wrap the session in
+        ``repro_torch.obs.tracing()`` or call
+        ``repro_torch.obs.TRACER.start()`` first."""
+        return TRACER.export(path)
+
+    def metrics(self) -> dict:
+        """Snapshot of the process-wide metrics registry: cache hits and
+        evictions per tier, plan-cache hits/misses, exchanged-record
+        volume, dispatch-queue depth, per-phase wall histograms."""
+        return METRICS.snapshot()
 
     def describe(self) -> str:
         """Human-readable view of the pending stage DAG (no execution),
         annotated with the inferred record schema at every stage boundary
         (``{schema}#capacity``; ``?`` where an op without a manifest makes
-        it unknown), plus the counters the program will emit."""
+        it unknown).  Stages whose lineage node is materialized in the
+        runtime cache — the prefix an action would NOT re-execute — are
+        marked ``[cached]``.  A ``counters=[...]`` section lists the
+        counters the program will emit."""
         states = self._stage_states()
+        cached, _ = self.executor.cached_prefix(self._dataset, self.plan)
         if self.plan.empty:
             chain = "<identity>"
         else:
             chain = " -> ".join(
                 f"{st.describe()} : {state.describe()}"
-                for st, state in zip(self.plan.stages, states[1:]))
+                + (" [cached]" if i < cached else "")
+                for i, (st, state) in enumerate(zip(self.plan.stages,
+                                                    states[1:])))
         specs = self.plan.counter_specs()
         counters = (", counters=[" + ", ".join(
             f"stage{i}.{kind}" for i, kind in specs) + "]") if specs else ""

@@ -25,6 +25,7 @@ from repro_torch.core import tree
 from repro_torch.core.container import ContainerOp, Partition, make_partition
 from repro_torch.core.manifests import PlanTypeError
 from repro_torch.core.schema import Field, Schema, SchemaMismatch, dtype_name
+from repro_torch.obs import span
 
 
 class _IdKey:
@@ -493,9 +494,10 @@ def infer_states(plan: Plan, initial: StageState) -> List[StageState]:
     error from inside the lowered program.  Returns
     ``[initial, after_stage_0, ...]``.
     """
-    states = [initial]
-    state = initial
-    for i, stage in enumerate(plan.stages):
-        state = infer_stage(stage, state, i)
-        states.append(state)
-    return states
+    with span("plan.typecheck", stages=len(plan.stages)):
+        states = [initial]
+        state = initial
+        for i, stage in enumerate(plan.stages):
+            state = infer_stage(stage, state, i)
+            states.append(state)
+        return states

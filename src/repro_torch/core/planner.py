@@ -39,7 +39,7 @@ from repro_torch.core.tensors import stable_argsort_false_first, take_clip
 from repro_torch.core.tree_reduce import (keyed_combine_partition,
                                           keyed_merge_partition,
                                           tree_reduce_partition)
-from repro_torch.runtime.reports import timed
+from repro_torch.obs import METRICS, timed
 
 Counters = List[List[torch.Tensor]]     # [shard][counter] int32 scalars
 
@@ -95,15 +95,18 @@ class PlanCache:
         prog = self._programs.get(key)
         if prog is not None:
             self.hits += 1
+            METRICS.counter("compile_cache.hits").inc()
             self._programs.move_to_end(key)
             return prog
         self.misses += 1
+        METRICS.counter("compile_cache.misses").inc()
         with timed("plan.build", phases):
             prog = build()
         self._programs[key] = prog
         while len(self._programs) > self.maxsize:
             self._programs.popitem(last=False)
             self.evictions += 1
+            METRICS.counter("compile_cache.evictions").inc()
         return prog
 
 

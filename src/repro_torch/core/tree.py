@@ -9,7 +9,7 @@ instead of ``torch.utils._pytree``, which keeps dict insertion order.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, Iterator, List, Tuple
 
 #: A treedef is a hashable nested tuple: ``("leaf",)``, ``("none",)``, or
 #: ``(kind, meta, child_defs)`` for containers.
@@ -38,22 +38,25 @@ def _children(node: Any):
     return None
 
 
+def _walk(node: Any, path: str, out: List[Tuple[str, Any]]) -> TreeDef:
+    ch = _children(node)
+    if ch is None:
+        out.append((path, node))
+        return ("leaf",)
+    kind, meta, items = ch
+    if kind == "none":
+        return ("none",)
+    return (kind, meta, tuple(_walk(c, path + k, out) for k, c in items))
+
+
 def flatten_with_path(tree: Any) -> Tuple[List[Tuple[str, Any]], TreeDef]:
     """Leaves with their ``jax.tree_util.keystr``-style paths, plus the
-    treedef."""
+    treedef.  The walk is a module function, not a closure calling
+    itself: such a closure is a reference cycle that would keep every
+    leaf (a whole dataset's tensors) alive until the cyclic collector
+    runs."""
     out: List[Tuple[str, Any]] = []
-
-    def walk(node: Any, path: str) -> TreeDef:
-        ch = _children(node)
-        if ch is None:
-            out.append((path, node))
-            return ("leaf",)
-        kind, meta, items = ch
-        if kind == "none":
-            return ("none",)
-        return (kind, meta, tuple(walk(c, path + k) for k, c in items))
-
-    treedef = walk(tree, "")
+    treedef = _walk(tree, "", out)
     return out, treedef
 
 
@@ -66,26 +69,26 @@ def leaves(tree: Any) -> List[Any]:
     return flatten(tree)[0]
 
 
+def _build(td: TreeDef, it: Iterator[Any]) -> Any:
+    kind = td[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    _, meta, kids = td
+    built = [_build(k, it) for k in kids]
+    if kind == "tuple":
+        return tuple(built)
+    if kind == "list":
+        return built
+    if kind == "namedtuple":
+        return meta(*built)
+    return dict(zip(meta, built))
+
+
 def unflatten(treedef: TreeDef, leaves_: List[Any]) -> Any:
     it = iter(leaves_)
-
-    def build(td: TreeDef) -> Any:
-        kind = td[0]
-        if kind == "leaf":
-            return next(it)
-        if kind == "none":
-            return None
-        _, meta, kids = td
-        built = [build(k) for k in kids]
-        if kind == "tuple":
-            return tuple(built)
-        if kind == "list":
-            return built
-        if kind == "namedtuple":
-            return meta(*built)
-        return dict(zip(meta, built))
-
-    out = build(treedef)
+    out = _build(treedef, it)
     rest = list(it)
     if rest:
         raise ValueError(f"{len(rest)} leaves left over after unflatten")

@@ -3,9 +3,11 @@
 A :class:`Lineage` names a dataset by *how it was produced*: a root
 source id plus the canonical signature of every stage applied since that
 root — the RDD-lineage idea from the MapReduce survey literature
-(Sakr et al., 1302.2966), reduced to a hashable key.  Two MaRe handles
-forked from the same base dataset share a lineage prefix; every action's
-report names the lineage of the dataset it produced.
+(Sakr et al., 1302.2966), reduced to a hashable cache key.  Two MaRe
+handles forked from the same base dataset share a lineage prefix, so a
+materialization registered by ``persist()`` on one handle is found by
+*any* handle whose plan prefix reaches the same lineage node (see
+:mod:`repro_torch.runtime.cache`).
 
 Roots come in two flavors:
 
@@ -50,11 +52,20 @@ class Lineage:
         return Lineage(self.source,
                        self.stages + tuple(st.signature() for st in stages))
 
+    @property
+    def depth(self) -> int:
+        return len(self.stages)
+
     def digest(self) -> str:
         """Short stable-ish hex tag for logs and reports (identity-keyed
         stage signatures make it process-local)."""
         h = hashlib.sha1(repr((self.source, self.stages)).encode())
         return h.hexdigest()[:8]
+
+    def describe(self) -> str:
+        root = self.source[0] if isinstance(self.source, tuple) \
+            else self.source
+        return f"lineage[{root}+{self.depth} stages @{self.digest()}]"
 
 
 def host_root(tag: str = "host") -> Lineage:
@@ -71,3 +82,11 @@ def source_root(backend_name: str, fmt_name: str, splits: Iterable,
     for sp in splits:
         h.update(f"|{sp.path}:{sp.start}:{sp.stop}:{sp.file_size}".encode())
     return Lineage(source=("source", h.hexdigest()))
+
+
+def stream_root(base: Lineage, epoch: int) -> Lineage:
+    """Snapshot-generation root for an incrementally maintained aggregate:
+    the base lineage of the maintained query plus the epoch watermark
+    folded in so far.  Distinct epochs are distinct cache keys, while the
+    same (base, epoch) pair from any handle reaches the same entry."""
+    return Lineage(source=("stream", base.source, base.stages, epoch))

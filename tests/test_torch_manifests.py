@@ -6,8 +6,7 @@ inference, monoid resolution and mount wiring
 The cases are the reference's ``tests/test_manifests.py``, each run
 through both packages on the same inputs: what it pins holds for both,
 and the outputs (arrays, ``describe()`` strings, error messages) are
-equal.  The four ``fn_image`` cases wait for the port's ``fn_image``
-(ROADMAP Queue 1 item 19).
+equal.  All 30 cases are here.
 """
 import jax
 import jax.numpy as jnp
@@ -18,11 +17,13 @@ import torch
 import repro.core as R
 import repro_torch.core as T
 from repro.core.container import ContainerOp as RContainerOp
+from repro.core.images import fn_image as r_fn_image
 from repro.core.schema import substitute as r_substitute
 from repro.core.schema import unify as r_unify
 from repro.io.formats import FORMATS as R_FORMATS
 from repro.io.formats import pack_records as r_pack
 from repro_torch.core.container import ContainerOp as TContainerOp
+from repro_torch.core.images import fn_image as t_fn_image
 from repro_torch.core.schema import substitute as t_substitute
 from repro_torch.core.schema import unify as t_unify
 from repro_torch.io.formats import FORMATS as T_FORMATS
@@ -30,10 +31,12 @@ from repro_torch.io.formats import pack_records as t_pack
 
 PKGS = {
     R: dict(unify=r_unify, substitute=r_substitute, formats=R_FORMATS,
-            pack=r_pack, op=RContainerOp, i32=jnp.int32, f32=jnp.float32,
+            pack=r_pack, op=RContainerOp, fn_image=r_fn_image,
+            i32=jnp.int32, f32=jnp.float32,
             f64=jnp.float64, arr=jnp.asarray, kw={}),
     T: dict(unify=t_unify, substitute=t_substitute, formats=T_FORMATS,
-            pack=t_pack, op=TContainerOp, i32=torch.int32,
+            pack=t_pack, op=TContainerOp, fn_image=t_fn_image,
+            i32=torch.int32,
             f32=torch.float32, f64=torch.float64, arr=torch.as_tensor,
             kw={"device": "cpu"}),
 }
@@ -431,4 +434,82 @@ def test_custom_manifest_grammar_roundtrip():
         return spec.name, params, params2
     ref, port = both(case)
     assert port == ("tool", {"n": 3, "names": ("a", "b")}, {"n": 3})
+    assert ref == port
+
+
+# -- fn_image: runtime-built images -------------------------------------------
+
+def _arange4(pkg):
+    return pkg["arr"](np.arange(4, dtype=np.int32))
+
+
+def test_fn_image_with_grammarless_manifest_forwards_command():
+    def case(mod, pkg):
+        seen = {}
+
+        def tool(part, command="", **kw):
+            seen["command"] = command
+            return part
+
+        reg = mod.Registry()
+        pkg["fn_image"]("anon/manifested-cmd", tool, registry=reg,
+                        manifest=mod.ImageManifest(output_schema=mod.SAME))
+        op = reg.pull("anon/manifested-cmd", command="--flag x")
+        op(mod.make_partition((_arange4(pkg),), 4))
+        return seen["command"]
+    assert both(case) == ("--flag x", "--flag x")
+
+
+def test_fn_image_forwards_command_string():
+    def case(mod, pkg):
+        seen = {}
+
+        def tool(part, command="", **kw):
+            seen["command"] = command
+            return part
+
+        reg = mod.Registry()
+        pkg["fn_image"]("anon/cmd-tool", tool, registry=reg)
+        op = reg.pull("anon/cmd-tool", command="frobnicate --fast")
+        op(mod.make_partition((_arange4(pkg),), 4))
+        return seen["command"], op.name, sorted(reg.images())
+    ref, port = both(case)
+    assert port[0] == "frobnicate --fast"
+    assert ref == port
+
+
+def test_fn_image_without_command_param_still_works():
+    def case(mod, pkg):
+        def plain(part):
+            return part
+
+        reg = mod.Registry()
+        pkg["fn_image"]("anon/plain-tool", plain, registry=reg)
+        out = reg.pull("anon/plain-tool")(
+            mod.make_partition((_arange4(pkg),), 4))
+        return out.capacity, leaves(out.records)[0].tolist()
+    assert both(case) == ((4, [0, 1, 2, 3]), (4, [0, 1, 2, 3]))
+
+
+def test_fn_image_with_manifest_participates_in_inference():
+    def case(mod, pkg):
+        def doubler(part, **kw):
+            (x,) = part.records
+            return mod.make_partition((x * 2,), part.count)
+
+        reg = mod.Registry()
+        pkg["fn_image"]("anon/doubler", doubler, registry=reg,
+                        manifest=mod.ImageManifest(
+                            input_schema=mod.Schema((mod.field(pkg["i32"]),)),
+                            output_schema=mod.SAME))
+        m = mare(mod, pkg, (np.arange(8, dtype=np.int32),), registry=reg,
+                 plan_cache=mod.PlanCache()).map(image="anon/doubler")
+        msg = message(mod, mod.PlanTypeError, lambda: mare(
+            mod, pkg, (np.arange(8, dtype=np.float32),), registry=reg,
+            plan_cache=mod.PlanCache()).map(image="anon/doubler"))
+        return m.describe(), msg, leaves(m.collect())[0].tolist()
+    ref, port = both(case)
+    assert "(i32)" in port[0]
+    assert "input schema mismatch" in port[1]
+    assert port[2] == [2 * i for i in range(8)]
     assert ref == port
