@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Drives the six slices of ``repro_torch`` through their public entry
+Drives the slices of ``repro_torch`` through their public entry
 points.  First it builds the six CUDA kernels from
 ``src/repro_torch/csrc`` (one ``nvcc`` each, started together).
 
@@ -48,6 +48,37 @@ d. out of core: the GC count (``grep-chars GC`` -> ``awk-sum``) through
 e. the exported Chrome trace holds the ``ingest``, ``wave``,
    ``wave.ingest``, ``cache.spill`` and ``cache.host_restore`` spans, and
    ``MaRe.metrics()`` counts the device-tier hits and every wave.
+
+Slice 6, the segment-reduce tuner, streaming and the query service, on
+the same genome under an enabled tracer (right after slice 5):
+
+a. the segment-reduce dispatch at the k-mer action's combine and merge
+   shapes: on the card a sum takes the kernel without measuring (the
+   tuner times plain strategies on the CPU only); the action's wall with
+   the static choice (``REPRO_SEGMENT_AUTOTUNE=0``) beside the default,
+   every launch on the binned route;
+b. the genome as 8 FASTA files of whole lines, dropped one at a time
+   (``os.replace``) into an inbox under
+   ``ContinuousSource(num_shards=8, device="cuda")``; an
+   ``IncrementalQuery`` of the k-mer table, one ``update()`` a file:
+   equal to numpy's table over the files so far after every epoch and to
+   the one-shot action over all of them at the end, bit for bit, with
+   one fold signature, 184 segment-sum launches (16 a delta action, 8 a
+   fold), each epoch's ``update_s``, ``fold_s`` and allocated bytes;
+c. a sliding ``WindowedQuery`` (size 3, slide 1) over the same files:
+   every window equal to numpy's table over its epochs, 5 evicted
+   partials gone from the cache;
+d. the same stream through ``QueryService`` ->
+   ``session("alice").stream(...)`` -> ``LiveQuery``: files dropped while
+   ``follow()`` waits, each report the tenant's with its epoch;
+e. ``launch.serve --service`` in process: 4 tenants x 6 rounds (sum,
+   max, min) over 778,500 reads of 64 bases at k = 12: tables against
+   numpy and the same plans outside the service, coalesced dispatches,
+   16 segment-sum launches a sum group and 8 a max or min group (its
+   merge's counts), QPS and p50 / p99.
+
+The stream, window and live paths run on the default materialization
+cache, whose device tier is a quarter of the card's memory.
 
 Slice 2, LM serving at the full width of Llama-3.2-1B (16 layers,
 d_model 2048, 32/8 heads, vocab 128256, bf16, random weights from the
@@ -726,7 +757,9 @@ def kmer_slice(tmp: str, seed: int) -> tuple:
     phase("k-mer check", t0, "table == numpy bincount, on cuda")
     record = timing_phase(real, ds, cap2, errs)
     record["launches"] = 2 * NUM_SHARDS
-    return record, {"fasta": fasta, "seq": seq, "table": want_table}
+    shapes = {"combine": real[1][0].shape[0], "merge": real[2][0].shape[0]}
+    return record, {"fasta": fasta, "seq": seq, "table": want_table,
+                    "shapes": shapes}
 
 
 # ---------------------------------------------------------------------------
@@ -1062,6 +1095,404 @@ def runtime_slice(genome: dict, tmp: str) -> None:
                                  "mat_cache.device.evictions",
                                  "waves.completed", "executor.actions",
                                  "executor.submitted")}}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# slice 6: the tuner, streaming and the query service on the same genome
+# ---------------------------------------------------------------------------
+
+STREAM_FILES = 8
+WINDOW = 3
+TUNE_REPS = 2
+SERVICE_ARGS = ["--service", "--tenants", "4", "--rounds", "6", "--reads",
+                "778500", "--k", str(K), "--batch-window", "0.05",
+                "--num-shards", str(NUM_SHARDS)]
+
+
+def epoch_files(genome: dict, tmp: str, n: int = STREAM_FILES) -> list:
+    """The genome as ``n`` FASTA files of equal whole lines, written to a
+    staging directory (an inbox receives them by ``os.replace``): a list
+    of ``(staged path, name, numpy k-mer table of the file)``."""
+    seq = genome["seq"]
+    lines = -(-len(seq) // LINE)
+    per = -(-lines // n)
+    staging = os.path.join(tmp, "staging")
+    os.makedirs(staging, exist_ok=True)
+    out = []
+    for i in range(n):
+        chunk = seq[i * per * LINE:(i + 1) * per * LINE]
+        path = os.path.join(staging, f"part{i}.fa")
+        write_fasta(path, chunk)
+        out.append((path, f"part{i}.fa", kmer_bincount(chunk, K)))
+    if not np.array_equal(sum(t for _, _, t in out), genome["table"]):
+        raise AssertionError("the files' k-mer tables do not add up to the "
+                             "genome's")
+    return out
+
+
+def stream_capacity(files: list) -> int:
+    """Per-shard record capacity of the largest epoch (one file)."""
+    from repro_torch.io import fasta_source
+    return wave_capacity([fasta_source(p).splits() for p, _, _ in files],
+                         NUM_SHARDS)
+
+
+def stream_executor():
+    """An executor with the default materialization cache (its device
+    tier a share of the card's memory)."""
+    from repro_torch.runtime import Executor
+    return Executor()
+
+
+def new_inbox(tmp: str, name: str) -> str:
+    path = os.path.join(tmp, name)
+    os.makedirs(path)
+    return path
+
+
+def drop(inbox: str, staged: str, name: str) -> None:
+    """A file arrives whole: a copy of the staged file, moved in."""
+    tmp = staged + ".copy"
+    shutil.copyfile(staged, tmp)
+    os.replace(tmp, os.path.join(inbox, name))
+
+
+def table_of(ds) -> np.ndarray:
+    """A maintained k-mer state as a dense numpy table."""
+    from repro_torch.core.dataset import collect
+    return kmer_table(collect(ds))
+
+
+def tune_path(genome: dict) -> dict:
+    """The segment-reduce dispatch at the k-mer action's combine and merge
+    shapes: on the card a sum takes the kernel without measuring (no
+    tune-report row names the card), and the same action's wall with the
+    static choice (``REPRO_SEGMENT_AUTOTUNE=0``) beside the default, every
+    launch on the binned route."""
+    import torch
+    from repro_torch.core import MaRe
+    from repro_torch.io import fasta_source
+    from repro_torch.kernels.segment_reduce import ops, tune
+    from repro_torch.runtime import Executor
+
+    want = genome["table"]
+    nk = 4 ** K
+    dev = torch.device("cuda")
+    chosen = {name: ops.resolve_strategy(
+        None, "sum", n, nk, (torch.zeros((1, d), dtype=torch.int32,
+                                         device=dev),), device=dev)
+        for (name, n), d in zip(genome["shapes"].items(), (1, 2))}
+    measured = [e for e in tune.tune_report() if e["device"] != "cpu"]
+    if set(chosen.values()) != {"kernel"} or measured:
+        raise AssertionError(f"segment-reduce dispatch on the card: "
+                             f"{chosen}, measured {measured}")
+    ds = MaRe.from_source(fasta_source(genome["fasta"]),
+                          num_shards=NUM_SHARDS).dataset
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_launches()
+    walls: dict = {"static": [], "default": []}
+    saved = os.environ.get("REPRO_SEGMENT_AUTOTUNE")
+    for mode in ("static", "default"):
+        if mode == "static":
+            os.environ["REPRO_SEGMENT_AUTOTUNE"] = "0"
+        try:
+            for i in range(TUNE_REPS):
+                out, wall = timed_collect(kmer_query(MaRe(
+                    ds, executor=Executor())))
+                check_table(f"{mode} query {i}", out, want)
+                walls[mode].append(wall * 1e3)
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_SEGMENT_AUTOTUNE", None)
+            else:
+                os.environ["REPRO_SEGMENT_AUTOTUNE"] = saved
+    read_launches("tune", {"segment_sum": 2 * NUM_SHARDS * 2 * TUNE_REPS})
+    phase("tune: static vs default", t0,
+          f"wall_ms={json.dumps(walls)} chosen={json.dumps(chosen)} "
+          f"measured_on_card={len(measured)}")
+    return {"chosen": chosen, "wall_ms": walls}
+
+
+def stream_path(files: list, tmp: str, cap: int) -> dict:
+    """The incremental k-mer stream: one file an epoch dropped into an
+    inbox, one ``update()`` each; the state equals numpy's table over the
+    files so far after every epoch and the one-shot action over all of
+    them at the end, bit for bit, with one fold signature."""
+    import torch
+    from repro_torch.core import MaRe, PlanCache
+    from repro_torch.core.dataset import collect
+    from repro_torch.io import fasta_source
+    from repro_torch.stream import ContinuousSource, IncrementalQuery
+
+    inbox = new_inbox(tmp, "stream")
+    ex = stream_executor()
+    cont = ContinuousSource(fasta_source(inbox), num_shards=NUM_SHARDS,
+                            device="cuda", capacity=cap)
+    q = IncrementalQuery(cont, kmer_query, executor=ex,
+                         plan_cache=PlanCache())
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    want = np.zeros(4 ** K, np.int64)
+    epochs = []
+    reset_launches()
+    for i, (staged, name, table) in enumerate(files):
+        drop(inbox, staged, name)
+        torch.cuda.synchronize()
+        u0 = time.perf_counter()
+        upd = q.update()
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - u0
+        if upd is None or upd.epoch != i or upd.new_splits < 1:
+            raise AssertionError(f"stream epoch {i}: {upd}")
+        want += table
+        if not np.array_equal(table_of(q.state), want):
+            raise AssertionError(f"stream epoch {i}: state != numpy")
+        epochs.append({"update_s": update_s, "fold_s": upd.fold_s,
+                       "allocated": torch.cuda.memory_allocated(dev),
+                       "splits": upd.new_splits})
+    # a delta action is a combine and a merge a shard; every epoch after
+    # the first folds the state with the delta, one merge a shard
+    launches = len(files) * 2 * NUM_SHARDS + (len(files) - 1) * NUM_SHARDS
+    read_launches("stream", {"segment_sum": launches})
+    if q.fold_engine.compiles != 1 or q.fold_engine.folds != \
+            len(files) - 1:
+        raise AssertionError(f"fold compiles {q.fold_engine.compiles}, "
+                             f"folds {q.fold_engine.folds}")
+    got = collect(q.state)
+    one = kmer_query(MaRe.from_source(fasta_source(inbox),
+                                      num_shards=NUM_SHARDS)).collect()
+    leaves = lambda o: (o[0], o[1][0], o[2])
+    for a, b in zip(leaves(got), leaves(one)):
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise AssertionError("stream state != one-shot action")
+    phase("stream: incremental k-mer table", t0,
+          f"epochs={len(files)} capacity={cap} launches={launches} "
+          f"fold_compiles={q.fold_engine.compiles} "
+          f"per_epoch={json.dumps(epochs)} one_shot=bit-identical "
+          f"device_budget={ex.mat_cache.device_budget_bytes} "
+          f"cache={json.dumps(ex.mat_cache.stats())}")
+    ex.mat_cache.clear()
+    return {"epochs": epochs, "launches": launches}
+
+
+def window_path(files: list, tmp: str, cap: int) -> dict:
+    """A sliding window of WINDOW epochs, slide 1, over the same files:
+    every emitted window equals numpy's table over its epochs; the
+    evicted partials leave the cache."""
+    import torch
+    from repro_torch.core import PlanCache
+    from repro_torch.io import fasta_source
+    from repro_torch.stream import ContinuousSource, WindowedQuery
+
+    inbox = new_inbox(tmp, "window")
+    ex = stream_executor()
+    w = WindowedQuery(ContinuousSource(fasta_source(inbox),
+                                       num_shards=NUM_SHARDS, device="cuda",
+                                       capacity=cap),
+                      kmer_query, size=WINDOW, slide=1, executor=ex,
+                      plan_cache=PlanCache())
+    t0 = time.perf_counter()
+    fold_s = []
+    reset_launches()
+    for i, (staged, name, _) in enumerate(files):
+        drop(inbox, staged, name)
+        upd = w.update()
+        torch.cuda.synchronize()
+        ring = w.window_epochs
+        if ring != tuple(range(max(0, i - WINDOW + 1), i + 1)):
+            raise AssertionError(f"window after epoch {i}: {ring}")
+        want = sum(files[e][2] for e in ring)
+        if not np.array_equal(table_of(w.state), want):
+            raise AssertionError(f"window {ring} != numpy")
+        fold_s.append(upd.fold_s)
+    folds = sum(min(i, WINDOW - 1) for i in range(len(files)))
+    launches = (len(files) * 2 + folds) * NUM_SHARDS
+    read_launches("window", {"segment_sum": launches})
+    evicted = len(files) - WINDOW
+    stats = ex.mat_cache.stats()
+    # the cache holds the ring's partials and the newest window; every
+    # evicted partial and superseded window was dropped
+    if (w.evicted != evicted or len(ex.mat_cache) != WINDOW + 1
+            or stats["invalidations"] != evicted + len(files) - 1
+            or w.fold_engine.folds != folds):
+        raise AssertionError(f"window: evicted {w.evicted}, entries "
+                             f"{len(ex.mat_cache)}, stats {stats}, folds "
+                             f"{w.fold_engine.folds}")
+    phase("window: sliding k-mer tables", t0,
+          f"size={WINDOW} slide=1 evicted={w.evicted} folds={folds} "
+          f"launches={launches} fold_s={fold_s} cache={json.dumps(stats)}")
+    ex.mat_cache.clear()
+    return {"evicted": w.evicted, "fold_s": fold_s, "launches": launches}
+
+
+def live_path(files: list, tmp: str, cap: int) -> dict:
+    """A live query through a tenant's session: files dropped while
+    ``follow()`` waits; every refresh's report reaches the session with
+    its tenant and epoch, the state equals numpy's table, and ``stop()``
+    re-raises nothing."""
+    import queue
+    import torch
+    from repro_torch.io import fasta_source
+    from repro_torch.serve import QueryService, ServiceConfig
+    from repro_torch.stream import ContinuousSource, LiveQuery
+
+    inbox = new_inbox(tmp, "live")
+    refreshed: "queue.Queue" = queue.Queue()
+    t0 = time.perf_counter()
+    follow_ms = []
+    want = np.zeros(4 ** K, np.int64)
+    reset_launches()
+    with QueryService(executor=stream_executor(), config=ServiceConfig(
+            batch_window_s=0.0)) as svc:
+        sess = svc.session("alice")
+        q = sess.stream(ContinuousSource(fasta_source(inbox),
+                                         num_shards=NUM_SHARDS,
+                                         device="cuda", capacity=cap),
+                        kmer_query)
+        seen = 0
+        live = LiveQuery(q, interval_s=0.05, on_refresh=refreshed.put)
+        with live:
+            for i, (staged, name, table) in enumerate(files):
+                f0 = time.perf_counter()
+                drop(inbox, staged, name)
+                reports = sess.follow(seen, timeout=300)
+                upd = refreshed.get(timeout=300)
+                follow_ms.append((time.perf_counter() - f0) * 1e3)
+                seen += len(reports)
+                rep = reports[-1]
+                if (len(reports) != 1 or rep.tenant != "alice"
+                        or upd.epoch != i
+                        or rep.counters.get("stream.epoch") != i):
+                    raise AssertionError(
+                        f"live epoch {i}: {len(reports)} reports, "
+                        f"tenant {rep.tenant}, update epoch "
+                        f"{upd.epoch}, counters {rep.counters}")
+                want += table
+        if live.error is not None or live.running:
+            raise AssertionError(f"live query: {live}")
+        torch.cuda.synchronize()
+        if not np.array_equal(table_of(q.state), want):
+            raise AssertionError("live state != numpy")
+        cache_stats = svc.executor.mat_cache.stats()
+        svc.executor.mat_cache.clear()
+    launches = len(files) * 2 * NUM_SHARDS + (len(files) - 1) * NUM_SHARDS
+    read_launches("live", {"segment_sum": launches})
+    phase("live: session follow loop", t0,
+          f"refreshes={live.refreshes} follow_ms={follow_ms} "
+          f"reports={seen} cache={json.dumps(cache_stats)}")
+    return {"follow_ms": follow_ms, "refreshes": live.refreshes}
+
+
+def reads_kmer_table(reads: np.ndarray, k: int) -> np.ndarray:
+    """numpy's k-mer table over fixed-length ACGT reads."""
+    code = np.zeros(256, np.int64)
+    for i, b in enumerate(b"ACGT"):
+        code[b] = i
+    nw = reads.shape[1] - k + 1
+    acc = np.zeros((reads.shape[0], nw), np.int64)
+    for j in range(k):
+        acc = acc * 4 + code[reads[:, j:j + nw]]
+    return np.bincount(acc.reshape(-1), minlength=4 ** k)
+
+
+def service_path() -> dict:
+    """``launch.serve --service`` in process: 4 tenants, 6 rounds (sum,
+    max, min twice), ~50 Mbases of reads, k = 12; tables against numpy
+    and the same plans outside the service, coalesced dispatches, 16
+    segment-sum launches a sum group and 8 a max or min group."""
+    from repro_torch.core import MaRe
+    from repro_torch.launch import serve
+    from repro_torch.runtime import Executor
+
+    args = serve.parse_args(SERVICE_ARGS)
+    t0 = time.perf_counter()
+    reset_launches()
+    run = serve.service_loop(args)
+    groups = {op: {r.batch_leader for reps in run.reports.values()
+                   for r in reps if r.label == f"{op} query"}
+              for op in serve.QUERY_OPS}
+    sum_groups = groups["sum"]
+    # a sum group folds its values and counts in one launch a shard at
+    # the combine and at the merge; a max or min group folds its values
+    # by scatter and only its merge's counts through the kernel
+    other_groups = len(groups["max"]) + len(groups["min"])
+    read_launches("service", {"segment_sum": 2 * NUM_SHARDS
+                              * len(sum_groups)
+                              + NUM_SHARDS * other_groups})
+    for line in serve.service_lines(args, run):
+        print(f"[service] {line}", flush=True)
+    t1 = time.perf_counter()
+    reads = serve.make_reads(args.reads, args.seed)["data"]
+    want = reads_kmer_table(reads, args.k)
+    alone = {op: MaRe(run.shared, executor=Executor()).map(
+        image="kmer-stats", k=args.k).reduce_by_key(
+        serve._key_of, value_by=serve._ones_of, op=op,
+        num_keys=4 ** args.k).collect() for op in ("max", "min")}
+    first_sum = None
+    for tenant, results in run.results.items():
+        if [op for op, _ in results] != [serve.QUERY_OPS[i % 3]
+                                         for i in range(args.rounds)]:
+            raise AssertionError(f"{tenant}: {[op for op, _ in results]}")
+        for op, out in results:
+            leaves = (out[0], out[1][0], out[2])
+            if op == "sum":
+                if first_sum is None:
+                    check_table(f"{tenant} sum", out, want)
+                    first_sum = leaves
+                elif not all(np.array_equal(a, b) for a, b in
+                             zip(leaves, first_sum)):
+                    raise AssertionError(f"{tenant} sum != the first sum")
+            elif not all(np.array_equal(a, b) for a, b in
+                         zip(leaves, (alone[op][0], alone[op][1][0],
+                                      alone[op][2]))):
+                raise AssertionError(f"{tenant} {op} != outside the "
+                                     f"service")
+    st = run.cache_stats
+    if (run.occupancy <= 1 or st["tenant_budget_violations"]
+            or st["shared_hits"] < 1):
+        raise AssertionError(f"service: occupancy {run.occupancy}, "
+                             f"cache {st}")
+    phase("service: tenants x rounds", t0,
+          f"dispatches={run.dispatches} sum_groups={len(sum_groups)} "
+          f"max_min_groups={other_groups} "
+          f"occupancy={run.occupancy:.4f} qps={run.qps:.4f} "
+          f"p50_ms={run.latency(0.5) * 1e3:.3f} "
+          f"p99_ms={run.latency(0.99) * 1e3:.3f} "
+          f"wall_s={run.wall_s:.4f} shared_hits={st['shared_hits']} "
+          f"violations={st['tenant_budget_violations']} "
+          f"check_s={time.perf_counter() - t1:.3f}")
+    return {"dispatches": run.dispatches, "sum_groups": len(sum_groups),
+            "occupancy": run.occupancy, "qps": run.qps,
+            "p50_ms": run.latency(0.5) * 1e3,
+            "p99_ms": run.latency(0.99) * 1e3, "wall_s": run.wall_s,
+            "shared_hits": st["shared_hits"]}
+
+
+def stream_service_slice(genome: dict, tmp: str) -> None:
+    """Slice 6 under an enabled tracer: the segment-reduce dispatch, the
+    incremental stream, the sliding window, the live query and the
+    service."""
+    from repro_torch.obs import tracing
+
+    with tracing() as tracer:
+        tuned = tune_path(genome)
+        t0 = time.perf_counter()
+        files = epoch_files(genome, tmp)
+        cap = stream_capacity(files)
+        phase("stream: epoch files", t0, f"files={len(files)} "
+              f"capacity={cap}")
+        stream = stream_path(files, tmp, cap)
+        window = window_path(files, tmp, cap)
+        live = live_path(files, tmp, cap)
+        service = service_path()
+    events = tracer.events()
+    spans = {n: sum(e["dur"] for e in events if e["name"] == n) / 1e3
+             for n in ("stream.update", "stream.fold", "stream.ingest",
+                       "stream.window.update", "action")}
+    print("[slice6] " + json.dumps({
+        "tune": tuned, "stream": stream, "window": window, "live": live,
+        "service": service, "span_ms": spans}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2665,6 +3096,7 @@ def main() -> int:
         record, genome = kmer_slice(tmp, args.seed)
         records = [record]
         runtime_slice(genome, tmp)
+        stream_service_slice(genome, tmp)
         del genome
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

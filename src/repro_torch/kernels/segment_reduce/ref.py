@@ -14,6 +14,13 @@ one-sync-per-action error channel instead of silently corrupting rows.
   kernels (``kernel.py``) with their exact signature — one ``[n, d]``
   value matrix — as a thin call into :func:`segment_reduce_ref`.  The CPU
   path and the on-card comparison use it.
+* :func:`segment_reduce_fused` — sum only: value leaves grouped by dtype,
+  each group stacked column-wise and folded by ONE ``index_add_`` (the
+  counts column rides with the int32 group).  The tuner's CPU candidate.
+* :func:`segment_reduce_sorted` — sum over integer leaves only: stable
+  sort by key, cumulative sum, difference at the key boundaries — no
+  scatter.  Exact for integers; not offered for floats, whose reordered
+  sums round differently.
 * :func:`segment_sum_binned_ref` is the binned route's algebra in tensor
   code (tile histogram, partition by tile, per-tile fold, hot tiles split
   into items of ``split`` records), so that its tile arithmetic is tested
@@ -194,3 +201,93 @@ def segment_reduce_ref(keys: torch.Tensor, values: Any, num_keys: int,
 
     return SegmentReduceResult(values=tree.tree_map(reduce_leaf, values),
                                counts=counts[:num_keys], overflow=overflow)
+
+
+def _is_integer(dtype: torch.dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex
+                or dtype == torch.bool)
+
+
+def segment_reduce_fused(keys: torch.Tensor, values: Any, num_keys: int,
+                         valid: Optional[torch.Tensor] = None
+                         ) -> SegmentReduceResult:
+    """Sum-monoid segment reduce with dtype-grouped fused scatters.
+
+    Value leaves sharing a dtype are flattened to ``[n, d_i]`` columns and
+    stacked into one ``[n, D]`` matrix folded by a single ``index_add_``
+    into a sentinel-extended table.  The int32 counts column is appended
+    to the int32 group when one exists and folded on its own otherwise.
+    Integer results are bit-identical to :func:`segment_reduce_ref`.
+    """
+    ok, idx, overflow = _ok_idx_overflow(keys, num_keys, valid)
+    leaves, treedef = tree.flatten(values)
+    n = keys.shape[0]
+    dev = keys.device
+    groups: dict = {}                 # dtype -> [(leaf position, [n, d])]
+    for pos, leaf in enumerate(leaves):
+        groups.setdefault(leaf.dtype, []).append((pos, leaf.reshape(n, -1)))
+    groups.setdefault(torch.int32, [])
+    out: list = [None] * len(leaves)
+    counts = None
+    for dtype, members in groups.items():
+        cols = [torch.where(ok[:, None], flat, torch.zeros((), dtype=dtype,
+                                                          device=dev))
+                for _, flat in members]
+        if dtype == torch.int32:
+            cols.append(ok.to(torch.int32)[:, None])
+        aug = cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)
+        tab = torch.zeros((num_keys + 1, aug.shape[1]), dtype=dtype,
+                          device=dev)
+        tab.index_add_(0, idx, aug)
+        tab = tab[:num_keys]
+        off = 0
+        for pos, flat in members:
+            w = flat.shape[1]
+            out[pos] = tab[:, off:off + w].reshape(
+                (num_keys,) + tuple(leaves[pos].shape[1:]))
+            off += w
+        if dtype == torch.int32:
+            counts = tab[:, -1]
+    return SegmentReduceResult(values=tree.unflatten(treedef, out),
+                               counts=counts, overflow=overflow)
+
+
+def segment_reduce_sorted(keys: torch.Tensor, values: Any, num_keys: int,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> SegmentReduceResult:
+    """Sort-based sum-monoid segment reduce (integer leaves only).
+
+    Stable-sort the (sentinel-masked) keys once, take a cumulative sum of
+    every value column in sorted order, and read each key's total as the
+    difference at its ``searchsorted`` boundaries.  The cumulative sum of
+    leaves up to 32 bits runs in int64 and the difference is cast back, so
+    the result wraps exactly as the scatter paths' sums do.  Floating
+    leaves raise: the reordered sums would round differently.
+    """
+    ok, idx, overflow = _ok_idx_overflow(keys, num_keys, valid)
+    leaves, treedef = tree.flatten(values)
+    for leaf in leaves:
+        if not _is_integer(leaf.dtype):
+            raise TypeError(f"segment_reduce_sorted takes integer leaves, "
+                            f"got {leaf.dtype}")
+    n = keys.shape[0]
+    dev = keys.device
+    order = torch.argsort(idx, stable=True)
+    bounds = torch.searchsorted(idx[order],
+                                torch.arange(num_keys + 1, device=dev))
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+
+    def reduce_leaf(leaf):
+        acc = torch.int64 if leaf.dtype.itemsize <= 4 else leaf.dtype
+        flat = torch.where(ok[:, None], leaf.reshape(n, -1),
+                           torch.zeros((), dtype=leaf.dtype, device=dev))
+        csum = torch.cat([torch.zeros((1, flat.shape[1]), dtype=acc,
+                                      device=dev),
+                          torch.cumsum(flat[order], dim=0, dtype=acc)])
+        tot = csum[bounds[1:]] - csum[bounds[:-1]]
+        return tot.to(leaf.dtype).reshape((num_keys,)
+                                          + tuple(leaf.shape[1:]))
+
+    return SegmentReduceResult(
+        values=tree.unflatten(treedef, [reduce_leaf(l) for l in leaves]),
+        counts=counts, overflow=overflow)

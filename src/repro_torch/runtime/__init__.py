@@ -13,17 +13,21 @@ and structured per-action diagnostics
 """
 from repro_torch.runtime.cache import (DEVICE_BUDGET_DEFAULT,
                                        HOST_BUDGET_DEFAULT, CacheEntry,
-                                       MaterializationCache, estimate_nbytes)
+                                       MaterializationCache,
+                                       default_device_budget,
+                                       estimate_nbytes)
 from repro_torch.runtime.executor import (DEFAULT_EXECUTOR, ActionHandle,
                                           Executor, check_counters, execute)
 from repro_torch.runtime.lineage import (Lineage, host_root, source_root,
                                          stream_root)
-from repro_torch.runtime.reports import ActionReport, ReportLog
+from repro_torch.runtime.reports import (ActionReport, ReportLog,
+                                          ReportStream)
 
 __all__ = [
     "ActionHandle", "ActionReport", "CacheEntry", "DEFAULT_EXECUTOR",
     "DEVICE_BUDGET_DEFAULT", "Executor", "HOST_BUDGET_DEFAULT", "Lineage",
-    "MaterializationCache", "ReportLog", "check_counters",
-    "estimate_nbytes", "execute", "host_root", "source_root",
+    "MaterializationCache", "ReportLog", "ReportStream", "check_counters",
+    "default_device_budget", "estimate_nbytes", "execute", "host_root",
+    "source_root",
     "stream_root",
 ]

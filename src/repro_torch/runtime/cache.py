@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -83,19 +83,36 @@ class CacheEntry:
 #: FINITE.  Pass ``None`` for unbounded.
 DEVICE_BUDGET_DEFAULT = 1 << 30   # 1 GiB estimated device-resident bytes
 HOST_BUDGET_DEFAULT = 4 << 30     # 4 GiB spilled host copies
+#: On a machine with CUDA the device tier's default is this share of the
+#: current card's memory instead: one k = 12 k-mer table over 8 shards
+#: is 1.6 GB, so the reference's 1 GiB would spill every generation of
+#: a stream to the host.  The rest of the card is left to the actions.
+DEVICE_BUDGET_CARD_SHARE = 0.25
+
+
+def default_device_budget() -> int:
+    """The device tier's default budget: ``DEVICE_BUDGET_CARD_SHARE`` of
+    the current CUDA card's memory, or ``DEVICE_BUDGET_DEFAULT`` on a
+    machine without CUDA."""
+    if not torch.cuda.is_available():
+        return DEVICE_BUDGET_DEFAULT
+    total = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).total_memory
+    return int(total * DEVICE_BUDGET_CARD_SHARE)
 
 
 class MaterializationCache:
     """Budgeted two-tier LRU store of materialized datasets by lineage.
 
     ``device_budget_bytes`` / ``host_budget_bytes`` bound the estimated
-    resident bytes per tier; ``None`` means unbounded.  One shared LRU
+    resident bytes per tier; ``None`` means unbounded, and the device
+    tier's ``"auto"`` (the default) is :func:`default_device_budget`.  One shared LRU
     order spans both tiers, but budgets and eviction are per tier: device
     evicts by spilling to host, host evicts by dropping.
     """
 
     def __init__(self,
-                 device_budget_bytes: Optional[int] = DEVICE_BUDGET_DEFAULT,
+                 device_budget_bytes: Union[int, None, str] = "auto",
                  host_budget_bytes: Optional[int] = HOST_BUDGET_DEFAULT,
                  tenant_device_budget_bytes: Optional[int] = None,
                  tenant_host_budget_bytes: Optional[int] = None
@@ -125,6 +142,13 @@ class MaterializationCache:
         self.tenant_budget_violations = 0
 
     # -- accounting ----------------------------------------------------------
+
+    def _device_budget(self) -> Optional[int]:
+        """The device tier's budget, ``"auto"`` resolved at first use (not
+        at construction: the process-wide executor is built at import)."""
+        if self.device_budget_bytes == "auto":
+            self.device_budget_bytes = default_device_budget()
+        return self.device_budget_bytes
 
     def __len__(self) -> int:
         with self._lock:
@@ -284,7 +308,7 @@ class MaterializationCache:
                     METRICS.counter(
                         "mat_cache.tenant_budget_violations").inc()
         # device -> host spill, LRU first; then host drop, LRU first
-        while self._over("device", self.device_budget_bytes, Ellipsis):
+        while self._over("device", self._device_budget(), Ellipsis):
             if not self._spill_lru():
                 break
         while self._over("host", self.host_budget_bytes, Ellipsis):

@@ -7,13 +7,15 @@ key-table overflow, exchanged-record volume), plan-cache deltas and the
 wall time split into phases.  Reports accumulate in a bounded
 :class:`ReportLog`, so an interactive session can inspect every query it
 ran; ``MaRe.last_diagnostics`` remains as a deprecated view over the
-newest report's counters.
+newest report's counters.  A :class:`ReportStream` is a log that
+consumers can wait on: the serving layer's per-tenant report channel.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 from collections import deque
-from typing import Deque, Dict, Iterator, Optional
+from typing import Deque, Dict, Iterator, List, Optional
 
 
 @dataclasses.dataclass
@@ -43,6 +45,11 @@ class ActionReport:
     tenant: Optional[str] = None
     #: Device the action ran on (e.g. ``cuda:0``).
     device: Optional[str] = None
+    #: Serving layer: number of coalesced same-plan actions this dispatch
+    #: served (1 = not batched) and, on a member's report, the action_id
+    #: of the batch leader whose execution it shared.
+    batch_size: int = 1
+    batch_leader: Optional[int] = None
 
     @property
     def executed_stages(self) -> int:
@@ -61,9 +68,11 @@ class ActionReport:
         who = f" tenant={self.tenant}" if self.tenant else ""
         qw = (f", queue_wait={self.queue_wait_s * 1e3:.1f}ms"
               if self.queue_wait_s else "")
+        batched = (f", batch={self.batch_size}" if self.batch_size > 1
+                   else "")
         return (f"action#{self.action_id}{tag}:{who} {self.plan}{hit}, "
                 f"compiled={self.programs_compiled}, "
-                f"wall={self.wall_s * 1e3:.1f}ms{qw}")
+                f"wall={self.wall_s * 1e3:.1f}ms{qw}{batched}")
 
 
 class ReportLog:
@@ -144,3 +153,48 @@ class ReportLog:
                     f"{s / len(reports) * 1e3:>8.2f}ms "
                     f"{s / wall * 100 if wall else 0:>6.1f}%")
         return "\n".join(lines)
+
+
+class ReportStream(ReportLog):
+    """A :class:`ReportLog` that consumers can *wait on* — the per-tenant
+    report channel of the serving layer.
+
+    Producers (the service's dispatch path, a live query's refresh
+    thread) ``append`` from worker threads; a session-side consumer blocks
+    in :meth:`wait_for` / :meth:`next_after` for reports it has not seen
+    yet, so the log becomes a live stream without polling.
+    """
+
+    def __init__(self, maxlen: int = 256) -> None:
+        super().__init__(maxlen)
+        self._cond = threading.Condition()
+
+    def new_id(self) -> int:
+        with self._cond:
+            return super().new_id()
+
+    def append(self, report: ActionReport) -> None:
+        with self._cond:
+            super().append(report)
+            self._cond.notify_all()
+
+    def wait_for(self, appended: int, timeout: Optional[float] = None
+                 ) -> bool:
+        """Block until the stream's lifetime append count reaches
+        ``appended`` (False on timeout)."""
+        with self._cond:
+            return self._cond.wait_for(lambda: self.appended >= appended,
+                                       timeout)
+
+    def next_after(self, seen: int, timeout: Optional[float] = None
+                   ) -> List[ActionReport]:
+        """Reports appended after the first ``seen`` (blocking until at
+        least one arrives, or ``[]`` on timeout).  Cursor pattern:
+        ``seen += len(batch)`` after each call.  Reports that aged out of
+        the bounded history before being read are skipped."""
+        with self._cond:
+            if not self._cond.wait_for(lambda: self.appended > seen,
+                                       timeout):
+                return []
+            missed = self.appended - seen
+            return list(self._reports)[-min(missed, len(self._reports)):]

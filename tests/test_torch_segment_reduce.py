@@ -104,17 +104,46 @@ def test_nan_padding_never_reaches_the_table():
     _assert_same([ref.values[0]], [got.values[0]], n)
 
 
-def test_strategy_dispatch():
+def test_strategy_dispatch(monkeypatch):
+    """The reference's dispatch: ``strategy=`` wins ("tiled" names the
+    kernel), True/False force kernel/scatter, REPRO_SEGMENT_KERNEL comes
+    next and None asks the tuner, whose static choice
+    (REPRO_SEGMENT_AUTOTUNE=0) is the kernel on CUDA and fused on the
+    CPU; an empty shard, an empty pytree and max/min take scatter."""
+    from repro_torch.kernels.segment_reduce import tune
+    monkeypatch.delenv("REPRO_SEGMENT_KERNEL", raising=False)
+    monkeypatch.setenv("REPRO_SEGMENT_AUTOTUNE", "0")
+    tune.clear_cache()
     vals = (torch.zeros(4, dtype=torch.int32),)
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert resolve_strategy(None, "sum", vals, cuda) == "kernel"
-    assert resolve_strategy(None, "sum", vals, cpu) == "scatter"
-    assert resolve_strategy(True, "sum", vals, cpu) == "kernel"
-    assert resolve_strategy(False, "sum", vals, cuda) == "scatter"
-    assert resolve_strategy(None, "max", vals, cuda) == "scatter"
-    assert resolve_strategy(True, "sum", (), cuda) == "scatter"
-    with pytest.raises(ValueError, match="unknown segment-reduce op"):
-        resolve_strategy(None, "mean", vals, cpu)
+    kernel, scatter = "kernel", "scatter"
+    try:
+        assert resolve_strategy(None, "sum", 4, 3, vals, device=cuda) \
+            == kernel
+        assert resolve_strategy(None, "sum", 4, 3, vals, device=cpu) \
+            == "fused"
+        assert resolve_strategy(True, "sum", 4, 3, vals, device=cpu) \
+            == kernel
+        assert resolve_strategy(False, "sum", 4, 3, vals, device=cuda) \
+            == scatter
+        assert resolve_strategy(None, "max", 4, 3, vals, device=cuda) \
+            == scatter
+        assert resolve_strategy(True, "sum", 4, 3, (), device=cuda) \
+            == scatter
+        assert resolve_strategy(True, "sum", 0, 3, vals, device=cuda) \
+            == scatter
+        assert resolve_strategy(None, "sum", 4, 3, vals, strategy="tiled",
+                                device=cpu) == kernel
+        monkeypatch.setenv("REPRO_SEGMENT_KERNEL", "0")
+        assert resolve_strategy(None, "sum", 4, 3, vals, device=cuda) \
+            == scatter
+        monkeypatch.setenv("REPRO_SEGMENT_KERNEL", "1")
+        assert resolve_strategy(None, "sum", 4, 3, vals, device=cpu) \
+            == kernel
+        with pytest.raises(ValueError, match="unknown segment-reduce op"):
+            resolve_strategy(None, "mean", 4, 3, vals, device=cpu)
+    finally:
+        tune.clear_cache()
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():

@@ -58,8 +58,12 @@ def test_cli_prints_the_reference_lines(capsys):
 
 
 def test_service_mode_is_not_ported_yet(capsys):
-    assert T_serve.main(["--service"]) != 0
-    assert "ROADMAP" in capsys.readouterr().err
+    """Kept under its old name: ``--service`` is ported now, so the mode
+    runs the query-service loop (on the CPU here) and exits 0."""
+    assert T_serve.main(["--service", "--device", "cpu", "--tenants", "1",
+                         "--rounds", "1", "--reads", "64"]) == 0
+    out = capsys.readouterr().out
+    assert "served 1 actions" in out and "tenant_budget_violations=0" in out
 
 
 def test_default_device_is_cuda():
