@@ -88,8 +88,10 @@ seed):
    versions on the card, at the prefill's shapes and on edge cases, and
    time kernel, plain version and one library call
    (``scaled_dot_product_attention``, ``rms_norm``) with CUDA events:
-   flash's bf16 (wgmma) route at every served prefill shape (Llama,
-   granite, hymba windowed and global), its f32 (simt) route and the
+   flash's bf16 (wgmma) route at every served attention shape (Llama,
+   granite, hymba windowed and global, and slices 2b and 2c's), each
+   also held by relative RMS error and timed in turns with SDPA by
+   CUDA-graph replay and back to back, its f32 (simt) route and the
    CUDA-core kernel on bf16 at Llama's; RMSNorm's one-pass path beside
    ``F.rms_norm`` and the two-pass loop, in turns;
 6. ``repro_torch.launch.serve --model-smoke`` (batch 4, prompt 2048, 32
@@ -99,6 +101,33 @@ seed):
    against the forward pass, within stated bf16 tolerances;
 8. RMSNorm's own route, ``models.layers.apply_rmsnorm(use_kernel=True)``,
    on the prefill's and a decode step's hidden-state shapes.
+
+Slices 2b and 2c, vlm and encoder-decoder serving at the full width and
+depth of internvl2-1b (24 layers, d_model 896, 14/2 heads, 256 patch
+embeddings projected and prepended, vocab 151655) and whisper-base (6
+encoder + 6 decoder layers, d_model 512, 8 heads, 1,500 frames, vocab
+51865), bf16, random weights and inputs from the seed:
+
+a. (in step 5) hold the flash kernel against its plain version on the
+   wgmma route at their attention shapes, and time it: internvl2's
+   causal prefill over 2,304 positions at GQA group 7, whisper's encoder
+   over 1,500 frames (not causal; the last key tile holds 92 keys, and
+   the check is shown to reject those tiles' zero-filled keys left in
+   the softmax), and the teacher-forced forward's cross attention (448
+   queries against the frames, not causal) and decoder self-attention
+   (448, causal);
+b. ``serve --model-smoke --arch internvl2-1b`` (batch 4, prompt 2048, 32
+   greedy tokens): 24 flash launches in the request, all in the prefill
+   at its attention shape;
+   the same prefill with plain attention, teacher-forced decode against
+   the forward pass;
+c. ``serve --model-smoke --arch whisper-base`` (batch 4, prompt 416 and
+   32 greedy tokens: the decoder's 448 positions): 6 flash launches in
+   the prefill (the encoder; the decoder's prefill attention stays
+   chunked and a decode step's cross attention plain, as the
+   reference's), 0 in a decode step, 18 in the teacher-forced forward
+   over all 448 tokens (6 at each of its three shapes); the same checks
+   as b.
 
 Slice 3a, MoE serving at the full width of granite-moe-1b-a400m (24
 layers, d_model 1024, 16/8 heads, 32 experts top-8, expert d_ff 512,
@@ -137,6 +166,20 @@ library of 2,097,152 molecules x 16 float32 features in 8 logical shards:
     whole library, the records equal to a plain top-k over the
     pipeline's own mapped scores, and the combines' sizes those timed.
 
+Slice 3c, the paper's SNP-calling pipeline (Listing 3) over 2,097,152
+reads x 16 float32 features (seed 3; ~6.7x coverage of chr21 at 150 bases
+a read) in 8 logical shards: ``map(tools/bwa, rounds=4) ->
+repartition_by(chromosome) -> map(tools/gatk) -> reduce(toolbox/concat,
+depth=2) -> collect(shard=0)``, a hash exchange of 24 heavily skewed
+chromosome keys over 8 shards, launching no kernel: the chromosomes,
+read ids and variant count against a numpy oracle of the same formulas
+over the whole library (a difference allowed only on reads within 1e-5
+of an integer feature sum or 1e-4 of a zero score), the scores within
+1e-4, the drop counter 0, every read once in the exchange with each
+chromosome on one shard, and the records equal to gatk + concat over
+the exchange's own shards; prints the per-shard counts after the
+exchange and the action's phases.
+
 Slice 4, hybrid serving at the full width and depth of hymba-1.5b (32
 layers, d_model 1600, 25/5 heads, window 1024 on all but the global layers
 0, 15 and 31, SSM state 16, vocab 32001, bf16, random weights from the
@@ -159,13 +202,16 @@ seed):
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
-Every phase prints its wall time; the first failure exits non-zero.  A
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4.  Every phase
+prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route or a top-k launch off the select
 route on theirs.  The last lines are a JSON object describing the
 kernels (every kernel's ``launches_by_path`` but RMSNorm's split by
-route; the segment sum's times of the real merge, the stress merge and
+route; flash's ``served_shapes``, each with its launches by path as
+counted by shape in this run; the segment sum's times of the real merge,
+the stress merge and
 the hot key beside its real combine's; the dispatch's and the top-k's
 by graph replay and back to back beside the kernels they replaced),
 the ``nvidia-smi`` line, and ``{"ok": true, "device": {...}}``.  Without
@@ -228,9 +274,11 @@ def reset_launches() -> None:
 
 #: Each main path's launch counts, read just after it ran with every
 #: counter set to 0 just before it; flash's, the SSM scan's, the segment
-#: sum's, the dispatch's and the top-k's also by route.
+#: sum's, the dispatch's and the top-k's also by route, flash's also by
+#: shape (see :func:`flash_shape`).
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
+FLASH_SHAPES: dict = {}
 SSM_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
@@ -238,7 +286,8 @@ TOPK_ROUTES: dict = {}
 
 
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
-                  ssm_routes: Optional[dict] = None) -> dict:
+                  ssm_routes: Optional[dict] = None,
+                  flash_shapes: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
@@ -246,8 +295,10 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), unless
     every segment-sum launch took the ``binned`` route, every dispatch
     launch the ``cluster`` route and every top-k launch the ``select``
-    route, and unless the SSM scan's launches split by route as
-    ``ssm_routes`` says (none on any route when it is None)."""
+    route, unless the SSM scan's launches split by route as
+    ``ssm_routes`` says (none on any route when it is None), and unless
+    flash's launches split by shape as ``flash_shapes`` says, when it is
+    given."""
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
@@ -255,8 +306,10 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
     disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
     topk = dict(mods["topk_reduce"].LAUNCHES_BY_ROUTE)
+    shapes = dict(mods["flash_attention"].LAUNCHES_BY_SHAPE)
     PATH_LAUNCHES[path] = got
     FLASH_ROUTES[path] = routes
+    FLASH_SHAPES[path] = shapes
     SSM_ROUTES[path] = ssm
     SEGMENT_ROUTES[path] = seg
     DISPATCH_ROUTES[path] = disp
@@ -270,14 +323,16 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
     if (got != want or routes != want_routes or ssm != want_ssm
             or seg != want_seg or disp != want_disp
-            or topk != want_topk):
+            or topk != want_topk
+            or flash_shapes not in (None, shapes)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, ssm_scan by route {ssm}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
-                             f"{topk}; expected {want}, {want_routes}, "
-                             f"{want_ssm}, {want_seg}, {want_disp}, "
-                             f"{want_topk}")
+                             f"{topk}, flash by shape {shapes}; expected "
+                             f"{want}, {want_routes}, {want_ssm}, "
+                             f"{want_seg}, {want_disp}, {want_topk}, "
+                             f"{flash_shapes}")
     return got
 
 
@@ -1517,6 +1572,27 @@ RMS_TOL = {"torch.bfloat16": 2e-2, "torch.float32": 1e-6}
 # is 15-20% of the largest.
 LOGIT_TOL_FRAC = 0.1
 TEACHER_FORCED = 4
+# At a served shape the bf16 output is also held to the plain version in
+# f32 by relative RMS error, ||got - want|| / ||want||: the kernel rounds
+# P and its output to bf16, at most 2**-9 of each element.  A fault that
+# moves every output of a row alike reads several times higher: the
+# zero-filled keys of a not-causal call's partial last key tile, left in
+# the softmax, shrink every output by their share of its denominator (36
+# keys of 1,536 at 1,500 frames).  Each run plants that fault in the
+# plain version and shows that this limit rejects it.
+FLASH_REL_RMS_TOL = 6e-3
+FLASH_KEY_TILE = 128             # the wgmma route's keys a tile
+
+VLM_ARCH = "internvl2-1b"
+VLM_PARAMS = 494_556_160         # the reference's init_lm leaves, counted
+VLM_PATCHES = 256
+AUDIO_ARCH = "whisper-base"
+AUDIO_PARAMS = 70_658_560        # the reference's init_encdec leaves
+AUDIO_FRAMES = 1500
+# whisper's decoder context (max_target_positions, 448 positions), filled
+# by the prompt and the greedy tokens
+AUDIO_CONTEXT = 448
+AUDIO_PROMPT = AUDIO_CONTEXT - GEN
 
 
 def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -1552,9 +1628,26 @@ def rms_bound(rows: int, d: int, itemsize: int):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window):
+def flash_shape(b, hq, hkv, sq, sk, causal, window) -> tuple:
+    """The flash wrapper's key in its ``LAUNCHES_BY_SHAPE`` for a bf16
+    call at head dim 64 (the wgmma route): q [b * hq, sq, 64] against k,
+    v [b * hkv, sk, 64], GQA group hq // hkv, causal, window."""
+    return ("wgmma", b * hq, hq // hkv, sq, sk, 64, causal, window)
+
+
+def rel_rms(got, want) -> float:
+    """||got - want|| / ||want|| in f32."""
+    return float((got.float() - want).norm() / want.norm())
+
+
+def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window,
+                rel_tol: Optional[float] = None):
     """One flash launch on random inputs against the plain version taken
-    in f32; returns (max abs error, (q, k, v))."""
+    in f32; returns ({"max_abs_err": ...}, (q, k, v)).  With ``rel_tol``
+    also holds the relative RMS error to it, and where a not-causal
+    call's last key tile is partial, plants the fault of that tile's
+    zero-filled keys left in the softmax into the plain version and
+    shows that the same limit rejects it; both readings are returned."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -1569,11 +1662,9 @@ def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window):
     if fmod.LAUNCHES - before != 1:
         raise AssertionError(f"flash {name}: "
                              f"{fmod.LAUNCHES - before} launches")
-    want = flash_attention_plain(
-        q.float().reshape(b * hq, sq, d),
-        k.float().reshape(b * hkv, sk, d),
-        v.float().reshape(b * hkv, sk, d), hq // hkv, causal=causal,
-        window=window).reshape(b, hq, sq, d)
+    q3, k3, v3 = (t.float().reshape(-1, t.shape[2], d) for t in (q, k, v))
+    want = flash_attention_plain(q3, k3, v3, hq // hkv, causal=causal,
+                                 window=window).reshape(b, hq, sq, d)
     err = float((got.float() - want).abs().max())
     tol = FLASH_TOL[str(dt)]
     if got.dtype != dt or not err < tol:
@@ -1582,26 +1673,59 @@ def flash_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal, window):
     empty = sq - sk if causal and sq > sk else 0
     if empty and not bool((got[:, :, :empty] == 0).all()):
         raise AssertionError(f"flash {name}: a row without keys is not 0")
+    check, extra = {"max_abs_err": err}, ""
+    if rel_tol is not None:
+        check["rel_rms_err"] = rel_rms(got, want)
+        if not check["rel_rms_err"] <= rel_tol:
+            raise AssertionError(f"flash {name}: relative RMS error "
+                                 f"{check['rel_rms_err']} > {rel_tol}")
+        tail = sk % FLASH_KEY_TILE
+        if not causal and window is None and tail:
+            pad = torch.zeros((k3.shape[0], FLASH_KEY_TILE - tail, d),
+                              device=dev)
+            bad = flash_attention_plain(
+                q3, torch.cat([k3, pad], 1), torch.cat([v3, pad], 1),
+                hq // hkv, causal=False).reshape(b, hq, sq, d).to(dt)
+            check["planted_tail_fault_rel_rms_err"] = rel_rms(bad, want)
+            del bad, pad
+            if not check["planted_tail_fault_rel_rms_err"] > rel_tol:
+                raise AssertionError(
+                    f"flash {name}: the check passes the planted fault "
+                    f"(relative RMS error "
+                    f"{check['planted_tail_fault_rel_rms_err']})")
+        extra = f" rel_rms_err={check['rel_rms_err']} rel_tol={rel_tol}" + (
+            f" planted_tail_fault_rel_rms_err="
+            f"{check['planted_tail_fault_rel_rms_err']} (last key tile "
+            f"{tail} keys)" if "planted_tail_fault_rel_rms_err" in check
+            else "")
+    del want, q3, k3, v3
     phase(f"flash check {name}", t0,
           f"q={tuple(q.shape)} kv={tuple(k.shape)} {dt} causal={causal}"
           f" window={window} max_abs_err={err} tol={tol}"
-          f" rows_without_keys={empty * b * hq}")
-    return err, (q, k, v)
+          f" rows_without_keys={empty * b * hq}" + extra)
+    return check, (q, k, v)
 
 
-#: The served prefills' attention shapes: name, q heads, kv heads, window
-#: (batch BATCH, prompt PROMPT, head dim 64, causal, bf16).
-FLASH_SERVED = (("llama3.2-1b", 32, 8, None),
-                ("granite-moe-1b-a400m", 16, 8, None),
-                ("hymba-1.5b window 1024", 25, 5, 1024),
-                ("hymba-1.5b global", 25, 5, None))
-
-
-def flash_inputs(dev, g, b, hq, hkv, sq, sk, d, dt):
-    import torch
-    return (torch.randn((b, hq, sq, d), device=dev, generator=g).to(dt),
-            torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt),
-            torch.randn((b, hkv, sk, d), device=dev, generator=g).to(dt))
+#: The served attention shapes, each checked on the wgmma route and timed
+#: (batch BATCH, head dim 64, bf16): name, q heads, kv heads, Sq, Sk,
+#: causal, window.  Every one must be launched by a path of this run.
+FLASH_SERVED = (
+    ("llama3.2-1b", 32, 8, PROMPT, PROMPT, True, None),
+    ("granite-moe-1b-a400m", 16, 8, PROMPT, PROMPT, True, None),
+    ("hymba-1.5b window 1024", 25, 5, PROMPT, PROMPT, True, 1024),
+    ("hymba-1.5b global", 25, 5, PROMPT, PROMPT, True, None),
+    # internvl2's prefill over its patches and the prompt, GQA group 7
+    ("internvl2-1b prefill", 14, 2, VLM_PATCHES + PROMPT,
+     VLM_PATCHES + PROMPT, True, None),
+    # whisper's encoder over its frames: the last key tile holds 92 keys
+    ("whisper-base encoder", 8, 8, AUDIO_FRAMES, AUDIO_FRAMES, False,
+     None),
+    # the teacher-forced forward over the decoder's 448 positions: cross
+    # attention to the frames, and self attention
+    ("whisper-base cross attention (forward)", 8, 8, AUDIO_CONTEXT,
+     AUDIO_FRAMES, False, None),
+    ("whisper-base decoder self attention (forward)", 8, 8, AUDIO_CONTEXT,
+     AUDIO_CONTEXT, True, None))
 
 
 def flash_simt_bf16(q3, k3, v3, group: int):
@@ -1621,22 +1745,37 @@ def flash_simt_bf16(q3, k3, v3, group: int):
     return out
 
 
-def flash_kernel_phase(dev) -> dict:
-    """Flash kernel vs its plain version at the prefill shape and on edge
-    cases; at every served prefill shape, times the bf16 kernel (the
-    wgmma route) beside SDPA, and at Llama's also the plain version, the
-    f32 (simt) route and the CUDA-core kernel on bf16."""
+def sdpa_call(q, k, v, causal: bool, window):
+    """SDPA on the same inputs and mask (a window as a boolean mask, True
+    = attend, right-aligned queries); returns (the call, its name)."""
     import torch
     import torch.nn.functional as F
+    sq, sk = q.shape[2], k.shape[2]
+    if window is None:
+        if causal and sq != sk:
+            raise ValueError("SDPA's is_causal aligns queries left")
+        return (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)), "sdpa"
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    keep = (kpos <= qpos) & (kpos > qpos - window)
+    return (lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep, enable_gqa=True)), "sdpa with a bool mask"
+
+
+def flash_kernel_phase(dev) -> dict:
+    """Flash kernel vs its plain version on edge cases and at every served
+    shape (there also by relative RMS error, on the wgmma route); at each
+    served shape times the kernel in turns with SDPA by CUDA-graph replay
+    and back to back, beside the plain version and the bound, and at
+    Llama's also the f32 (simt) route and the CUDA-core kernel on bf16."""
+    import torch
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [
         # name, b, hq, hkv, sq, sk, d, dtype, causal, window
-        ("prefill", BATCH, 32, 8, PROMPT, PROMPT, 64, bf16, True, None),
         ("prefill f32", BATCH, 32, 8, PROMPT, PROMPT, 64, f32, True, None),
-        ("granite prefill", BATCH, 16, 8, PROMPT, PROMPT, 64, bf16, True,
-         None),
         ("right-aligned Sq<Sk", 2, 32, 8, 96, PROMPT, 64, bf16, True, None),
         ("window 256", 1, 32, 8, 1024, 1024, 64, bf16, True, 256),
         ("unaligned Sq, Sk", 1, 12, 4, 1000, 1037, 64, bf16, True, None),
@@ -1647,40 +1786,45 @@ def flash_kernel_phase(dev) -> dict:
     g = torch.Generator(device=dev).manual_seed(21)
     errs = {"wgmma": 0.0, "simt": 0.0}
     for case in cases:
-        err, inputs = flash_check(dev, g, *case)
+        check, inputs = flash_check(dev, g, *case)
         route = fmod.route(case[7], case[6], dev)
-        errs[route] = max(errs[route], err)
+        errs[route] = max(errs[route], check["max_abs_err"])
         del inputs
     by_shape = {}
-    for name, hq, hkv, window in FLASH_SERVED:
+    for name, hq, hkv, sq, sk, causal, window in FLASH_SERVED:
+        before = dict(fmod.LAUNCHES_BY_ROUTE)
+        check, (q, k, v) = flash_check(dev, g, name, BATCH, hq, hkv, sq, sk,
+                                       64, bf16, causal, window,
+                                       rel_tol=FLASH_REL_RMS_TOL)
+        moved = {r: fmod.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+        if moved != {"wgmma": 1, "simt": 0}:
+            raise AssertionError(f"flash {name}: launches by route {moved}")
+        errs["wgmma"] = max(errs["wgmma"], check["max_abs_err"])
         t0 = time.perf_counter()
-        q, k, v = flash_inputs(dev, g, BATCH, hq, hkv, PROMPT, PROMPT, 64,
-                               bf16)
-        q3, k3, v3 = (t.reshape(-1, PROMPT, 64) for t in (q, k, v))
+        q3, k3, v3 = (t.reshape(-1, t.shape[2], 64) for t in (q, k, v))
         group = hq // hkv
-        ms = cuda_ms(lambda: fmod.flash_attention_kernel(
-            q3, k3, v3, group=group, window=window))
-        if window is None:
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-        else:
-            # SDPA takes the window as a boolean mask (True = attend)
-            pos = torch.arange(PROMPT, device=dev)
-            keep = (pos[:, None] >= pos[None, :]) & \
-                (pos[None, :] > pos[:, None] - window)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=keep, enable_gqa=True))
-        bnd, by = flash_bound(BATCH, hq, hkv, PROMPT, PROMPT, 64, True,
-                              window, 2)
+        sdpa, library = sdpa_call(q, k, v, causal, window)
+        fns = (lambda: fmod.flash_attention_kernel(
+            q3, k3, v3, group=group, causal=causal, window=window), sdpa)
+        # device time by graph replay (whisper's calls take tens of
+        # microseconds, near the host's cost of a launch), and back to back
+        (ms, lib), turns = in_turns(lambda fn: graph_ms(fn, reps=50), fns)
+        (b2b, lib_b2b), turns_b2b = in_turns(cuda_ms, fns)
+        plain = cuda_ms(lambda: flash_attention_plain(
+            q3, k3, v3, group, causal=causal, window=window), reps=5,
+            warmup=1)
+        bnd, by = flash_bound(BATCH, hq, hkv, sq, sk, 64, causal, window, 2)
         by_shape[name] = {"q": list(q.shape), "kv": list(k.shape),
-                          "window": window, "ms": ms, "library_ms": lib,
-                          "library": "sdpa" + ("" if window is None
-                                               else " with a bool mask"),
-                          "bound_ms": bnd, "bound_by": by}
+                          "causal": causal, "window": window,
+                          "route": "wgmma", **check, "ms": ms,
+                          "timed": "CUDA graph replay",
+                          "back_to_back_ms": b2b, "plain_ms": plain,
+                          "library_ms": lib,
+                          "library_back_to_back_ms": lib_b2b,
+                          "library": library, "bound_ms": bnd,
+                          "bound_by": by}
         extra = ""
         if name == "llama3.2-1b":
-            plain = cuda_ms(lambda: flash_attention_plain(q3, k3, v3, group),
-                            reps=5, warmup=1)
             simt = cuda_ms(lambda: flash_simt_bf16(q3, k3, v3, group),
                            reps=5, warmup=1)
             qf, kf, vf = (t.float() for t in (q3, k3, v3))
@@ -1689,30 +1833,51 @@ def flash_kernel_phase(dev) -> dict:
             f32_plain = cuda_ms(lambda: flash_attention_plain(qf, kf, vf,
                                                               group),
                                 reps=5, warmup=1)
-            f32_bnd, f32_by = flash_bound(BATCH, hq, hkv, PROMPT, PROMPT,
-                                          64, True, None, 4)
-            by_shape[name].update(plain_ms=plain, simt_bf16_ms=simt)
+            f32_bnd, f32_by = flash_bound(BATCH, hq, hkv, sq, sk, 64, True,
+                                          None, 4)
+            by_shape[name]["simt_bf16_ms"] = simt
             f32_rec = {"route": "simt", "ms": f32_ms, "plain_ms": f32_plain,
                        "bound_ms": f32_bnd, "bound_by": f32_by}
-            extra = (f" plain_ms={plain:.4f} simt_bf16_ms={simt:.4f} "
-                     f"f32_simt_ms={f32_ms:.4f} f32_plain_ms="
-                     f"{f32_plain:.4f} f32_bound_ms={f32_bnd:.4f}")
+            extra = (f" simt_bf16_ms={simt:.4f} f32_simt_ms={f32_ms:.4f} "
+                     f"f32_plain_ms={f32_plain:.4f} f32_bound_ms="
+                     f"{f32_bnd:.4f}")
             del qf, kf, vf
         phase(f"flash timing {name}", t0,
-              f"q={tuple(q.shape)} kv={tuple(k.shape)} bf16 causal "
-              f"window={window} kernel_ms={ms:.4f} sdpa_ms={lib:.4f} "
-              f"bound_ms={bnd:.4f} ({by}) pairs_per_head="
-              f"{flash_pairs(PROMPT, PROMPT, True, window)}" + extra)
+              f"q={tuple(q.shape)} kv={tuple(k.shape)} bf16 causal="
+              f"{causal} window={window} graph: kernel_ms={ms:.5f} "
+              f"sdpa_ms={lib:.5f} in_turns={['%.5f' % v for v in turns]}; "
+              f"back to back: kernel_ms={b2b:.5f} sdpa_ms={lib_b2b:.5f} "
+              f"in_turns={['%.5f' % v for v in turns_b2b]}; plain_ms="
+              f"{plain:.4f} bound_ms={bnd:.5f} ({by}) share_of_bound="
+              f"{bnd / ms:.3f} pairs_per_head="
+              f"{flash_pairs(sq, sk, causal, window)} last_key_tile="
+              f"{sk - FLASH_KEY_TILE * ((sk - 1) // FLASH_KEY_TILE)} keys"
+              + extra)
         del q, k, v, q3, k3, v3
     main = by_shape["llama3.2-1b"]
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_SOURCE, "replaces": FLASH_REPLACES,
             "launches": None, "max_abs_err": max(errs.values()),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"],
+            "ms": main["ms"], "timed": "CUDA graph replay",
+            "back_to_back_ms": main["back_to_back_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "max_abs_err_by_route": errs, "served_shapes": by_shape,
             "f32": f32_rec}
+
+
+def served_shape_launches(flash_rec: dict) -> None:
+    """Each served shape's launches by path, from flash's counts by shape
+    read on every path of this run; raises for a served shape that no
+    path launched."""
+    for name, hq, hkv, sq, sk, causal, window in FLASH_SERVED:
+        key = flash_shape(BATCH, hq, hkv, sq, sk, causal, window)
+        by_path = {path: got[key] for path, got in FLASH_SHAPES.items()
+                   if got.get(key)}
+        if not by_path:
+            raise AssertionError(f"flash served shape {name} {key}: no "
+                                 f"path launched it")
+        flash_rec["served_shapes"][name]["launches_by_path"] = by_path
 
 
 def rms_by_mode(x, w, eps: float, mode: int):
@@ -1821,15 +1986,29 @@ def max_abs(a) -> float:
     return max(float(x.float().abs().max()) for x in a)
 
 
-def check_run(run, cfg) -> None:
-    """The serving run's logits are finite of the prompt's shape and its
+def inputs_of(run) -> dict:
+    """The serving batch's inputs beside the tokens: ``patch_embeds``
+    (vlm) or ``frames`` (audio)."""
+    return {k: v for k, v in run.batch.items() if k != "tokens"}
+
+
+def patch_positions(cfg) -> int:
+    """Positions the vlm family prepends to the text (0 for the others)."""
+    return cfg.num_patches if cfg.family == "vlm" else 0
+
+
+def check_run(run, cfg, prompt: Optional[int] = None) -> None:
+    """The serving run's logits are finite of the prompt's shape (PROMPT
+    tokens unless ``prompt`` says, and vlm's patch positions) and its GEN
     tokens lie in the vocabulary."""
     import torch
-    if run.logits.shape != (BATCH, PROMPT, cfg.vocab_size) or \
+    prompt, gen = prompt or PROMPT, GEN
+    want = (BATCH, patch_positions(cfg) + prompt, cfg.vocab_size)
+    if run.logits.shape != want or \
             not bool(torch.isfinite(run.logits).all()):
-        raise AssertionError("prefill logits are not finite of shape "
-                             f"{(BATCH, PROMPT, cfg.vocab_size)}")
-    if run.generated.shape != (BATCH, GEN) or \
+        raise AssertionError(f"prefill logits are not finite of shape "
+                             f"{want}")
+    if run.generated.shape != (BATCH, gen) or \
             not ((run.generated >= 0) & (run.generated < cfg.vocab_size)
                  ).all():
         raise AssertionError(f"generated tokens {run.generated.shape}")
@@ -1840,14 +2019,15 @@ def warm_repeat(run, steps: int = 8) -> tuple:
     returns (prefill s, decode s per token)."""
     import torch
     t0 = time.perf_counter()
+    max_len = run.logits.shape[1] + run.generated.shape[1]
     with torch.no_grad():
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        _, cache = run.model.prefill(run.params, {"tokens": run.prompt},
-                                     PROMPT + GEN)
+        _, cache = run.model.prefill(run.params, run.batch, max_len)
         torch.cuda.synchronize()
         warm_prefill = time.perf_counter() - t1
-        tok = torch.from_numpy(run.generated[:, 0]).to(run.prompt.device)
+        tok = torch.from_numpy(run.generated[:, 0]).to(
+            run.batch["tokens"].device)
         t1 = time.perf_counter()
         for _ in range(steps):
             _, cache = run.model.decode_step(run.params, cache, tok)
@@ -1860,25 +2040,37 @@ def warm_repeat(run, steps: int = 8) -> tuple:
     return warm_prefill, warm_decode
 
 
-def teacher_forced(run) -> None:
+def teacher_forced(run, forward_tokens: int = TEACHER_FORCED,
+                   launches: Optional[dict] = None) -> None:
     """Teacher-forced decode equals the forward pass on the same tokens,
-    to LOGIT_TOL_FRAC of the largest |logit|."""
+    to LOGIT_TOL_FRAC of the largest |logit|.  The forward pass takes the
+    prompt and the first ``forward_tokens`` generated tokens; the first
+    TEACHER_FORCED of those are decoded.  ``launches`` (keywords of
+    :func:`read_launches`) reads every launch counter around the forward
+    pass."""
     import torch
     t0 = time.perf_counter()
-    forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(
-        run.prompt.device)
-    toks = torch.cat([run.prompt, forced], dim=1)
+    prompt = run.batch["tokens"].shape[1]
+    p = run.logits.shape[1] - prompt          # vlm's patch positions
+    forced = torch.from_numpy(run.generated[:, :forward_tokens]).to(
+        run.batch["tokens"].device)
+    toks = torch.cat([run.batch["tokens"], forced], dim=1)
+    extra = inputs_of(run)
     with torch.no_grad():
-        full = run.model.forward(run.params, {"tokens": toks})
+        if launches is not None:
+            reset_launches()
+        full = run.model.forward(run.params, {"tokens": toks, **extra})
+        if launches is not None:
+            read_launches(**launches)
         lg, cache = run.model.prefill(
-            run.params, {"tokens": toks[:, :PROMPT]},
-            PROMPT + TEACHER_FORCED)
-        errs = [max_abs_diff(full[:, :PROMPT], lg)]
+            run.params, {"tokens": toks[:, :prompt], **extra},
+            p + prompt + TEACHER_FORCED)
+        errs = [max_abs_diff(full[:, :p + prompt], lg)]
         del lg
         for t in range(TEACHER_FORCED):
             lg, cache = run.model.decode_step(run.params, cache,
-                                              toks[:, PROMPT + t])
-            errs.append(float((full[:, PROMPT + t].float()
+                                              toks[:, prompt + t])
+            errs.append(float((full[:, p + prompt + t].float()
                                - lg.float()).abs().max()))
     scale = max_abs(full)
     del full, cache
@@ -1886,57 +2078,55 @@ def teacher_forced(run) -> None:
         raise AssertionError(f"teacher-forced decode differs from forward: "
                              f"{errs} (> {LOGIT_TOL_FRAC} x {scale})")
     phase("teacher-forced decode vs forward", t0,
-          f"max_abs_diff prefill/steps={errs} max_abs_logit={scale} "
-          f"tol={LOGIT_TOL_FRAC * scale}")
+          f"forward tokens={toks.shape[1]} max_abs_diff prefill/steps="
+          f"{errs} max_abs_logit={scale} tol={LOGIT_TOL_FRAC * scale}")
 
 
-def lm_slice(seed: int) -> list:
-    """Kernel checks, then the serving path at Llama-3.2-1B's full width;
-    returns the flash and RMSNorm kernels' JSON records."""
+def serve_smoke(arch: str, seed: int, expect: dict,
+                prompt: Optional[int] = None, extra: str = "", **read_kw):
+    """``serve --model-smoke --arch arch`` at batch BATCH, ``prompt``
+    tokens and GEN greedy tokens, every launch counter read around it
+    (``expect``: the whole request's launches by kernel; ``read_kw`` goes
+    to :func:`read_launches`); prints the reference's lines and a phase
+    line with ``extra`` in it; returns (run, launches)."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import apply_rmsnorm, embed_tokens
-
-    dev = torch.device("cuda")
-    cfg = get_config(ARCH)
-    flash_rec = flash_kernel_phase(dev)
-    rms_rec = rms_kernel_phase(dev, cfg.d_model)
-    torch.cuda.empty_cache()
-
-    # the main path: the serving entry, every launch counter read around it
-    argv = ["--model-smoke", "--arch", ARCH, "--batch", str(BATCH),
-            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
+    prompt = prompt or PROMPT
+    argv = ["--model-smoke", "--arch", arch, "--batch", str(BATCH),
+            "--prompt-len", str(prompt), "--gen", str(GEN), "--seed",
             str(seed), "--device", "cuda"]
     args = serve.parse_args(argv)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_launches()
     run = serve.model_smoke(args)
-    launches = read_launches(
-        ARCH, {"flash_attention": cfg.num_layers})   # one per layer
+    launches = read_launches(arch, expect, **read_kw)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for line in serve.report_lines(args, run):
         print(line, flush=True)
+    inputs = {k: list(v.shape) for k, v in inputs_of(run).items()}
     phase("serve --model-smoke", t0,
-          f"arch={ARCH} layers={cfg.num_layers} params="
-          f"{sum(p.numel() for p in run.params.parameters())} "
-          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
-          f"prefill_ms={run.prefill_s * 1e3:.3f} "
+          f"arch={arch} {extra + ' ' if extra else ''}params="
+          f"{sum(p.numel() for p in run.params.parameters())} batch="
+          f"{BATCH} prompt={prompt} inputs={json.dumps(inputs)} "
+          f"gen={GEN} prefill_ms={run.prefill_s * 1e3:.3f} "
           f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
           f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
-    check_run(run, cfg)
-    flash_rec["launches"] = launches["flash_attention"]
-    flash_rec["launches_by_route"] = FLASH_ROUTES[ARCH]
-    warm_repeat(run)
+    return run, launches
 
-    # the same prefill through plain attention, same weights
+
+def plain_attention_prefill(run, cfg) -> None:
+    """The same prefill through plain attention (``attn_impl="ref"``) on
+    the same weights and inputs: logits within LOGIT_TOL_FRAC of the
+    largest |logit|."""
+    import torch
+    from repro_torch.models import build_model
     t0 = time.perf_counter()
-    plain_model = build_model(cfg.scaled(attn_impl="ref"), device=dev)
+    plain_model = build_model(cfg.scaled(attn_impl="ref"),
+                              device=run.batch["tokens"].device)
     with torch.no_grad():
-        plain_logits, _ = plain_model.prefill(
-            run.params, {"tokens": run.prompt}, PROMPT)
+        plain_logits, _ = plain_model.prefill(run.params, run.batch,
+                                              run.logits.shape[1])
     diff = max_abs_diff(run.logits, plain_logits)
     scale = max_abs(plain_logits)
     del plain_logits
@@ -1948,6 +2138,33 @@ def lm_slice(seed: int) -> list:
           f"max_abs_diff={diff} max_abs_logit={scale} "
           f"tol={LOGIT_TOL_FRAC * scale}")
 
+
+def lm_slice(seed: int) -> list:
+    """Kernel checks, then the serving path at Llama-3.2-1B's full width;
+    returns the flash and RMSNorm kernels' JSON records."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import apply_rmsnorm, embed_tokens
+
+    dev = torch.device("cuda")
+    cfg = get_config(ARCH)
+    flash_rec = flash_kernel_phase(dev)
+    rms_rec = rms_kernel_phase(dev, cfg.d_model)
+    torch.cuda.empty_cache()
+
+    # the main path: the serving entry, every launch counter read around
+    # it; one flash launch per layer
+    run, launches = serve_smoke(
+        ARCH, seed, {"flash_attention": cfg.num_layers},
+        extra=f"layers={cfg.num_layers}", flash_shapes={flash_shape(
+            BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT, PROMPT, True,
+            None): cfg.num_layers})
+    check_run(run, cfg)
+    flash_rec["launches"] = launches["flash_attention"]
+    flash_rec["launches_by_route"] = FLASH_ROUTES[ARCH]
+    warm_repeat(run)
+
+    plain_attention_prefill(run, cfg)
     teacher_forced(run)
     forced = torch.from_numpy(run.generated[:, :1]).to(dev)
 
@@ -1956,7 +2173,8 @@ def lm_slice(seed: int) -> list:
     # keeps the plain version, as the reference does)
     t0 = time.perf_counter()
     with torch.no_grad():
-        x_pre = embed_tokens(run.params["embed"], run.prompt, cfg)
+        x_pre = embed_tokens(run.params["embed"], run.batch["tokens"],
+                             cfg)
         x_dec = embed_tokens(run.params["embed"], forced[:, :1], cfg)
         norm = run.params["final_norm"]
         reset_launches()
@@ -1976,6 +2194,101 @@ def lm_slice(seed: int) -> list:
           f"x={tuple(x_pre.shape)},{tuple(x_dec.shape)} launches="
           f"{rms_launches} max_abs_err={err}")
     return [flash_rec, rms_rec]
+
+
+# ---------------------------------------------------------------------------
+# slices 2b and 2c: internvl2-1b (vlm) and whisper-base (encoder-decoder)
+# serving at full width and depth
+# ---------------------------------------------------------------------------
+
+def prefill_and_step_launches(run, arch: str, prefill: dict,
+                              flash_shapes: dict) -> None:
+    """One prefill and one decode step apart, each with every launch
+    counter read around it: ``prefill`` the prefill's launches by kernel
+    and ``flash_shapes`` flash's by shape, none in the step."""
+    import torch
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        reset_launches()
+        _, cache = run.model.prefill(run.params, run.batch,
+                                     run.logits.shape[1] + 1)
+        read_launches(f"{arch} prefill", prefill, flash_shapes=flash_shapes)
+        reset_launches()
+        run.model.decode_step(run.params, cache, torch.from_numpy(
+            run.generated[:, 0]).to(run.batch["tokens"].device))
+        read_launches(f"{arch} decode step", {})
+        del cache
+    phase("prefill and decode step launches", t0,
+          f"prefill {json.dumps(prefill)}; decode step none")
+
+
+def vlm_slice(seed: int) -> None:
+    """internvl2-1b serving at full width and depth: batch BATCH, 256
+    random patch embeddings projected and prepended to a PROMPT-token
+    prompt, GEN greedy tokens; one flash launch per layer (all wgmma),
+    in the prefill alone."""
+    from repro_torch.configs import get_config
+    cfg = get_config(VLM_ARCH)
+    L = cfg.num_layers
+    s = cfg.num_patches + PROMPT
+    shapes = {flash_shape(BATCH, cfg.num_heads, cfg.num_kv_heads, s, s,
+                          True, None): L}
+    run, _ = serve_smoke(VLM_ARCH, seed, {"flash_attention": L},
+                         flash_shapes=shapes)
+    params = sum(p.numel() for p in run.params.parameters())
+    if params != VLM_PARAMS:
+        raise AssertionError(f"{params} parameters, expected {VLM_PARAMS}")
+    check_run(run, cfg)
+    if run.cache.pos != cfg.num_patches + PROMPT + GEN - 1 or \
+            run.cache.k.shape[3] != cfg.num_patches + PROMPT + GEN:
+        raise AssertionError(f"cache position {run.cache.pos}, length "
+                             f"{run.cache.k.shape[3]}")
+    warm_repeat(run)
+    prefill_and_step_launches(run, VLM_ARCH, {"flash_attention": L},
+                              shapes)
+    plain_attention_prefill(run, cfg)
+    teacher_forced(run)
+
+
+def audio_slice(seed: int) -> None:
+    """whisper-base serving at full width and depth: batch BATCH, 1,500
+    random encoder frames, an AUDIO_PROMPT-token prompt and GEN greedy
+    tokens (the decoder's 448 positions); one flash launch per encoder
+    layer in the prefill and none in a decode step (the decoder's
+    attention keeps the reference's plain choices); the teacher-forced
+    forward over all 448 tokens runs the kernel in every encoder layer and
+    twice in every decoder layer (self and cross attention)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(AUDIO_ARCH)
+    enc, dec = cfg.encoder_layers, cfg.num_layers
+    hq, hkv, frames = cfg.num_heads, cfg.num_kv_heads, cfg.encoder_seq
+    encoder = {flash_shape(BATCH, hq, hkv, frames, frames, False, None):
+               enc}
+    run, _ = serve_smoke(AUDIO_ARCH, seed, {"flash_attention": enc},
+                         prompt=AUDIO_PROMPT, flash_shapes=encoder)
+    params = sum(p.numel() for p in run.params.parameters())
+    if params != AUDIO_PARAMS:
+        raise AssertionError(f"{params} parameters, expected "
+                             f"{AUDIO_PARAMS}")
+    check_run(run, cfg, prompt=AUDIO_PROMPT)
+    if any(c["self"].pos != AUDIO_CONTEXT - 1
+           or c["self"].k.shape[2] != AUDIO_CONTEXT
+           or c["cross_k"].shape[2] != cfg.encoder_seq for c in run.cache):
+        raise AssertionError("whisper caches: self positions "
+                             f"{[c['self'].pos for c in run.cache]}")
+    warm_repeat(run)
+    prefill_and_step_launches(run, AUDIO_ARCH, {"flash_attention": enc},
+                              encoder)
+    plain_attention_prefill(run, cfg)
+    # the forward: the encoder, then each decoder layer's self attention
+    # (causal) and cross attention to the frames
+    teacher_forced(run, forward_tokens=GEN, launches=dict(
+        path=f"{AUDIO_ARCH} forward",
+        expect={"flash_attention": enc + 2 * dec},
+        flash_shapes={**encoder, flash_shape(
+            BATCH, hq, hkv, AUDIO_CONTEXT, AUDIO_CONTEXT, True, None): dec,
+            flash_shape(BATCH, hq, hkv, AUDIO_CONTEXT, frames, False,
+                        None): dec}))
 
 
 # ---------------------------------------------------------------------------
@@ -2156,7 +2469,6 @@ def moe_slice(seed: int) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
-    from repro_torch.launch import serve
     from repro_torch.models import moe as moe_lib
 
     dev = torch.device("cuda")
@@ -2166,28 +2478,11 @@ def moe_slice(seed: int) -> dict:
     torch.cuda.empty_cache()
 
     # the main path: the serving entry, every launch counter read around it
-    argv = ["--model-smoke", "--arch", MOE_ARCH, "--batch", str(BATCH),
-            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
-            str(seed), "--device", "cuda"]
-    args = serve.parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    reset_launches()
-    run = serve.model_smoke(args)
     # one dispatch per layer in the prefill and in each of GEN - 1 decode
     # steps; one flash launch per layer in the prefill
-    launches = read_launches(MOE_ARCH, {"moe_dispatch": L * GEN,
-                                        "flash_attention": L})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for line in serve.report_lines(args, run):
-        print(line, flush=True)
-    phase("serve --model-smoke", t0,
-          f"arch={MOE_ARCH} layers={L} experts={E} top_k={k} params="
-          f"{sum(p.numel() for p in run.params.parameters())} "
-          f"batch={BATCH} prompt={PROMPT} gen={GEN} "
-          f"prefill_ms={run.prefill_s * 1e3:.3f} "
-          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
-          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
+    run, launches = serve_smoke(
+        MOE_ARCH, seed, {"moe_dispatch": L * GEN, "flash_attention": L},
+        extra=f"layers={L} experts={E} top_k={k}")
     check_run(run, cfg)
     rec["launches"] = launches["moe_dispatch"]
     warm_repeat(run)
@@ -2202,7 +2497,7 @@ def moe_slice(seed: int) -> dict:
         with torch.no_grad():
             reset_launches()
             logits, cache = run.model.prefill(
-                run.params, {"tokens": run.prompt}, PROMPT + 1)
+                run.params, run.batch, PROMPT + 1)
             read_launches(f"{MOE_ARCH} prefill", {"moe_dispatch": L,
                                                   "flash_attention": L})
             reset_launches()
@@ -2214,7 +2509,7 @@ def moe_slice(seed: int) -> dict:
                 lambda a, G: dispatch_ref(a.reshape(-1).to(torch.int32), G),
                 plain_log)
             plain_logits, _ = run.model.prefill(
-                run.params, {"tokens": run.prompt}, PROMPT)
+                run.params, run.batch, PROMPT)
     finally:
         moe_lib.moe_dispatch = kernel_dispatch
     kernel_log = kernel_log[:L]              # the prefill's layers
@@ -2570,6 +2865,226 @@ def vs_slice(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 3c: the paper's SNP-calling pipeline
+# ---------------------------------------------------------------------------
+
+SNP_READS = 2_097_152            # 8 shards of 262,144 reads
+SNP_ROUNDS, SNP_SEED = 4, 3
+N_CHROMOSOMES = 24
+# bwa's score on the card against numpy's: float32 products, sin and sums
+# in two libraries' orders, on |score| < 20 (the card read 1.43e-6 in
+# earlier runs; a shard computed in a coarser type reads 1e-4 or more)
+SNP_SCORE_TOL = 1e-5
+# a read whose feature sum lies this close to an integer may change
+# chromosome if the sum is taken in another order
+SNP_BOUNDARY = 1e-5
+
+
+def feature_sum(reads):
+    """The float32 sum of a read's 16 features taken left to right,
+    ``((x0 + x1) + x2) + ... + x15``: the order XLA's CPU reduction takes
+    ``jnp.sum(reads, axis=-1)`` in, so the chromosomes match the
+    reference's bit for bit."""
+    s = reads[:, 0].float()
+    for j in range(1, reads.shape[1]):
+        s = s + reads[:, j].float()
+    return s
+
+
+def bwa_align(reads, rounds: int = SNP_ROUNDS):
+    """The surrogate aligner of ``benchmarks/apps.py``: (chromosome, score)
+    of each read.  x = sin(x @ mix_{17+r}) + 0.2 x for ``rounds`` rounds,
+    score = the sum of x; chromosome = |int32(feature sum)| % 24 (the cast
+    truncates toward zero)."""
+    import torch
+    x = reads.float()
+    for r in range(rounds):
+        x = torch.sin(x @ fred_mix(17 + r).to(x.device)) + 0.2 * x
+    chrom = torch.abs(feature_sum(reads).to(torch.int32)) % N_CHROMOSOMES
+    return chrom, torch.sum(x, dim=-1)
+
+
+def snp_chromosome(recs):
+    """``repartition_by``'s key: the chromosome.  A module-level function,
+    so that the plan cache and lineage signatures key on one callable."""
+    return recs[0]
+
+
+def register_snp_images() -> None:
+    """The ``tools/bwa`` and ``tools/gatk`` images of
+    ``benchmarks/apps.py`` in the port's registry: (read features, read
+    id) -> (chromosome, score, read id) -> the variants, compacted to the
+    front in their order."""
+    from repro_torch.core.container import (DEFAULT_REGISTRY, container_op,
+                                            make_partition)
+    from repro_torch.core.tensors import stable_argsort_false_first
+    if "tools/bwa:latest" in DEFAULT_REGISTRY.images():
+        return
+
+    @container_op("tools/bwa", registry=DEFAULT_REGISTRY)
+    def bwa(part, command: str = "", rounds: int = SNP_ROUNDS, **kw):
+        reads, read_id = part.records
+        chrom, score = bwa_align(reads, rounds)
+        return make_partition((chrom, score, read_id), part.count)
+
+    @container_op("tools/gatk", registry=DEFAULT_REGISTRY)
+    def gatk(part, command: str = "", **kw):
+        chrom, score, read_id = part.records
+        is_var = (score > 0.0) & part.mask()
+        order = stable_argsort_false_first(is_var)
+        return make_partition(tuple(a[order] for a in (chrom, score,
+                                                       read_id)),
+                              is_var.sum())
+
+
+def snp_calling(reads, num_shards: int = 1, device=None,
+                rounds: int = SNP_ROUNDS):
+    """Paper Listing 3 on the port: map(tools/bwa) -> repartition_by(the
+    chromosome) -> map(tools/gatk) -> reduce(toolbox/concat); ``reads``
+    is the library or a dataset.  Returns the lazy chain; ``collect(
+    shard=0)`` gives the (chromosome, score, read id) variant arrays."""
+    from repro_torch.core import MaRe, TextFile
+    register_snp_images()
+    return (MaRe(reads, num_shards=num_shards, device=device)
+            .map(input_mount=TextFile("/in.fastq"),
+                 output_mount=TextFile("/out.sam"),
+                 image="tools/bwa", rounds=rounds)
+            .repartition_by(snp_chromosome)
+            .map(image="tools/gatk")
+            .reduce(image="toolbox/concat", depth=2))
+
+
+def snp_oracle(feats: np.ndarray, rounds: int = SNP_ROUNDS) -> tuple:
+    """The same formulas in numpy float32 over the whole library:
+    (chromosome, score, distance of the feature sum to its nearest
+    integer)."""
+    x = feats.astype(np.float32)
+    for r in range(rounds):
+        x = np.sin(x @ fred_mix(17 + r).numpy()) + np.float32(0.2) * x
+    s = feats[:, 0].copy()
+    for j in range(1, feats.shape[1]):
+        s += feats[:, j]
+    chrom = np.abs(s.astype(np.int32)) % N_CHROMOSOMES
+    return chrom, x.sum(axis=-1), np.abs(s - np.round(s))
+
+
+def snp_slice(dev, n_reads: int = SNP_READS) -> None:
+    """The SNP-calling pipeline over ``n_reads`` reads in 8 shards on
+    ``dev``, held to a numpy oracle and to its own exchange."""
+    import torch
+    from repro_torch.core import MaRe
+
+    t0 = time.perf_counter()
+    library = make_library(n_reads, SNP_SEED)
+    ds = MaRe(library, num_shards=NUM_SHARDS, device=dev).dataset
+    phase("SNP reads", t0, f"reads={n_reads} shards={ds.num_shards} "
+          f"cap={ds.capacity} features={FEATURES} seed={SNP_SEED} bytes="
+          f"{library[0].nbytes + library[1].nbytes}")
+
+    # the main path, every launch counter read around it: no kernel
+    t0 = time.perf_counter()
+    reset_launches()
+    chain = snp_calling(ds)
+    chrom, score, read_id = chain.collect(shard=0)
+    launches = read_launches("snp calling", {})
+    report = chain.report()
+    print(chain.describe(), flush=True)
+    phase("SNP map(tools/bwa) -> repartition_by -> map(tools/gatk) -> "
+          "reduce(toolbox/concat)", t0,
+          f"variants={len(read_id)} action_wall_s={report.wall_s:.6f} "
+          f"diagnostics={json.dumps(report.diagnostics)} "
+          f"launches={json.dumps(launches)} "
+          f"phases={json.dumps(report.phases)}")
+    dropped = {k: v for k, v in report.diagnostics.items()
+               if k.endswith("shuffle_dropped")}
+    if list(dropped.values()) != [0]:
+        raise AssertionError(f"SNP exchange drop counters {dropped}")
+    t0 = time.perf_counter()
+    warm = []
+    for _ in range(3):
+        again = snp_calling(ds)
+        out = again.collect(shard=0)
+        warm.append(again.report().wall_s)
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(out, (chrom, score, read_id))):
+            raise AssertionError("a warm SNP action gave other records")
+    phase("SNP warm actions", t0, f"action_wall_s={warm}")
+
+    # the exchange on its own: every read once, each chromosome on one
+    # shard; the pipeline's records == gatk + concat over its shards
+    t0 = time.perf_counter()
+    register_snp_images()
+    ex = MaRe(ds).map(image="tools/bwa").repartition_by(
+        snp_chromosome).dataset
+    cap, counts = ex.capacity, ex.counts.tolist()
+    e_chrom, e_score, e_id = (leaf.reshape(NUM_SHARDS, cap)
+                              for leaf in ex.records)
+    want, seen, owner = [], [], {}
+    for s, c in enumerate(counts):
+        rows = [t[s, :c] for t in (e_chrom, e_score, e_id)]
+        seen.append(rows[2])
+        for ch in torch.unique(rows[0]).tolist():
+            if owner.setdefault(ch, s) != s:
+                raise AssertionError(f"chromosome {ch} on shards "
+                                     f"{owner[ch]} and {s}")
+        keep = rows[1] > 0
+        want.append([r[keep] for r in rows])
+    ids_all = torch.sort(torch.cat(seen)).values
+    if not torch.equal(ids_all, torch.arange(n_reads, device=dev,
+                                             dtype=ids_all.dtype)):
+        raise AssertionError("the exchange lost or repeated reads")
+    for i, got in enumerate((chrom, score, read_id)):
+        exp = torch.cat([w[i] for w in want]).cpu().numpy()
+        if not np.array_equal(got, exp):
+            raise AssertionError("SNP records != gatk + concat over the "
+                                 "exchange's shards")
+    by_chrom = np.bincount(e_chrom.reshape(-1)[
+        (torch.arange(cap, device=dev)[None, :]
+         < torch.tensor(counts, device=dev)[:, None]).reshape(-1)
+    ].cpu().numpy(), minlength=N_CHROMOSOMES)
+    phase("SNP exchange", t0,
+          f"per-shard valid counts={counts} (skew: max/mean="
+          f"{max(counts) / (n_reads / NUM_SHARDS):.3f}) out_cap={cap} "
+          f"chromosome->shard={json.dumps(dict(sorted(owner.items())))} "
+          f"reads by chromosome={by_chrom.tolist()}; records == gatk + "
+          f"concat over the shards")
+
+    # the numpy oracle over the whole library
+    t0 = time.perf_counter()
+    o_chrom, o_score, frac = snp_oracle(library[0])
+    near = frac < SNP_BOUNDARY
+    chrom_diff = o_chrom[read_id] != chrom
+    if (chrom_diff & ~near[read_id]).any():
+        raise AssertionError(f"SNP chromosomes differ from the oracle's on "
+                             f"{int(chrom_diff.sum())} reads away from an "
+                             f"integer boundary")
+    score_err = float(np.abs(o_score[read_id] - score).max())
+    if not score_err <= SNP_SCORE_TOL:
+        raise AssertionError(f"SNP scores differ from the oracle's by "
+                             f"{score_err}")
+    borderline = np.abs(o_score) <= SNP_SCORE_TOL
+    o_var = np.flatnonzero(o_score > 0)
+    diff = np.setxor1d(o_var, read_id)
+    if len(np.unique(read_id)) != len(read_id) or \
+            not borderline[diff].all():
+        raise AssertionError(f"SNP variants differ from the oracle's on "
+                             f"{diff.size} reads, not all borderline")
+    for ch in range(N_CHROMOSOMES):
+        ids_c = read_id[chrom == ch]
+        if (np.diff(ids_c) <= 0).any():
+            raise AssertionError(f"chromosome {ch}'s variants out of read "
+                                 f"order")
+    phase("SNP check", t0,
+          f"variants={len(read_id)} oracle_variants={len(o_var)} "
+          f"differing={diff.size} (borderline reads |score|<="
+          f"{SNP_SCORE_TOL}: {int(borderline.sum())}); chromosome "
+          f"differences={int(chrom_diff.sum())} (reads within "
+          f"{SNP_BOUNDARY} of an integer boundary: {int(near.sum())}); "
+          f"max_abs_score_err={score_err}; each chromosome's variants in "
+          f"read order")
+
+
+# ---------------------------------------------------------------------------
 # slice 4: hymba-1.5b (hybrid attention + SSM) serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2837,8 +3352,6 @@ def hybrid_slice(seed: int) -> dict:
     SSM kernel's JSON record."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
-    from repro_torch.models import ssm as ssm_lib
     from repro_torch.models import transformer as tf
 
     dev = torch.device("cuda")
@@ -2857,30 +3370,13 @@ def hybrid_slice(seed: int) -> dict:
     torch.cuda.empty_cache()
 
     # the main path: the serving entry, every launch counter read around it
-    argv = ["--model-smoke", "--arch", HYBRID_ARCH, "--batch", str(BATCH),
-            "--prompt-len", str(PROMPT), "--gen", str(GEN), "--seed",
-            str(seed), "--device", "cuda"]
-    args = serve.parse_args(argv)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    reset_launches()
-    run = serve.model_smoke(args)
     # the SSM kernel once per layer in the prefill and in each of GEN - 1
     # decode steps; flash once per layer in the prefill
-    launches = read_launches(HYBRID_ARCH, {"ssm_scan": L * GEN,
-                                           "flash_attention": L},
-                             ssm_routes={"chunked": L,
-                                         "step": L * (GEN - 1)})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run, launches = serve_smoke(
+        HYBRID_ARCH, seed, {"ssm_scan": L * GEN, "flash_attention": L},
+        extra=f"layers={L} windows={windows}",
+        ssm_routes={"chunked": L, "step": L * (GEN - 1)})
     params = sum(p.numel() for p in run.params.parameters())
-    for line in serve.report_lines(args, run):
-        print(line, flush=True)
-    phase("serve --model-smoke", t0,
-          f"arch={HYBRID_ARCH} layers={L} windows={windows} params={params}"
-          f" batch={BATCH} prompt={PROMPT} gen={GEN} "
-          f"prefill_ms={run.prefill_s * 1e3:.3f} "
-          f"decode_ms_per_token={run.decode_s_per_token * 1e3:.3f} "
-          f"peak_mem_gb={peak_gb:.3f} launches={json.dumps(launches)}")
     if params != HYMBA_PARAMS:
         raise AssertionError(f"{params} parameters, expected {HYMBA_PARAMS}")
     check_run(run, cfg)
@@ -2897,7 +3393,7 @@ def hybrid_slice(seed: int) -> dict:
     t0 = time.perf_counter()
     with torch.no_grad():
         reset_launches()
-        logits, cache = run.model.prefill(run.params, {"tokens": run.prompt},
+        logits, cache = run.model.prefill(run.params, run.batch,
                                           PROMPT + 1)
         read_launches(f"{HYBRID_ARCH} prefill", {"ssm_scan": L,
                                                  "flash_attention": L},
@@ -2990,12 +3486,13 @@ def compare_scan_routes(run, m32, p32, bf16_kernel_logits) -> None:
     f32 copy and to the f32 model in bf16 (see SSM_ROUTE_TOL_FRAC)."""
     import torch
     t0 = time.perf_counter()
-    bf16_chunked = scan_route_prefill(run.model, run.params, run.prompt,
+    tokens = run.batch["tokens"]
+    bf16_chunked = scan_route_prefill(run.model, run.params, tokens,
                                       "chunked",
                                       f"{HYBRID_ARCH} prefill, chunked scan")
-    f32_kernel = scan_route_prefill(m32, p32, run.prompt, "kernel",
+    f32_kernel = scan_route_prefill(m32, p32, tokens, "kernel",
                                     f"{HYBRID_ARCH} prefill f32")
-    f32_chunked = scan_route_prefill(m32, p32, run.prompt, "chunked",
+    f32_chunked = scan_route_prefill(m32, p32, tokens, "chunked",
                                      f"{HYBRID_ARCH} prefill f32, chunked "
                                      f"scan")
     scale = max_abs(f32_chunked)
@@ -3026,8 +3523,8 @@ def teacher_forced_hybrid(run, m32, p32) -> None:
     import torch
     t0 = time.perf_counter()
     forced = torch.from_numpy(run.generated[:, :TEACHER_FORCED]).to(
-        run.prompt.device)
-    toks = torch.cat([run.prompt, forced], dim=1)
+        run.batch["tokens"].device)
+    toks = torch.cat([run.batch["tokens"], forced], dim=1)
 
     def decode_logits(model, params):
         """[prefill's last logits, the decode steps' logits]."""
@@ -3103,12 +3600,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     records += lm_slice(args.seed)
     torch.cuda.empty_cache()
+    vlm_slice(args.seed)
+    torch.cuda.empty_cache()
+    audio_slice(args.seed)
+    torch.cuda.empty_cache()
     records.append(moe_slice(args.seed))
     torch.cuda.empty_cache()
     records.append(vs_slice(args.seed))
     torch.cuda.empty_cache()
+    snp_slice(torch.device("cuda"))
+    torch.cuda.empty_cache()
     records.append(hybrid_slice(args.seed))
     for rec in records:
+        if rec["name"] == "flash_attention":
+            served_shape_launches(rec)
         rec["launches_by_path"] = {
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
             if got.get(rec["name"])}

@@ -17,7 +17,7 @@ tensor-core kernel (``"wgmma"``, ``flash_fwd_wgmma``); every other CUDA
 call takes the CUDA-core kernel (``"simt"``, ``flash_fwd``).  A CUDA
 tensor launches its route's kernel or raises — no route falls back to
 another.  ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_ROUTE``
-splits them by route.
+splits them by route and ``LAUNCHES_BY_SHAPE`` by shape.
 """
 from __future__ import annotations
 
@@ -46,9 +46,11 @@ HEAD_DIMS = (16, 32, 64, 96, 128)
 WGMMA_HEAD_DIMS = (64, 128)
 _INT_MAX = 2 ** 31 - 1
 
-#: Kernel launches since the last reset, in all and by route.
+#: Kernel launches since the last reset, in all, by route and by shape:
+#: (route, BH, group, Sq, Sk, D, causal, window) -> launches.
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
+LAUNCHES_BY_SHAPE: dict = {}
 
 
 def reset_launches() -> None:
@@ -56,6 +58,7 @@ def reset_launches() -> None:
     LAUNCHES = 0
     for name in LAUNCHES_BY_ROUTE:
         LAUNCHES_BY_ROUTE[name] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def route(dtype: torch.dtype, head_dim: int, device) -> str:
@@ -129,4 +132,6 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     check_launch("flash_attention", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
+    shape = (kind, bh, group, sq, sk, d, bool(causal), window)
+    LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
     return out

@@ -39,12 +39,15 @@ import torch
 class SmokeRun:
     """What one ``--model-smoke`` run produced, for callers that check it."""
     model: Any                  # repro_torch.models.Model
-    params: Any                 # the LM module
-    prompt: torch.Tensor        # [B, prompt_len] int64
-    logits: torch.Tensor        # prefill logits [B, prompt_len, V]
+    params: Any                 # the LM (EncDec for audio) module
+    batch: Dict[str, torch.Tensor]  # the prefill's: tokens (the prompt,
+    #                             [B, prompt_len] int64), and frames
+    #                             (audio) or patch_embeds (vlm)
+    logits: torch.Tensor        # prefill logits [B, P + prompt_len, V]
+    #                             (P = vlm's patches, else 0)
     cache: Any                  # after the last decode step: a StackedKV
-    #                             (dense, MoE) or a list of LayerCache
-    #                             (hybrid)
+    #                             (dense, MoE, vlm), a list of LayerCache
+    #                             (hybrid) or of per-layer dicts (audio)
     generated: np.ndarray       # [B, gen] greedy tokens
     prefill_s: float
     decode_s_per_token: float
@@ -58,8 +61,10 @@ def _sync(device: torch.device) -> None:
 def model_smoke(args: argparse.Namespace,
                 params: Optional[Any] = None) -> SmokeRun:
     """Prefill ``args.batch`` random prompts of ``args.prompt_len`` tokens,
-    then greedy-decode ``args.gen`` tokens.  ``params`` (the LM module)
-    replaces the seeded random weights when given."""
+    then greedy-decode ``args.gen`` tokens.  The audio family's batch
+    holds random encoder frames, vlm's random patch embeddings, drawn
+    after the prompt as the reference draws them.  ``params`` (the model
+    module) replaces the seeded random weights when given."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.models import build_model
 
@@ -71,13 +76,21 @@ def model_smoke(args: argparse.Namespace,
         if params is None:
             params = model.init(args.seed)
         rng = np.random.default_rng(args.seed)
-        max_len = args.prompt_len + args.gen
-        prompt = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)
+        max_len = args.prompt_len + args.gen + (cfg.num_patches or 0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (args.batch, args.prompt_len))).to(dev)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.from_numpy(rng.normal(size=(
+                args.batch, cfg.encoder_seq, cfg.d_model))).to(
+                    dev, cfg.param_dtype)
+        if cfg.family == "vlm" and cfg.num_patches:
+            batch["patch_embeds"] = torch.from_numpy(rng.normal(size=(
+                args.batch, cfg.num_patches, cfg.d_model))).to(
+                    dev, cfg.param_dtype)
 
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": prompt}, max_len)
+        logits, cache = model.prefill(params, batch, max_len)
         _sync(dev)
         t_pre = time.perf_counter() - t0
         tok = torch.argmax(logits[:, -1], dim=-1)
@@ -90,7 +103,7 @@ def model_smoke(args: argparse.Namespace,
         _sync(dev)
         t_dec = time.perf_counter() - t0
     generated = torch.stack(out_tokens, dim=1).cpu().numpy()
-    return SmokeRun(model=model, params=params, prompt=prompt,
+    return SmokeRun(model=model, params=params, batch=batch,
                     logits=logits, cache=cache, generated=generated,
                     prefill_s=t_pre,
                     decode_s_per_token=t_dec / max(args.gen - 1, 1))

@@ -2,20 +2,23 @@
 
 ``build_model(cfg, device=)`` returns a :class:`Model` namespace with
 init / loss / forward / prefill / decode_step / init_cache, the surface
-the server and the tests use.  The port runs the dense, MoE and hybrid
-families; the others raise :class:`NotImplementedError` naming the
-ROADMAP item that ports them.  Parameters live on ``device`` (``cuda``
-unless the caller passes another; without a GPU, ``cuda`` raises).
+the server and the tests use.  The port runs the dense, MoE, hybrid and
+vlm families (``models/transformer.py``) and the audio family
+(``models/encdec.py``); ``ssm`` raises :class:`NotImplementedError`
+naming the ROADMAP item that ports it.  A batch holds ``tokens``, and
+``patch_embeds`` (vlm) or ``frames`` (audio) beside them.  Parameters
+live on ``device`` (``cuda`` unless the caller passes another; without a
+GPU, ``cuda`` raises).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Union
+from typing import Any, Callable, Optional, Union
 
 import torch
 
 from repro_torch.core.dataset import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import (ModelConfig, Params,
                                        active_param_count, param_count,
                                        param_count_analytic)
@@ -26,34 +29,49 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     init: Callable[..., Any]              # init(seed or Generator) -> LM
+    #                                       (EncDec for audio)
     loss: Callable[..., Any]              # loss(params, batch) -> (l, m)
     forward: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
-    init_cache: Callable[..., Any]
+    init_cache: Optional[Callable[..., Any]]   # None for audio
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     transformer.require_ported_family(cfg)
     dev = resolve_device(device)
 
-    def init(seed: Union[int, torch.Generator] = 0):
-        gen = seed if isinstance(seed, torch.Generator) else \
+    def generator(seed: Union[int, torch.Generator]) -> torch.Generator:
+        return seed if isinstance(seed, torch.Generator) else \
             torch.Generator(device=dev).manual_seed(int(seed))
-        return transformer.init_lm(gen, cfg)
+
+    if cfg.family == "audio":
+        return Model(
+            cfg=cfg,
+            device=dev,
+            init=lambda seed=0: encdec.init_encdec(generator(seed), cfg),
+            loss=lambda p, b: encdec.encdec_loss(p, b, cfg),
+            forward=lambda p, b: encdec.forward(p, b, cfg),
+            prefill=lambda p, b, max_len: encdec.prefill(
+                p, b["frames"], b["tokens"], cfg, max_len),
+            decode_step=lambda p, caches, tok: encdec.decode_step(
+                p, caches, tok, cfg),
+            init_cache=None)
 
     def fwd(p, b):
-        logits, _ = transformer.forward(p, b["tokens"], cfg)
+        logits, _ = transformer.forward(
+            p, b["tokens"], cfg, patch_embeds=b.get("patch_embeds"))
         return logits
 
     return Model(
         cfg=cfg,
         device=dev,
-        init=init,
+        init=lambda seed=0: transformer.init_lm(generator(seed), cfg),
         loss=lambda p, b: transformer.lm_loss(p, b, cfg),
         forward=fwd,
         prefill=lambda p, b, max_len: transformer.prefill(
-            p, b["tokens"], cfg, max_len=max_len),
+            p, b["tokens"], cfg, max_len=max_len,
+            patch_embeds=b.get("patch_embeds")),
         decode_step=lambda p, caches, tok: transformer.decode_step(
             p, caches, tok, cfg),
         init_cache=lambda batch, max_len: transformer.init_cache(

@@ -2,10 +2,11 @@
 
 :func:`params_from_numpy` takes the reference's parameter pytree as numpy
 arrays (``jax.tree.map(np.asarray, params)``, layer parameters stacked
-``[L, ...]`` under ``"blocks"``) and returns the port's model holding the
-same weights, one :class:`~repro_torch.models.transformer.Block` per
-layer.  Both packages then compute with identical weights, which is how
-the tests hold the port to the reference.
+``[L, ...]`` under ``"blocks"``, or under ``"enc_layers"`` and
+``"dec_layers"`` for the audio family) and returns the port's model
+holding the same weights, one module per layer.  Both packages then
+compute with identical weights, which is how the tests hold the port to
+the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from torch import nn
 
 from repro_torch.core.dataset import DeviceLike, resolve_device
 from repro_torch.models.common import ModelConfig, Params
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import (LM, Block,
                                             require_ported_family)
 
@@ -26,20 +28,19 @@ from repro_torch.models.transformer import (LM, Block,
 FLOAT32_LEAVES = ("router", "dt_bias", "a_log", "d_skip")
 
 
+def _leaf(name: str, val: Any, device: torch.device, dtype) -> torch.Tensor:
+    # via float32: exact for f32 and bf16 leaves, and numpy has no bf16 of
+    # its own
+    return torch.from_numpy(np.array(val, dtype=np.float32)).to(
+        device=device,
+        dtype=torch.float32 if name in FLOAT32_LEAVES else dtype)
+
+
 def _tree(node: Mapping[str, Any], device: torch.device, dtype,
           cls=Params) -> Params:
-    kids = {}
-    for name, val in node.items():
-        if isinstance(val, Mapping):
-            kids[name] = _tree(val, device, dtype)
-        else:
-            # via float32: exact for f32 and bf16 leaves, and numpy has
-            # no bf16 of its own
-            kids[name] = torch.from_numpy(
-                np.array(val, dtype=np.float32)).to(
-                    device=device,
-                    dtype=torch.float32 if name in FLOAT32_LEAVES else dtype)
-    return cls(**kids)
+    return cls(**{name: (_tree(val, device, dtype) if isinstance(val, Mapping)
+                         else _leaf(name, val, device, dtype))
+                  for name, val in node.items()})
 
 
 def _layer(node: Mapping[str, Any], i: int) -> dict:
@@ -47,24 +48,40 @@ def _layer(node: Mapping[str, Any], i: int) -> dict:
             for k, v in node.items()}
 
 
+def _stack(layers: Mapping[str, Any], n_layers: int, device, dtype,
+           cls=Params) -> nn.ModuleList:
+    """Layer parameters stacked [L, ...] -> one module per layer."""
+    n = {np.asarray(leaf).shape[0] for leaf in _leaves(layers)}
+    if n != {n_layers}:
+        raise ValueError(f"stacked layer params have leading dims {n}, "
+                         f"config has {n_layers} layers")
+    return nn.ModuleList(_tree(_layer(layers, i), device, dtype, cls=cls)
+                         for i in range(n_layers))
+
+
 def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig,
-                      device: DeviceLike = None) -> LM:
+                      device: DeviceLike = None) -> Params:
     """The reference's params (numpy leaves) -> the port's :class:`LM`
-    on ``device``, in ``cfg.param_dtype`` (:data:`FLOAT32_LEAVES` in
-    float32)."""
+    (:class:`~repro_torch.models.encdec.EncDec` for audio) on ``device``,
+    in ``cfg.param_dtype`` (:data:`FLOAT32_LEAVES` in float32)."""
     require_ported_family(cfg)
     dev = resolve_device(device)
     dt = cfg.param_dtype
-    blocks = tree["blocks"]
-    n = {np.asarray(leaf).shape[0] for leaf in _leaves(blocks)}
-    if n != {cfg.num_layers}:
-        raise ValueError(f"stacked block params have leading dims {n}, "
-                         f"config has {cfg.num_layers} layers")
-    return LM(embed=_tree(tree["embed"], dev, dt),
-              final_norm=_tree(tree["final_norm"], dev, dt),
-              blocks=nn.ModuleList(
-                  _tree(_layer(blocks, i), dev, dt, cls=Block)
-                  for i in range(cfg.num_layers)))
+    if cfg.family == "audio":
+        return EncDec(
+            embed=_tree(tree["embed"], dev, dt),
+            enc_layers=_stack(tree["enc_layers"], cfg.encoder_layers, dev,
+                              dt),
+            enc_ln=_tree(tree["enc_ln"], dev, dt),
+            dec_layers=_stack(tree["dec_layers"], cfg.num_layers, dev, dt),
+            dec_ln=_tree(tree["dec_ln"], dev, dt))
+    p = dict(embed=_tree(tree["embed"], dev, dt),
+             final_norm=_tree(tree["final_norm"], dev, dt),
+             blocks=_stack(tree["blocks"], cfg.num_layers, dev, dt,
+                           cls=Block))
+    if "patch_proj" in tree:
+        p["patch_proj"] = _leaf("patch_proj", tree["patch_proj"], dev, dt)
+    return LM(**p)
 
 
 def _leaves(node):

@@ -1,14 +1,17 @@
-"""Decoder LM assembly: the dense, MoE and hybrid families.
+"""Decoder LM assembly: the dense, MoE, hybrid and vlm families.
 
 The reference's ``models/transformer.py`` for ``family`` ``"dense"``,
-``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``) and ``"hybrid"``
+``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``), ``"hybrid"``
 (hymba: attention and an SSM side by side in every block, sliding-window
-attention on all but the global layers).  Its ``lax.scan`` over stacked
-layer parameters becomes a Python loop over one :class:`Block` module per
-layer (PyTorch runs eagerly: there is no graph whose size depth could
-grow), and ``remat``/``scan_layers`` have nothing to select.  The other
-families raise :class:`NotImplementedError` naming the ROADMAP item that
-ports them.
+attention on all but the global layers) and ``"vlm"`` (internvl2: the
+dense stack with ``patch_embeds`` projected by ``patch_proj`` and
+prepended to the text, positions running over both).  Its ``lax.scan``
+over stacked layer parameters becomes a Python loop over one
+:class:`Block` module per layer (PyTorch runs eagerly: there is no graph
+whose size depth could grow), and ``remat``/``scan_layers`` have nothing
+to select.  The ``"audio"`` family is ``models/encdec.py``; ``"ssm"``
+raises :class:`NotImplementedError` naming the ROADMAP item that ports
+it.
 """
 from __future__ import annotations
 
@@ -21,21 +24,19 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.attention import KVCache, init_kv_cache
-from repro_torch.models.common import ModelConfig, Params
+from repro_torch.models.common import ModelConfig, Params, trunc_normal
 from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        cross_entropy, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        unembed)
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "moe", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")
 BIG_WINDOW = 1 << 30   # "global attention" encoded as a huge window
 
 #: Where each family the port does not run yet is ported (ROADMAP.md).
 PENDING_FAMILIES = {
     "ssm": "ROADMAP Queue 1, item 3 (xlstm)",
-    "audio": "ROADMAP Queue 1, item 4 (encdec)",
-    "vlm": "ROADMAP Queue 1, item 5 (vlm)",
 }
 
 
@@ -125,16 +126,21 @@ def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
 
 class LM(Params):
     """The model's parameters: ``embed``, ``blocks`` (one :class:`Block`
-    per layer), ``final_norm``.  Names follow the reference's pytree
-    paths: ``blocks.3.attn.wq``, ``embed.table``, ``final_norm.scale``."""
+    per layer), ``final_norm``, and for vlm ``patch_proj`` [d, d].  Names
+    follow the reference's pytree paths: ``blocks.3.attn.wq``,
+    ``embed.table``, ``final_norm.scale``."""
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
     require_ported_family(cfg)
-    return LM(embed=init_embedding(gen, cfg),
-              final_norm=init_norm(cfg, device=gen.device),
-              blocks=nn.ModuleList(init_block(gen, cfg)
-                                   for _ in range(cfg.num_layers)))
+    p = dict(embed=init_embedding(gen, cfg),
+             final_norm=init_norm(cfg, device=gen.device),
+             blocks=nn.ModuleList(init_block(gen, cfg)
+                                  for _ in range(cfg.num_layers)))
+    if cfg.family == "vlm" and cfg.num_patches:
+        p["patch_proj"] = trunc_normal(gen, (cfg.d_model, cfg.d_model),
+                                       cfg.param_dtype)
+    return LM(**p)
 
 
 def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
@@ -157,17 +163,33 @@ def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
     return windows[i]
 
 
-def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
-            return_kv: bool = False):
-    """tokens: [B, S] -> (logits [B, S, V], aux_loss[, (K, V)]).
+def embed_inputs(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
+                 patch_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """The token embeddings [B, S_text, d]; with ``patch_embeds`` [B, P,
+    d] (vlm's stub vision tower output) projected by ``patch_proj`` and
+    prepended: [B, P + S_text, d]."""
+    x = embed_tokens(params["embed"], tokens, cfg)
+    if patch_embeds is None:
+        return x
+    pe = patch_embeds.to(x.dtype) @ params["patch_proj"]
+    return torch.cat([pe, x], dim=1)
 
-    With ``return_kv`` (uniform full-attention stacks only) the per-layer
-    KV stacks [L, B, KV, S, hd] come back too (the prefill path).
+
+def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
+            patch_embeds: Optional[torch.Tensor] = None,
+            return_kv: bool = False):
+    """tokens: [B, S_text] -> (logits [B, S, V], aux_loss[, (K, V)]).
+
+    For vlm, ``patch_embeds`` [B, P, d] are projected and prepended; S =
+    P + S_text.  With ``return_kv`` (uniform full-attention stacks only)
+    the per-layer KV stacks [L, B, KV, S, hd] come back too (the prefill
+    path).
     """
     require_ported_family(cfg)
     if return_kv and cfg.family == "hybrid":
         raise ValueError("return_kv takes a uniform full-attention stack")
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -193,9 +215,14 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
 def lm_loss(params: ParamsLike, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict]:
-    """Forward-only loss (the port does not train yet)."""
-    logits, aux = forward(params, batch["tokens"], cfg)
-    loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
+    """Forward-only loss (the port does not train yet); vlm's patch
+    positions carry no label and are skipped."""
+    logits, aux = forward(params, batch["tokens"], cfg,
+                          patch_embeds=batch.get("patch_embeds"))
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, -labels.shape[1]:]
+    loss = cross_entropy(logits, labels, batch.get("mask"))
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux}
 
@@ -222,10 +249,13 @@ def init_stacked_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill_scanned(params: ParamsLike, tokens: torch.Tensor,
-                    cfg: ModelConfig, max_len: int):
-    """Prefill for uniform stacks: logits [B, S, V] and a StackedKV of
-    ``max_len`` positions holding the prompt's K/V."""
-    logits, _, (kt, vt) = forward(params, tokens, cfg, return_kv=True)
+                    cfg: ModelConfig, max_len: int,
+                    patch_embeds: Optional[torch.Tensor] = None):
+    """Prefill for uniform stacks (dense, MoE, vlm): logits [B, S, V] and
+    a StackedKV of ``max_len`` positions holding the prompt's K/V (S = P
+    + S_text with ``patch_embeds``; decode goes on from S)."""
+    logits, _, (kt, vt) = forward(params, tokens, cfg,
+                                  patch_embeds=patch_embeds, return_kv=True)
     L, b, _, s, _ = kt.shape
     cache = init_stacked_cache(cfg, b, max_len, dtype=kt.dtype,
                                device=kt.device)
@@ -306,13 +336,17 @@ def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
 
 
 def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
-            max_len: Optional[int] = None) -> Tuple[torch.Tensor, Caches]:
-    """Run the full prompt, returning (logits [B, S, V], filled caches)."""
+            max_len: Optional[int] = None,
+            patch_embeds: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Caches]:
+    """Run the full prompt, returning (logits [B, S, V], filled caches);
+    with ``patch_embeds`` ``max_len`` must count the patch positions too."""
     require_ported_family(cfg)
     b, s = tokens.shape
     max_len = max_len or s
     if cfg.family != "hybrid":
-        return prefill_scanned(params, tokens, cfg, max_len)
+        return prefill_scanned(params, tokens, cfg, max_len,
+                               patch_embeds=patch_embeds)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     caches: List[LayerCache] = []

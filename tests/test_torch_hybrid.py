@@ -201,7 +201,8 @@ def test_greedy_tokens_match_reference(capsys):
     assert ref_out[2] == f"generated: {run.generated[:2].tolist()}"
     # the full batch, through the reference's model directly
     m = R_build_model(R_configs.get_smoke_config(ARCH))
-    logits, cache = m.prefill(params, {"tokens": run.prompt.numpy()}, 19)
+    logits, cache = m.prefill(
+        params, {"tokens": run.batch["tokens"].numpy()}, 19)
     tok = np.argmax(np.asarray(logits[:, -1]), -1)
     want = [tok]
     for _ in range(6):

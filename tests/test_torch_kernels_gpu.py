@@ -1,8 +1,9 @@
 """On the card: each CUDA kernel (segment sum, flash attention, RMSNorm,
-MoE dispatch, top-k, selective scan) against its plain version, the k-mer
-and virtual-screening paths on ``cuda`` against the same paths on the
-CPU, and the launches of the LM prefill (flash), the MoE layers
-(dispatch) and the hybrid layers (selective scan).
+MoE dispatch, top-k, selective scan) against its plain version, the k-mer,
+virtual-screening and SNP-calling paths on ``cuda`` against the same
+paths on the CPU, and the launches of the LM, vlm and encoder-decoder
+prefills (flash), the MoE layers (dispatch) and the hybrid layers
+(selective scan).
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -222,7 +223,18 @@ FLASH_CASES = {
     "group_5_d128": (1, 10, 2, 300, 300, 128, True, None),
     # Sq > Sk: whole query tiles of rows without keys
     "sq_gt_sk_d128": (1, 4, 2, 300, 100, 128, True, None),
+    # whisper-base's encoder self-attention over 1,500 frames (the last
+    # 128-key tile holds 92 keys) and the teacher-forced forward's cross
+    # attention (448 queries against them), not causal; internvl2-1b's
+    # prefill over 256 patches and 2,048 tokens, GQA group 7
+    "whisper_encoder": (1, 8, 8, 1500, 1500, 64, False, None),
+    "whisper_cross": (1, 8, 8, 448, 1500, 64, False, None),
+    "internvl2_prefill": (1, 14, 2, 2304, 2304, 64, True, None),
 }
+#: Served shapes, in bf16 also held by relative RMS error (chip_smoke's
+#: limit, which rejects whisper's tail-tile keys left unmasked)
+SERVED_FLASH_CASES = ("whisper_encoder", "whisper_cross",
+                      "internvl2_prefill")
 # bf16 output rounds once to 8 mantissa bits (|o| < 4 here): 2e-2, as the
 # reference's kernel tests; f32 differs only in summation order: 2e-5
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -251,6 +263,9 @@ def test_flash_kernel_matches_plain_version(cuda, name, dtype):
         window=window).reshape(b, hq, sq, d)
     err = float((got.float() - want).abs().max())
     assert err < FLASH_TOL[dtype], (name, dtype, err)
+    if dtype == torch.bfloat16 and name in SERVED_FLASH_CASES:
+        rel = float((got.float() - want).norm() / want.norm())
+        assert rel <= cs.FLASH_REL_RMS_TOL, (name, rel)
     if sq > sk and causal:
         # queries right-aligned past the keys see none: exactly 0
         assert bool((got[:, :, :sq - sk] == 0).all())
@@ -364,6 +379,92 @@ def test_prefill_launches_flash_once_per_layer(cuda):
     diff = float((logits.float() - plain.float()).abs().max())
     assert diff <= 0.1 * float(plain.float().abs().max()), diff
     assert lg.shape == (2, cfg.vocab_size) and cache.pos == 201
+
+
+def test_vlm_and_audio_launch_flash_as_the_reference_chooses(cuda):
+    """Two layers of internvl2-1b and 2 + 2 of whisper-base at full width
+    (bf16) on the wgmma route: internvl2's prefill over 64 patches and 200
+    tokens launches once per layer; whisper's prefill once per encoder
+    layer over its 1,500 frames (the decoder's attention stays plain, as
+    the reference's), a decode step never, the forward three times a
+    layer pair.  Logits within 10% of the largest |logit| of the
+    plain-attention path, as the Llama prefill's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    g = torch.Generator(device=cuda).manual_seed(6)
+    vlm = get_config("internvl2-1b").scaled(num_layers=2, num_patches=64)
+    audio = get_config("whisper-base").scaled(num_layers=2,
+                                              encoder_layers=2)
+    for cfg, extra, s, want in (
+            (vlm, "patch_embeds", 200, 2), (audio, "frames", 100, 2)):
+        model = build_model(cfg, device=cuda)
+        params = model.init(6)
+        shape = (2, cfg.num_patches or cfg.encoder_seq, cfg.d_model)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, s),
+                                         device=cuda, generator=g),
+                 extra: torch.randn(shape, device=cuda, generator=g).to(
+                     cfg.param_dtype)}
+        f0, by_route = fmod.LAUNCHES, dict(fmod.LAUNCHES_BY_ROUTE)
+        p = cfg.num_patches if extra == "patch_embeds" else 0
+        with torch.no_grad():
+            logits, cache = model.prefill(params, batch, p + s + 1)
+            torch.cuda.synchronize()
+            assert fmod.LAUNCHES - f0 == want
+            assert fmod.LAUNCHES_BY_ROUTE["wgmma"] - by_route["wgmma"] == \
+                want and fmod.LAUNCHES_BY_ROUTE["simt"] == by_route["simt"]
+            model.decode_step(params, cache, batch["tokens"][:, -1])
+            assert fmod.LAUNCHES - f0 == want
+            plain, _ = build_model(cfg.scaled(attn_impl="ref"),
+                                   device=cuda).prefill(params, batch,
+                                                        p + s)
+            if extra == "frames":
+                f1 = fmod.LAUNCHES
+                shapes = dict(fmod.LAUNCHES_BY_SHAPE)
+                model.forward(params, batch)
+                assert fmod.LAUNCHES - f1 == 3 * 2
+                moved = {key: n - shapes.get(key, 0) for key, n
+                         in fmod.LAUNCHES_BY_SHAPE.items()
+                         if n != shapes.get(key, 0)}
+                frames = cfg.encoder_seq
+                assert moved == {
+                    ("wgmma", 16, 1, frames, frames, 64, False, None): 2,
+                    ("wgmma", 16, 1, s, frames, 64, False, None): 2,
+                    ("wgmma", 16, 1, s, s, 64, True, None): 2}, moved
+        assert logits.shape == (2, p + s, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        diff = float((logits.float() - plain.float()).abs().max())
+        assert diff <= 0.1 * float(plain.float().abs().max()), (cfg.name,
+                                                                 diff)
+
+
+def test_snp_calling_on_cuda_equals_cpu(cuda):
+    """The SNP pipeline at 8 shards on both devices, each against the
+    numpy oracle of its formulas (``chip_smoke.snp_oracle``): the same
+    chromosomes and drop counter; the same variants in the same order but
+    for reads whose score lies within 1e-5 of 0; each device's scores
+    within 1e-5 of numpy's (the surrogate's float32 matmuls and sin in
+    three libraries, |score| < 20); no kernel launch."""
+    library = cs.make_library(50000, 4)
+    o_chrom, o_score, _ = cs.snp_oracle(library[0])
+    out = {}
+    for dev in ("cpu", cuda):
+        before = [m.LAUNCHES for m in cs.kernel_modules().values()]
+        chain = cs.snp_calling(library, 8, dev)
+        chrom, score, ids = chain.collect(shard=0)
+        assert [m.LAUNCHES for m in cs.kernel_modules().values()] == before
+        assert chain.report().diagnostics == {"stage1.shuffle_dropped": 0}
+        np.testing.assert_array_equal(chrom, o_chrom[ids], err_msg=str(dev))
+        err = np.abs(score - o_score[ids])
+        assert float(err.max()) <= 1e-5, (str(dev), float(err.max()),
+                                          int((err > 1e-5).sum()),
+                                          np.flatnonzero(err > 1e-5)[:10])
+        out[str(dev)] = (chrom, ids)
+    (cc, ci), (gc, gi) = out["cpu"], out[str(cuda)]
+    keep_c, keep_g = np.isin(ci, gi), np.isin(gi, ci)
+    assert (np.abs(o_score[ci[~keep_c]]) <= 1e-5).all()
+    assert (np.abs(o_score[gi[~keep_g]]) <= 1e-5).all()
+    np.testing.assert_array_equal(ci[keep_c], gi[keep_g])
+    np.testing.assert_array_equal(cc[keep_c], gc[keep_g])
 
 
 # ---------------------------------------------------------------------------

@@ -34,9 +34,10 @@ def test_greedy_tokens_match_reference(capsys):
     assert run.generated.shape == (3, 6)
     assert ref_out[2] == f"generated: {run.generated[:2].tolist()}"
     # the full batch, through the reference's model directly
-    assert run.prompt.shape == (3, 10) and run.prompt.dtype == torch.int64
+    tokens = run.batch["tokens"]
+    assert tokens.shape == (3, 10) and tokens.dtype == torch.int64
     m = R_build_model(R_smoke_config(ARCH))
-    logits, cache = m.prefill(params, {"tokens": run.prompt.numpy()}, 16)
+    logits, cache = m.prefill(params, {"tokens": tokens.numpy()}, 16)
     tok = np.argmax(np.asarray(logits[:, -1]), -1)
     want = [tok]
     for _ in range(5):
@@ -57,9 +58,9 @@ def test_cli_prints_the_reference_lines(capsys):
     assert np.asarray(gen).shape == (2, 6)
 
 
-def test_service_mode_is_not_ported_yet(capsys):
-    """Kept under its old name: ``--service`` is ported now, so the mode
-    runs the query-service loop (on the CPU here) and exits 0."""
+def test_service_mode_runs_the_query_service_loop(capsys):
+    """``--service`` runs the query-service loop (on the CPU here) and
+    exits 0."""
     assert T_serve.main(["--service", "--device", "cpu", "--tenants", "1",
                          "--rounds", "1", "--reads", "64"]) == 0
     out = capsys.readouterr().out

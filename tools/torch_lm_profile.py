@@ -5,9 +5,12 @@
         [--reps 3] [--steps 16]
 
 Builds the port's model for ``--arch`` (``llama3.2-1b``,
-``granite-moe-1b-a400m`` or ``hymba-1.5b``) at full width (random weights
-from the seed, bf16) on ``cuda`` with ``chip_smoke.py``'s serving shape
-(batch 4, prompt 2048), warms up one prefill and two decode steps, then:
+``granite-moe-1b-a400m``, ``hymba-1.5b``, ``internvl2-1b`` or
+``whisper-base``) at full width (random weights from the seed, bf16) on
+``cuda`` with ``chip_smoke.py``'s serving shape (batch 4, prompt 2048;
+internvl2 with 256 random patch embeddings before it; whisper with 1,500
+random encoder frames and a 416-token prompt), warms up one prefill and
+two decode steps, then:
 
 * times ``--reps`` warm prefills and ``--reps`` runs of ``--steps``
   greedy decode steps (host clock around work that ends in a device
@@ -156,7 +159,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b",
                     choices=["llama3.2-1b", "granite-moe-1b-a400m",
-                             "hymba-1.5b"])
+                             "hymba-1.5b", "internvl2-1b", "whisper-base"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--steps", type=int, default=16)
@@ -181,12 +184,21 @@ def main() -> int:
     model = build_model(cfg, device="cuda")
     params = model.init(args.seed)
     rng = np.random.default_rng(args.seed)
-    prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (cs.BATCH, cs.PROMPT))).cuda()
-    max_len = cs.PROMPT + args.steps + 2
+    prompt_len = cs.AUDIO_PROMPT if cfg.family == "audio" else cs.PROMPT
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (cs.BATCH, prompt_len))).cuda()}
+    if cfg.family == "audio":
+        batch["frames"] = torch.from_numpy(rng.normal(size=(
+            cs.BATCH, cfg.encoder_seq, cfg.d_model))).to("cuda",
+                                                          cfg.param_dtype)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.from_numpy(rng.normal(size=(
+            cs.BATCH, cfg.num_patches, cfg.d_model))).to("cuda",
+                                                          cfg.param_dtype)
+    max_len = cs.patch_positions(cfg) + prompt_len + args.steps + 2
 
     def prefill():
-        return model.prefill(params, {"tokens": prompt}, max_len)
+        return model.prefill(params, batch, max_len)
 
     def decode(cache, tok, steps):
         for _ in range(steps):
