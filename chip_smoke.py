@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the slices of ``repro_torch`` through their public entry
-points.  First it builds the six CUDA kernels from
-``src/repro_torch/csrc`` (one ``nvcc`` each, started together).
+points.  First it builds the seven CUDA kernel libraries from
+``src/repro_torch/csrc`` (the six forward kernels and flash attention's
+backward; one ``nvcc`` each, started together).
 
 Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
 chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
@@ -202,14 +203,49 @@ seed):
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4.  Every phase
+Slice 7, training at the full width and depth of Llama-3.2-1B (16
+layers, d_model 2048, 32/8 heads, head dim 64, vocab 128256, bf16 params,
+AdamW with f32 moments, remat on), through the flash-attention backward
+kernel:
+
+17. hold the backward kernel against its plain version taken in f32 on
+    the same inputs, by relative RMS error of dq, dk and dv: in f32 at
+    every head dim, causal, windowed and not causal, GQA 1, 2 and 4, an
+    Sk tail tile and rows without keys (zero dq); in bf16 at the
+    training shape (q [4, 32, 2048, 64], k/v [4, 8, 2048, 64], causal);
+    two launches give the same bytes; time it there by CUDA-graph replay
+    and back to back in turns with autograd of SDPA, beside the plain
+    version and the bound (kept pairs x 10 D operations at the bf16
+    peak), and the forward with and without its lse output;
+18. ``launch/train.py``'s setup and trainer (the main path): 4 steps on
+    one repeated batch of 4 x 2048 with a ``CheckpointManager`` in a
+    temporary directory, saved at step 2: losses finite and falling,
+    every leaf's gradient non-zero (every layer's wq/wk/wv), per step
+    32 flash launches (the forward and remat's recompute, all wgmma) and
+    16 backward launches, step ms and peak allocated bytes;
+19. a fresh state restored from the step-2 checkpoint runs steps 3-4:
+    its parameters and moments equal the uninterrupted run's bit for
+    bit;
+20. at full width and 2 layers in f32, one batch's gradients through
+    the kernels against ``attn_impl="ref"``, leaf by leaf.
+
+Slice 8, xlstm-1.3b serving at full width and depth (48 blocks in units
+of 7 mLSTM + 1 sLSTM, d_model 2048, 4 heads, vocab 50304, bf16): ``serve
+--model-smoke`` at batch 4, prompt 2048, 32 greedy tokens through
+``prefill_ssm`` and the xlstm decode step, no kernel launch (the
+reference has none for it); the sLSTM's sequential prefill is 6 x 2048
+eager steps; the warm repeat and teacher-forced decode against the
+forward pass.
+
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 8.  Every phase
 prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route or a top-k launch off the select
 route on theirs.  The last lines are a JSON object describing the
-kernels (every kernel's ``launches_by_path`` but RMSNorm's split by
-route; flash's ``served_shapes``, each with its launches by path as
+kernels (flash attention's backward among them; every kernel's
+``launches_by_path`` but RMSNorm's split by route; flash's
+``served_shapes``, each with its launches by path as
 counted by shape in this run; the segment sum's times of the real merge,
 the stress merge and
 the hot key beside its real combine's; the dispatch's and the top-k's
@@ -257,6 +293,7 @@ def phase(name: str, t0: float, extra: str = "") -> None:
 def kernel_modules() -> dict:
     """The port's kernel modules by kernel name; each keeps a ``LAUNCHES``
     counter that its wrapper raises by one per kernel launch."""
+    from repro_torch.kernels.flash_attention import backward as bmod
     from repro_torch.kernels.flash_attention import kernel as fmod
     from repro_torch.kernels.moe_dispatch import kernel as dmod
     from repro_torch.kernels.rmsnorm import kernel as rmod
@@ -264,7 +301,8 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.ssm_scan import kernel as smod
     from repro_torch.kernels.topk_reduce import kernel as tmod
     return {"segment_sum": kmod, "flash_attention": fmod, "rmsnorm": rmod,
-            "moe_dispatch": dmod, "topk_reduce": tmod, "ssm_scan": smod}
+            "moe_dispatch": dmod, "topk_reduce": tmod, "ssm_scan": smod,
+            "flash_attention_bwd": bmod}
 
 
 def reset_launches() -> None:
@@ -273,12 +311,15 @@ def reset_launches() -> None:
 
 
 #: Each main path's launch counts, read just after it ran with every
-#: counter set to 0 just before it; flash's, the SSM scan's, the segment
-#: sum's, the dispatch's and the top-k's also by route, flash's also by
-#: shape (see :func:`flash_shape`).
+#: counter set to 0 just before it; flash's (forward and backward), the
+#: SSM scan's, the segment sum's, the dispatch's and the top-k's also by
+#: route, flash's forward and backward also by shape (see
+#: :func:`flash_shape`).
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
 FLASH_SHAPES: dict = {}
+FLASH_BWD_ROUTES: dict = {}
+FLASH_BWD_SHAPES: dict = {}
 SSM_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
@@ -287,7 +328,8 @@ TOPK_ROUTES: dict = {}
 
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                   ssm_routes: Optional[dict] = None,
-                  flash_shapes: Optional[dict] = None) -> dict:
+                  flash_shapes: Optional[dict] = None,
+                  bwd_shapes: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
@@ -297,8 +339,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     launch the ``cluster`` route and every top-k launch the ``select``
     route, unless the SSM scan's launches split by route as
     ``ssm_routes`` says (none on any route when it is None), and unless
-    flash's launches split by shape as ``flash_shapes`` says, when it is
-    given."""
+    flash's launches split by shape as ``flash_shapes`` says and the flash
+    backward's as ``bwd_shapes`` says, when they are given."""
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
@@ -307,7 +349,11 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
     topk = dict(mods["topk_reduce"].LAUNCHES_BY_ROUTE)
     shapes = dict(mods["flash_attention"].LAUNCHES_BY_SHAPE)
+    bwd = dict(mods["flash_attention_bwd"].LAUNCHES_BY_ROUTE)
+    bwd_by_shape = dict(mods["flash_attention_bwd"].LAUNCHES_BY_SHAPE)
     PATH_LAUNCHES[path] = got
+    FLASH_BWD_ROUTES[path] = bwd
+    FLASH_BWD_SHAPES[path] = bwd_by_shape
     FLASH_ROUTES[path] = routes
     FLASH_SHAPES[path] = shapes
     SSM_ROUTES[path] = ssm
@@ -324,15 +370,17 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     if (got != want or routes != want_routes or ssm != want_ssm
             or seg != want_seg or disp != want_disp
             or topk != want_topk
-            or flash_shapes not in (None, shapes)):
+            or flash_shapes not in (None, shapes)
+            or bwd_shapes not in (None, bwd_by_shape)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, ssm_scan by route {ssm}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
-                             f"{topk}, flash by shape {shapes}; expected "
+                             f"{topk}, flash by shape {shapes}, flash "
+                             f"backward by shape {bwd_by_shape}; expected "
                              f"{want}, {want_routes}, {want_ssm}, "
                              f"{want_seg}, {want_disp}, {want_topk}, "
-                             f"{flash_shapes}")
+                             f"{flash_shapes}, {bwd_shapes}")
     return got
 
 
@@ -1738,8 +1786,8 @@ def flash_simt_bf16(q3, k3, v3, group: int):
     out = torch.empty_like(q3)
     bh, sq, d = q3.shape
     err = fmod.LIBRARY.load().flash_attention_bf16(
-        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), bh, sq,
-        k3.shape[1], d, group, d ** -0.5, 1, 0, 0,
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), None,
+        bh, sq, k3.shape[1], d, group, d ** -0.5, 1, 0, 0,
         torch.cuda.current_stream().cuda_stream)
     check_launch("flash_attention (simt, bf16)", err)
     return out
@@ -3564,6 +3612,570 @@ def teacher_forced_hybrid(run, m32, p32) -> None:
 # main
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# slice 7: Llama-3.2-1B training at full width and depth, through the
+# flash-attention backward kernel
+# ---------------------------------------------------------------------------
+
+FLASH_BWD_SOURCE = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = ("src/repro/kernels/flash_attention/kernel.py:86 "
+                      "(its gradient: the port's own kernel, as no "
+                      "pl.pallas_call in the reference computes one and "
+                      "jax.grad through this one raises; the reference "
+                      "trains through XLA's autodiff of "
+                      "src/repro/kernels/flash_attention/ref.py:"
+                      "attention_ref)")
+#: Relative RMS error of dq, dk, dv against the plain backward taken in
+#: f32 on the same inputs: f32 kernels differ in summation order only
+#: (measured <= 4e-7 on the H100); bf16 outputs carry bf16's rounding
+#: (2**-9 relative, ~1.7e-3 RMS measured).
+FLASH_BWD_REL_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 5e-3}
+#: Largest |lse_kernel - lse_plain| over the rows that see a key, the
+#: plain forward's taken in f32 on the same q, k, v.  lse is about 3-9 at
+#: these shapes, so f32's rounding is ~1e-6; bf16 inputs are exact in
+#: f32, and the wgmma route's exp2 / log2 in the log2 domain add a few
+#: f32 ulps.  A fault in the log-domain bookkeeping (a lost ln 2 or scale
+#: factor) is off by ~1 or more.
+FLASH_LSE_ABS_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 1e-4}
+#: The full-width f32 training step's gradients through the kernels
+#: against the same step with attn_impl="ref", per leaf:
+#: ||g_kernel - g_ref|| / ||g_ref||.  Both are f32 with TF32 off; they
+#: differ in the attention's summation order only.
+TRAIN_GRAD_REL_TOL = 1e-4
+TRAIN_STEPS = 4
+TRAIN_SAVE_AT = 2
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
+TRAIN_GRAD_CHECK_LAYERS = 2
+
+
+def flash_bwd_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize):
+    """Least time for the gradient on these inputs: five products of 2 d
+    operations a kept (query, key) pair at the tensor cores' peak for the
+    inputs' type, against q, k, v, o, do and lse read once and dq, dk, dv
+    written once over HBM bandwidth."""
+    ops = 10 * d * b * hq * flash_pairs(sq, sk, causal, window)
+    nbytes = (itemsize * d * (3 * b * hq * sq + 2 * b * hkv * sk)
+              + 4 * b * hq * sq + itemsize * d * (b * hq * sq
+                                                  + 2 * b * hkv * sk))
+    t_ops = ops / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
+                    window) -> tuple:
+    """The forward kernel (with its lse) and one backward launch on random
+    inputs.  The kernel's lse is held to the plain forward's, taken in f32
+    on the same q, k, v (the same rows +inf, the rest within
+    FLASH_LSE_ABS_TOL), and its o by relative RMS error; dq, dk, dv are
+    held by relative RMS error to the plain backward taken in f32 from
+    the plain forward's o and lse, so no output of the kernels feeds the
+    value they are held to; a second launch must give the same bytes (no
+    float atomics); rows that see no key must get a zero dq.  Returns (the
+    relative RMS errors, the largest absolute error under "max_abs_err"
+    and lse's under "lse_abs_err"; the kernels' inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import backward as bmod
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    t0 = time.perf_counter()
+    group = hq // hkv
+    q = torch.randn((b * hq, sq, d), device=dev, generator=g).to(dt)
+    k = torch.randn((b * hkv, sk, d), device=dev, generator=g).to(dt)
+    v = torch.randn((b * hkv, sk, d), device=dev, generator=g).to(dt)
+    do = torch.randn((b * hq, sq, d), device=dev, generator=g).to(dt)
+    o, lse = fmod.flash_attention_kernel(q, k, v, group=group,
+                                         causal=causal, window=window,
+                                         return_lse=True)
+    o_ref, lse_ref = flash_attention_plain(q.float(), k.float(), v.float(),
+                                           group, causal=causal,
+                                           window=window, return_lse=True)
+    none = torch.isinf(lse_ref)
+    if lse.shape != lse_ref.shape or not torch.equal(torch.isinf(lse),
+                                                     none) or \
+            not bool((lse[none] > 0).all()):
+        raise AssertionError(f"flash backward {name}: the forward's lse "
+                             f"is +inf on other rows than the plain's")
+    lse_err = float((lse[~none] - lse_ref[~none]).abs().max()) \
+        if bool((~none).any()) else 0.0
+    o_err = rel_rms(o, o_ref)
+    lse_tol = FLASH_LSE_ABS_TOL[str(dt)]
+    if not (lse_err <= lse_tol and o_err <= FLASH_REL_RMS_TOL):
+        raise AssertionError(f"flash backward {name}: the forward's lse "
+                             f"{lse_err} > {lse_tol} or o {o_err} > "
+                             f"{FLASH_REL_RMS_TOL} from the plain forward")
+    before = bmod.LAUNCHES
+    got = bmod.flash_attention_bwd_kernel(q, k, v, o, do, lse, group=group,
+                                          causal=causal, window=window)
+    again = bmod.flash_attention_bwd_kernel(q, k, v, o, do, lse,
+                                            group=group, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    if bmod.LAUNCHES - before != 2:
+        raise AssertionError(f"flash backward {name}: "
+                             f"{bmod.LAUNCHES - before} launches")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash backward {name}: two launches differ")
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                     o_ref, do.float(), lse_ref, group,
+                                     causal=causal, window=window)
+    del o_ref, lse_ref
+    tol = FLASH_BWD_REL_TOL[str(dt)]
+    errs, abs_err = {}, 0.0
+    for what, x, y in zip(("dq", "dk", "dv"), got, want):
+        if x.dtype != dt or x.shape != y.shape:
+            raise AssertionError(f"flash backward {name}: {what} "
+                                 f"{x.dtype} {tuple(x.shape)}")
+        errs[what] = rel_rms(x, y)
+        abs_err = max(abs_err, float((x.float() - y).abs().max()))
+    empty = sq - sk if causal and sq > sk else 0
+    if empty and not bool((got[0].reshape(b * hq, sq, d)[:, :empty] == 0
+                           ).all()):
+        raise AssertionError(f"flash backward {name}: a row without keys "
+                             f"has a gradient")
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"flash backward {name}: relative RMS errors "
+                             f"{errs} > {tol}")
+    del want, again
+    phase(f"flash backward check {name}", t0,
+          f"q=({b * hq}, {sq}, {d}) kv=({b * hkv}, {sk}, {d}) {dt} "
+          f"group={group} causal={causal} window={window} rel_rms_err="
+          f"{json.dumps(errs)} tol={tol} max_abs_err={abs_err} "
+          f"forward vs plain: lse_abs_err={lse_err} (tol {lse_tol}) "
+          f"o_rel_rms_err={o_err:.3e} rows_without_keys={empty * b * hq} "
+          f"deterministic=True")
+    return ({**errs, "max_abs_err": abs_err, "lse_abs_err": lse_err},
+            (q, k, v, o, do, lse))
+
+
+def sdpa_backward_call(q4, k4, v4, do4):
+    """Autograd of SDPA (causal, GQA) on the same inputs: the forward once,
+    the backward per call; never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    q4, k4, v4 = (t.detach().requires_grad_() for t in (q4, k4, v4))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         enable_gqa=True)
+    return lambda: torch.autograd.grad(out, (q4, k4, v4), do4,
+                                       retain_graph=True)
+
+
+def flash_bwd_kernel_phase(dev) -> dict:
+    """The backward kernel against its plain version, and the forward's lse
+    against the plain forward's (``flash_bwd_check``): in f32 at a small
+    shape for every head dim and for causal, windowed and not causal
+    calls, GQA 1 and 4, an Sk tail tile and rows without keys; in bf16 at
+    the Llama-3.2-1B training shape, where it is timed by CUDA-graph
+    replay and back to back in turns with SDPA's autograd backward, beside
+    the plain version and the bound; and the forward with and without its
+    lse output, in turns by graph replay.  Returns the backward's JSON
+    record."""
+    import torch
+    from repro_torch.kernels.flash_attention import backward as bmod
+    from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_bwd_plain
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(22)
+    cases = [(f"f32 d={d}", 1, 4, 1, 130, 130, d, f32, True, None)
+             for d in fmod.HEAD_DIMS]
+    cases += [
+        # name, b, hq, hkv, sq, sk, d, dtype, causal, window
+        ("f32 not causal, Sk tail", 2, 4, 4, 70, 133, 64, f32, False, None),
+        ("f32 window 17, GQA 2", 1, 4, 2, 150, 150, 64, f32, True, 17),
+        ("f32 GQA 4, Sq < Sk", 2, 8, 2, 40, 150, 64, f32, True, None),
+        ("f32 rows without keys", 1, 4, 2, 150, 50, 32, f32, True, None),
+        ("bf16 not causal d=128", 1, 8, 2, 200, 333, 128, bf16, False,
+         None),
+        ("bf16 window 64", 1, 8, 2, 300, 300, 64, bf16, True, 64),
+    ]
+    errs = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
+    abs_errs, lse_errs = dict(errs), dict(errs)
+
+    def note(dt, e):
+        errs[dt] = max(errs[dt], e["dq"], e["dk"], e["dv"])
+        abs_errs[dt] = max(abs_errs[dt], e["max_abs_err"])
+        lse_errs[dt] = max(lse_errs[dt], e["lse_abs_err"])
+
+    for case in cases:
+        e, inputs = flash_bwd_check(dev, g, *case)
+        note(str(case[7]), e)
+        del inputs
+    cfg_shape = (BATCH, 32, 8, PROMPT, PROMPT, 64)
+    b, hq, hkv, sq, sk, d = cfg_shape
+    e, (q, k, v, o, do, lse) = flash_bwd_check(
+        dev, g, "llama3.2-1b training", b, hq, hkv, sq, sk, d, bf16, True,
+        None)
+    note("torch.bfloat16", e)
+    t0 = time.perf_counter()
+    group = hq // hkv
+    kernel = (lambda: bmod.flash_attention_bwd_kernel(
+        q, k, v, o, do, lse, group=group, causal=True))
+    q4, k4, v4, do4 = (t.reshape(b, -1, t.shape[1], d)
+                       for t in (q, k, v, do))
+    sdpa_bwd = sdpa_backward_call(q4, k4, v4, do4)
+    ms = graph_ms(kernel, reps=5, replays=3)
+    (b2b, lib), turns = in_turns(lambda fn: cuda_ms(fn, reps=5),
+                                 (kernel, sdpa_bwd))
+    plain = cuda_ms(lambda: flash_attention_bwd_plain(
+        q, k, v, o, do, lse, group), reps=3, warmup=1)
+    bnd, by = flash_bwd_bound(b, hq, hkv, sq, sk, d, True, None, 2)
+    # the forward, with and without its lse output, by graph replay
+    (fwd_ms, fwd_lse_ms), fwd_turns = in_turns(
+        lambda fn: graph_ms(fn, reps=50),
+        (lambda: fmod.flash_attention_kernel(q, k, v, group=group),
+         lambda: fmod.flash_attention_kernel(q, k, v, group=group,
+                                             return_lse=True)))
+    phase("flash backward timing llama3.2-1b training", t0,
+          f"q=({b * hq}, {sq}, {d}) kv=({b * hkv}, {sk}, {d}) bf16 causal "
+          f"graph: kernel_ms={ms:.5f}; back to back: kernel_ms={b2b:.5f} "
+          f"sdpa_backward_ms={lib:.5f} in_turns="
+          f"{['%.5f' % t for t in turns]}; plain_ms={plain:.4f} "
+          f"bound_ms={bnd:.5f} ({by}) share_of_bound={bnd / ms:.4f} "
+          f"pairs={b * hq * flash_pairs(sq, sk, True, None)}; forward by "
+          f"graph: without lse {fwd_ms:.5f} ms, with lse {fwd_lse_ms:.5f} "
+          f"ms, in_turns={['%.5f' % t for t in fwd_turns]}")
+    del q, k, v, o, do, lse, q4, k4, v4, do4, sdpa_bwd
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
+            "launches": None, "max_abs_err": max(abs_errs.values()),
+            "max_abs_err_by_dtype": abs_errs,
+            "max_rel_rms_err": max(errs.values()),
+            "max_rel_rms_err_by_dtype": errs,
+            "forward_lse_abs_err_by_dtype": lse_errs, "ms": ms,
+            "timed": "CUDA graph replay", "back_to_back_ms": b2b,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib, "library": "autograd of "
+            "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+            "library_timed": "back to back",
+            "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sk, d],
+                      "causal": True, "dtype": "bfloat16"},
+            "forward_ms": {"without_lse": fwd_ms, "with_lse": fwd_lse_ms,
+                           "timed": "CUDA graph replay"}}
+
+
+def train_args(tmp: str, seed: int, steps: int = TRAIN_STEPS) -> list:
+    """``launch/train.py``'s flags for the smoke's run: full config, batch
+    BATCH x PROMPT, checkpoints in ``tmp``."""
+    return ["--arch", ARCH, "--steps", str(steps), "--batch", str(BATCH),
+            "--seq", str(PROMPT), "--lr", str(TRAIN_LR), "--warmup",
+            str(TRAIN_WARMUP), "--ckpt-dir", tmp, "--ckpt-every",
+            str(TRAIN_SAVE_AT), "--log-every", "1", "--seed", str(seed),
+            "--device", "cuda"]
+
+
+def grads_checked(opt, seen: list):
+    """``opt`` whose update first records, for every leaf of the (clipped)
+    gradients it is given, whether it holds a non-zero value."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params, lr):
+        import torch
+        nonzero = torch.stack([g.ne(0).any() for g in grads.values()])
+        seen.append(dict(zip(grads, nonzero.tolist())))
+        return opt.update(grads, state, params, lr)
+
+    return Optimizer(init=opt.init, update=update)
+
+
+def timed_steps(step_fn, log: list):
+    """``step_fn`` that records each step's host wall (after a
+    synchronize), loss and grad norm, its flash launches by route, and
+    the caching allocator's retries (a failed cudaMalloc that frees the
+    cache and tries again) and cudaMallocs in it."""
+    import torch
+    from repro_torch.kernels.flash_attention import backward as bmod
+    from repro_torch.kernels.flash_attention import kernel as fmod
+
+    def step(state, batch):
+        fwd0, bwd0 = dict(fmod.LAUNCHES_BY_ROUTE), bmod.LAUNCHES
+        mem0 = torch.cuda.memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        mem = torch.cuda.memory_stats()
+        log.append({"step": int(state.step), "ms": ms,
+                    "alloc_retries": mem["num_alloc_retries"]
+                    - mem0["num_alloc_retries"],
+                    "cuda_mallocs": mem.get("num_device_alloc", 0)
+                    - mem0.get("num_device_alloc", 0),
+                    "loss": float(metrics["loss"]),
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "flash_forward_by_route": {
+                        r: fmod.LAUNCHES_BY_ROUTE[r] - fwd0[r]
+                        for r in fwd0},
+                    "flash_backward": bmod.LAUNCHES - bwd0})
+        return state, metrics
+
+    return step
+
+
+def train_run(tmp: str, seed: int) -> tuple:
+    """The main path: ``launch/train.py``'s setup and trainer at full
+    width and depth, TRAIN_STEPS AdamW steps on one repeated batch,
+    checkpointed at TRAIN_SAVE_AT; every launch counter read around it.
+    The checkpoint's write is joined (``Trainer.run`` waits on it) and its
+    dirty pages flushed (``os.sync``) before the steps after it are timed,
+    and both are timed on their own.  Returns (the setup, the repeated
+    batch, the step log, peak allocated bytes)."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.train import Trainer, TrainerConfig
+    args = train.parser().parse_args(train_args(tmp, seed))
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    cfg = run.cfg
+    batch = run.batch_fn(0)
+    phase("train setup", t0,
+          f"arch={ARCH} params="
+          f"{sum(p.numel() for p in run.state.params.parameters())} "
+          f"dtype={cfg.dtype} remat={cfg.remat} layers={cfg.num_layers}")
+    log: list = []
+    step = timed_steps(run.train_step, log)
+    manager = CheckpointManager(tmp, keep=1)
+    L = cfg.num_layers
+    fwd_per_step = L * (2 if cfg.remat else 1)
+    shape = flash_shape(BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT,
+                        PROMPT, True, None)
+    bwd_shape = ("simt",) + shape[1:]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    # steps 1..TRAIN_SAVE_AT, saved there; then on to TRAIN_STEPS on the
+    # same state without a save (the checkpoint at TRAIN_SAVE_AT is kept
+    # for the restart)
+    first = Trainer(step, run.state, None, manager, TrainerConfig(
+        total_steps=TRAIN_SAVE_AT, checkpoint_every=TRAIN_SAVE_AT,
+        log_every=1), batch_fn=lambda s: batch)
+    state = first.run()
+    save_s = time.perf_counter() - t0 - sum(r["ms"] for r in log) / 1e3
+    t1 = time.perf_counter()
+    os.sync()
+    sync_s = time.perf_counter() - t1
+    rest = Trainer(step, state, None, manager, TrainerConfig(
+        total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS + 1,
+        log_every=1), batch_fn=lambda s: batch)
+    state = rest.run()
+    launches = read_launches(
+        "train", {"flash_attention": fwd_per_step * TRAIN_STEPS,
+                  "flash_attention_bwd": L * TRAIN_STEPS},
+        flash_shapes={shape: fwd_per_step * TRAIN_STEPS},
+        bwd_shapes={bwd_shape: L * TRAIN_STEPS})
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    run.state = state
+    losses = [r["loss"] for r in log]
+    if len(log) != TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite, or "
+                             f"step {TRAIN_STEPS}'s not below step 1's")
+    for r in log:
+        if r["flash_forward_by_route"] != {"wgmma": fwd_per_step,
+                                           "simt": 0} or \
+                r["flash_backward"] != L:
+            raise AssertionError(f"step {r['step']}: flash launches "
+                                 f"{r['flash_forward_by_route']}, backward "
+                                 f"{r['flash_backward']}")
+    for r in log:
+        print(f"[train] step {r['step']} loss={r['loss']:.6f} grad_norm="
+              f"{r['grad_norm']:.6f} step_ms={r['ms']:.3f} flash forward "
+              f"by route {json.dumps(r['flash_forward_by_route'])} "
+              f"backward {r['flash_backward']} alloc_retries="
+              f"{r['alloc_retries']} cuda_mallocs={r['cuda_mallocs']}",
+              flush=True)
+    phase("train (main path)", t0,
+          f"steps={TRAIN_STEPS} batch={BATCH}x{PROMPT} wall_s={wall:.3f} "
+          f"peak_allocated_bytes={peak} losses={losses} grad_norms="
+          f"{[r['grad_norm'] for r in log]} step_ms="
+          f"{[round(r['ms'], 3) for r in log]} checkpoint at step "
+          f"{TRAIN_SAVE_AT}: gather and write {save_s:.3f} s, then "
+          f"os.sync {sync_s:.3f} s, neither inside a step's time; "
+          f"launches={json.dumps(launches)}")
+    return run, batch, log, peak
+
+
+def train_restart(run, batch, tmp: str, seed: int) -> None:
+    """A fresh state (another seed) restored from the step-TRAIN_SAVE_AT
+    checkpoint runs the remaining steps on the same batch: its parameters
+    and optimizer moments must equal the uninterrupted run's bit for bit.
+    Its step records, outside any timed step, whether every leaf's
+    gradient holds a non-zero value: the same gradients as the main
+    path's steps, as the bit equality shows."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.optim import named_tree
+    from repro_torch.optim.schedule import cosine_warmup
+    from repro_torch.train import (StepConfig, Trainer, TrainerConfig,
+                                   make_train_step)
+    t0 = time.perf_counter()
+    args = train.parser().parse_args(train_args(tmp, seed + 1))
+    fresh = train.setup(args)
+    manager = CheckpointManager(tmp, keep=1)
+    if manager.latest_step() != TRAIN_SAVE_AT:
+        raise AssertionError(f"checkpoints {sorted(manager.latest_steps())}")
+    t1 = time.perf_counter()
+    state = manager.restore(fresh.state, step=TRAIN_SAVE_AT)
+    restore_s = time.perf_counter() - t1
+    if int(state.step) != TRAIN_SAVE_AT:
+        raise AssertionError(f"restored step {int(state.step)}")
+    seen: list = []
+    step = make_train_step(
+        fresh.model, grads_checked(fresh.optimizer, seen),
+        cosine_warmup(args.lr, args.warmup, args.steps),
+        StepConfig(grad_sync=args.grad_sync, microbatch=args.microbatch))
+    reset_launches()
+    state = Trainer(step, state, None, manager, TrainerConfig(
+        total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS + 1,
+        log_every=1), batch_fn=lambda s: batch).run()
+    cfg = run.cfg
+    L, steps = cfg.num_layers, TRAIN_STEPS - TRAIN_SAVE_AT
+    read_launches("train restart",
+                  {"flash_attention": L * (2 if cfg.remat else 1) * steps,
+                   "flash_attention_bwd": L * steps})
+    want, got = named_tree(run.state.params), named_tree(state.params)
+    diff = [k for k in want if not torch.equal(want[k], got[k])]
+    for name in ("m", "v"):
+        a = getattr(run.state.opt_state, name)
+        b = getattr(state.opt_state, name)
+        diff += [f"opt_state.{name}.{k}" for k in a
+                 if not torch.equal(a[k], b[k])]
+    if diff or int(state.step) != TRAIN_STEPS:
+        raise AssertionError(f"restart at step {TRAIN_SAVE_AT}: "
+                             f"{len(diff)} leaves differ from the "
+                             f"uninterrupted run ({diff[:5]}), step "
+                             f"{int(state.step)}")
+    zero = sorted({k for s in seen for k, nz in s.items() if not nz})
+    qkv = [k for k in seen[0] if k.split(".")[-1] in ("wq", "wk", "wv")]
+    if len(seen) != steps or zero or len(qkv) != 3 * L or \
+            len(seen[0]) != len(want):
+        raise AssertionError(f"leaves with an all-zero gradient: {zero}; "
+                             f"{len(qkv)} attention projections and "
+                             f"{len(seen[0])} leaves seen in {len(seen)} "
+                             f"steps")
+    phase("train restart", t0,
+          f"restored step {TRAIN_SAVE_AT} into a fresh state (seed "
+          f"{seed + 1}) in {restore_s:.3f} s, ran steps "
+          f"{TRAIN_SAVE_AT + 1}-{TRAIN_STEPS}: {len(want)} parameters and "
+          f"{2 * len(want)} moments equal the uninterrupted run's bit for "
+          f"bit; nonzero_grad_leaves={len(seen[0])} of {len(want)} in "
+          f"each of steps {TRAIN_SAVE_AT + 1}-{TRAIN_STEPS} (wq/wk/wv: "
+          f"{len(qkv)})")
+    del fresh, state
+
+
+def train_grad_check(seed: int) -> None:
+    """At full width and TRAIN_GRAD_CHECK_LAYERS layers in f32: one
+    batch's gradients through the kernels (flash forward on its f32
+    route and the backward kernel) against the same loss with
+    ``attn_impl="ref"``, leaf by leaf by relative norm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import named_tree
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH).scaled(num_layers=TRAIN_GRAD_CHECK_LAYERS,
+                                  dtype="float32")
+    model = build_model(cfg, device="cuda")
+    ref_model = build_model(cfg.scaled(attn_impl="ref"), device="cuda")
+    params = model.init(seed).trainable()
+    batch = train.make_batch_fn(cfg, BATCH, PROMPT, seed,
+                                model.device)(0)
+    named = named_tree(params)
+    grads = {}
+    for name, m in (("kernel", model), ("ref", ref_model)):
+        for p in named.values():
+            p.grad = None
+        if name == "kernel":
+            reset_launches()
+        loss, _ = m.loss(params, batch)
+        loss.backward()
+        if name == "kernel":
+            L = cfg.num_layers
+            read_launches("train grad check (f32)",
+                          {"flash_attention": L * (2 if cfg.remat else 1),
+                           "flash_attention_bwd": L}, flash_route="simt")
+        grads[name] = ({k: p.grad for k, p in named.items()},
+                       float(loss.detach()))
+        for p in named.values():
+            p.grad = None
+    (gk, lk), (gr, lr_) = grads["kernel"], grads["ref"]
+    rel = {k: float((gk[k] - gr[k]).norm() / gr[k].norm()) for k in gr}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= TRAIN_GRAD_REL_TOL or any(
+            float(g.norm()) == 0 for g in gr.values()):
+        raise AssertionError(f"f32 gradients through the kernels differ "
+                             f"from attn_impl='ref': {worst} "
+                             f"{rel[worst]} > {TRAIN_GRAD_REL_TOL}")
+    qkv = {k: v for k, v in rel.items()
+           if k.split(".")[-1] in ("wq", "wk", "wv")}
+    phase("train gradients vs plain attention (f32)", t0,
+          f"layers={cfg.num_layers} d={cfg.d_model} batch={BATCH}x{PROMPT} "
+          f"loss kernel={lk:.6f} ref={lr_:.6f} leaves={len(rel)} "
+          f"max_rel_norm_err={rel[worst]:.3e} ({worst}) wq/wk/wv max="
+          f"{max(qkv.values()):.3e} tol={TRAIN_GRAD_REL_TOL}")
+    del grads, gk, gr, params
+
+
+def train_slice(seed: int) -> dict:
+    """The backward kernel's checks and timings, then Llama-3.2-1B
+    training at full width and depth (the main path), its restart from a
+    checkpoint, and the f32 gradient check; returns the backward's JSON
+    record."""
+    import torch
+    rec = flash_bwd_kernel_phase(torch.device("cuda"))
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        run, batch, log, peak = train_run(tmp, seed)
+        rec["launches"] = PATH_LAUNCHES["train"]["flash_attention_bwd"]
+        rec["train"] = {"steps": log, "peak_allocated_bytes": peak}
+        train_restart(run, batch, tmp, seed)
+        del run, batch
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    train_grad_check(seed)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# slice 8: xlstm-1.3b serving at full width and depth
+# ---------------------------------------------------------------------------
+
+SSM_FAMILY_ARCH = "xlstm-1.3b"
+
+
+def xlstm_slice(seed: int) -> None:
+    """xlstm-1.3b serving at full width and depth (48 blocks in units of 7
+    mLSTM + 1 sLSTM, d_model 2048, 4 heads, vocab 50304, bf16): batch
+    BATCH, PROMPT-token prompt, GEN greedy tokens through
+    ``prefill_ssm`` and the xlstm decode step.  It runs no kernel (the
+    reference has none for it): every counter stays 0.  Then the warm
+    repeat and the teacher-forced check."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    cfg = get_config(SSM_FAMILY_ARCH)
+    m_per, units = tf._xlstm_unit_shape(cfg)
+    run, _ = serve_smoke(SSM_FAMILY_ARCH, seed, {},
+                         extra=f"layers={cfg.num_layers} units={units} "
+                               f"mlstm_per_unit={m_per} slstm_steps_per_"
+                               f"prefill={units * PROMPT}")
+    check_run(run, cfg)
+    kinds = [c.kind for c in run.cache]
+    if kinds != (["mlstm"] * m_per + ["slstm"]) * units:
+        raise AssertionError(f"xlstm caches {kinds}")
+    warm_repeat(run)
+    teacher_forced(run, launches=dict(path=f"{SSM_FAMILY_ARCH} forward",
+                                      expect={}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3611,6 +4223,10 @@ def main() -> int:
     snp_slice(torch.device("cuda"))
     torch.cuda.empty_cache()
     records.append(hybrid_slice(args.seed))
+    torch.cuda.empty_cache()
+    records.append(train_slice(args.seed))
+    torch.cuda.empty_cache()
+    xlstm_slice(args.seed)
     for rec in records:
         if rec["name"] == "flash_attention":
             served_shape_launches(rec)
@@ -3618,6 +4234,7 @@ def main() -> int:
             path: got[rec["name"]] for path, got in PATH_LAUNCHES.items()
             if got.get(rec["name"])}
         by_route = {"flash_attention": FLASH_ROUTES,
+                    "flash_attention_bwd": FLASH_BWD_ROUTES,
                     "ssm_scan": SSM_ROUTES,
                     "segment_sum": SEGMENT_ROUTES,
                     "moe_dispatch": DISPATCH_ROUTES,

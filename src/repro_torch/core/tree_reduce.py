@@ -244,3 +244,21 @@ def merge_keyed_tables(state: Partition, delta: Partition, num_keys: int,
     cnt = segment_reduce(keys, (counts,), num_keys, op="sum", valid=valid,
                          use_kernel=use_kernel)
     return segment_table_to_partition(merged.values, cnt.values[0], num_keys)
+
+
+def collective_bytes_tree(nbytes: int, axis_size: int, depth: int = 2) -> int:
+    """Napkin math: bytes moved per shard-link by the K-level tree over
+    ``axis_size`` shards of ``nbytes`` each (the levels' sends to group
+    leaders, then the log-doubling broadcast), as the reference's."""
+    factors = split_factors(axis_size, depth)
+    total = 0
+    shards = axis_size
+    for g in factors:
+        senders = shards - shards // g
+        total += senders * nbytes
+        shards //= g
+    k = 1
+    while k < axis_size:
+        total += min(k, axis_size - k) * nbytes
+        k *= 2
+    return total

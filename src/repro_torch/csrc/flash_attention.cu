@@ -12,7 +12,11 @@
 //   s = (q . k) * sm_scale, masked to NEG_INF = -1e30
 //   online softmax over key tiles: m, l, acc in float32
 //   o = acc / l, and 0 where l == 0 (a row that sees no key), cast to q's
-//   dtype.
+//   dtype;
+//   lse = m + log(l) in float32 [BH, Sq] (natural log of the row's sum of
+//   exp(s)), +inf for a row that sees no key, written only where the
+//   caller passes an lse pointer (training: the backward,
+//   flash_attention_bwd.cu, recomputes P from it; serving passes null).
 // K/V rows at or past Sk are never read: the tile staging zero-fills
 // them, and the mask gives them p = 0, so no 0 * garbage reaches acc.
 //
@@ -91,8 +95,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int sq, int sk,
-          int group, float scale, int causal, int use_window, int window) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int sq, int sk, int group, float scale,
+          int causal, int use_window, int window) {
   static_assert(D % (4 * TPR) == 0, "D must be a multiple of 16");
   constexpr int NC = D / (4 * TPR);  // 16-byte chunks of a row per thread
   __shared__ float4 ks[BK][D / 4];
@@ -204,6 +209,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_ok) return;
+  if (lse != nullptr && t == 0)
+    lse[(int64_t)bh * sq + qi] = l == 0.f ? INFINITY : m + logf(l);
   const float inv = 1.f / (l == 0.f ? 1.f : l);
   T* orow = o + ((int64_t)bh * sq + qi) * D;
 #pragma unroll
@@ -225,6 +232,7 @@ namespace wg {
 constexpr int BKV = 128;        // keys per K/V tile
 constexpr int STAGES = 2;       // K/V ring depth
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int PANEL_COLS = 64;  // one 128-byte swizzle row of bf16
 
 // Shared-memory plan of one block, in bytes from a 1024-aligned base.  A
@@ -501,9 +509,9 @@ __global__ void __launch_bounds__(Plan<D>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o, int bh_count, int sq, int sk,
-                int group, float scale_log2, int causal, int use_window,
-                int window) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int bh_count, int sq, int sk, int group, float scale_log2,
+                int causal, int use_window, int window) {
   using P = Plan<D>;
   constexpr int BQ = P::BQ;
   extern __shared__ uint8_t smem_raw[];
@@ -659,7 +667,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
         }
       }
 
-      // epilogue: quad-sum l, O / l (0 for a row without keys), bf16
+      // epilogue: quad-sum l, O / l (0 for a row without keys), bf16;
+      // lse from the log2-domain maximum and sum, in natural-log units
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -669,6 +678,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
       for (int h = 0; h < 2; ++h) {
         const int r = row0 + 8 * h;
         if (r >= sq) continue;
+        if (lse != nullptr && lane % 4 == 0)
+          lse[(int64_t)it.bh * sq + r] =
+              l[h] == 0.f ? INFINITY
+                          : ((fold ? m[h] * scale_log2 : m[h]) + log2f(l[h])) *
+                                LN2;
         const float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
         __nv_bfloat16* orow = o + ((int64_t)it.bh * sq + r) * D;
 #pragma unroll
@@ -732,8 +746,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int mats, int rows, int d,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int group, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int group, float scale, int causal,
            int use_window, int window, cudaStream_t stream) {
   // with no keys nothing reads K or V: map q's rows in their place
   const int krows = sk > 0 ? sk : 1;
@@ -759,7 +773,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   const int64_t n_items = (int64_t)bh * ((sq + BQ - 1) / BQ);
   const int blocks = (int)(n_items < sms ? n_items : sms);
   flash_fwd_wgmma<D><<<blocks, Plan<D>::THREADS, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), bh, sq, sk,
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, bh, sq, sk,
       group, scale * LOG2E, causal, use_window, window);
   return (int)cudaGetLastError();
 }
@@ -768,8 +782,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int d, int group, float scale, int causal,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int sq, int sk, int d, int group, float scale, int causal,
            int use_window, int window, cudaStream_t stream) {
   if (bh == 0 || sq == 0) return 0;
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
@@ -780,7 +794,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 #define FLASH_CASE(DIM)                                                   \
   case DIM:                                                               \
     flash_fwd<T, DIM><<<grid, THREADS, 0, stream>>>(                      \
-        qp, kp, vp, op, sq, sk, group, scale, causal, use_window, window); \
+        qp, kp, vp, op, lse, sq, sk, group, scale, causal, use_window,    \
+        window);                                                          \
     break;
   switch (d) {
     FLASH_CASE(16)
@@ -798,43 +813,45 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 }  // namespace
 
 // q, o: [bh, sq, d]; k, v: [bh / group, sk, d]; all contiguous, one dtype.
-// d in {16, 32, 64, 96, 128}.  use_window != 0 applies `window`.
+// lse: null, or [bh, sq] float32 for the rows' log-sum-exp.  d in {16, 32,
+// 64, 96, 128}.  use_window != 0 applies `window`.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int bh, int sq,
-                                   int sk, int d, int group, float scale,
-                                   int causal, int use_window, int window,
-                                   void* stream) {
-  return launch<float>(q, k, v, o, bh, sq, sk, d, group, scale, causal,
-                       use_window, window,
+                                   const void* v, void* o, void* lse, int bh,
+                                   int sq, int sk, int d, int group,
+                                   float scale, int causal, int use_window,
+                                   int window, void* stream) {
+  return launch<float>(q, k, v, o, static_cast<float*>(lse), bh, sq, sk, d,
+                       group, scale, causal, use_window, window,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int bh, int sq,
-                                    int sk, int d, int group, float scale,
-                                    int causal, int use_window, int window,
-                                    void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, group, scale,
-                               causal, use_window, window,
-                               static_cast<cudaStream_t>(stream));
+                                    const void* v, void* o, void* lse, int bh,
+                                    int sq, int sk, int d, int group,
+                                    float scale, int causal, int use_window,
+                                    int window, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, static_cast<float*>(lse), bh, sq,
+                               sk, d, group, scale, causal, use_window,
+                               window, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 on the tensor-core route; d in {64, 128}.
 extern "C" int flash_attention_bf16_wgmma(const void* q, const void* k,
-                                          const void* v, void* o, int bh,
-                                          int sq, int sk, int d, int group,
-                                          float scale, int causal,
+                                          const void* v, void* o, void* lse,
+                                          int bh, int sq, int sk, int d,
+                                          int group, float scale, int causal,
                                           int use_window, int window,
                                           void* stream) {
   if (bh == 0 || sq == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      return wg::launch<64>(q, k, v, o, bh, sq, sk, group, scale, causal,
-                            use_window, window, s);
+      return wg::launch<64>(q, k, v, o, lse_f, bh, sq, sk, group, scale,
+                            causal, use_window, window, s);
     case 128:
-      return wg::launch<128>(q, k, v, o, bh, sq, sk, group, scale, causal,
-                             use_window, window, s);
+      return wg::launch<128>(q, k, v, o, lse_f, bh, sq, sk, group, scale,
+                             causal, use_window, window, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -111,6 +111,22 @@ def build_all(libraries: Sequence[KernelLibrary],
         return list(pool.map(lambda lib: lib.build(verbose), libraries))
 
 
+#: Where each kernel without a backward gets one (ROADMAP.md).
+BACKWARD_ITEM = "ROADMAP Queue 1, item 23 (backward kernels)"
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise where grad mode is on and an input requires grad: a kernel
+    with no backward writes its output through a raw pointer, so autograd
+    would see a leaf and drop every gradient through it without a word."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward yet ({BACKWARD_ITEM}): "
+            f"call it under torch.no_grad() or on inputs that do not "
+            f"require grad")
+
+
 def check_launch(name: str, err: int) -> None:
     """Raise if a C launcher reported a CUDA error."""
     if err != 0:

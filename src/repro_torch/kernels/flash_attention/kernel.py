@@ -16,23 +16,28 @@ flash_attention_plain`); bf16 at head dim 64 or 128 on CUDA takes the
 tensor-core kernel (``"wgmma"``, ``flash_fwd_wgmma``); every other CUDA
 call takes the CUDA-core kernel (``"simt"``, ``flash_fwd``).  A CUDA
 tensor launches its route's kernel or raises — no route falls back to
-another.  ``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_ROUTE``
-splits them by route and ``LAUNCHES_BY_SHAPE`` by shape.
+another.  With ``return_lse`` both routes also write each row's
+log-sum-exp (float32 ``[BH, Sq]``, +inf for a row that sees no key), which
+the backward (:mod:`~repro_torch.kernels.flash_attention.backward`)
+recomputes the probabilities from; serving asks for none.  ``LAUNCHES``
+counts kernel launches, ``LAUNCHES_BY_ROUTE`` splits them by route and
+``LAUNCHES_BY_SHAPE`` by shape.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
-_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_void_p]
+# q, k, v, o, lse; bh, sq, sk, d, group; scale; causal, use_window,
+# window; stream
+_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
 LIBRARY = KernelLibrary("flash_attention", "flash_attention.cu",
                         {"flash_attention_f32": _ARGS,
                          "flash_attention_bf16": _ARGS,
@@ -87,14 +92,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, group: int,
                            causal: bool = True,
                            window: Optional[int] = None,
-                           sm_scale: Optional[float] = None) -> torch.Tensor:
+                           sm_scale: Optional[float] = None,
+                           return_lse: bool = False
+                           ) -> Union[torch.Tensor,
+                                      Tuple[torch.Tensor, torch.Tensor]]:
     """q: [BH, Sq, D]; k, v: [BH // group, Sk, D] -> [BH, Sq, D] in q's
-    dtype; ``sm_scale`` defaults to ``1 / sqrt(D)``."""
+    dtype (and with ``return_lse`` the rows' log-sum-exp, float32 [BH,
+    Sq]); ``sm_scale`` defaults to ``1 / sqrt(D)``."""
     global LAUNCHES
     _check(q, k, v, group)
     if route(q.dtype, q.shape[2], q.device) == "plain":
         return flash_attention_plain(q, k, v, group, causal=causal,
-                                     window=window, sm_scale=sm_scale)
+                                     window=window, sm_scale=sm_scale,
+                                     return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash attention runs on cpu or cuda, got "
                          f"{q.device}")
@@ -113,8 +123,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash attention kernel takes contiguous tensors")
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
+    lse = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if bh == 0 or sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     kind = route(q.dtype, d, q.device)
     if kind == "wgmma" and any(t.data_ptr() % 16
                                for t in (q, k, v, out)):
@@ -126,12 +138,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     entry = _WGMMA_ENTRY if kind == "wgmma" else _ENTRY[q.dtype]
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
-            sk, d, group, float(scale), int(causal), int(window is not None),
-            win, torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), bh, sq, sk, d, group,
+            float(scale), int(causal), int(window is not None), win,
+            torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
     shape = (kind, bh, group, sq, sk, d, bool(causal), window)
     LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
-    return out
+    return (out, lse) if return_lse else out

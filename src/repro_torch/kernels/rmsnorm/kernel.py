@@ -20,7 +20,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, check_launch
+from repro_torch.kernels.build import (KernelLibrary, check_launch,
+                                      require_no_grad)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -73,6 +74,7 @@ def rmsnorm_kernel(x: torch.Tensor, weight: torch.Tensor,
         return rmsnorm_ref(x, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm runs on cpu or cuda, got {x.device}")
+    require_no_grad("rmsnorm", x, weight)
     if x.dtype not in _ENTRY or weight.dtype != x.dtype:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16 x and a "
                         f"weight of the same dtype, got {x.dtype} and "

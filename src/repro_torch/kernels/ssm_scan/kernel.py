@@ -24,7 +24,8 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.build import KernelLibrary, check_launch
+from repro_torch.kernels.build import (KernelLibrary, check_launch,
+                                      require_no_grad)
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -135,6 +136,7 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     if kind == "plain":
         return ssm_scan_ref(xc, x_proj, dt_bias, a_log, h0)
     _check_cuda(xc, got)
+    require_no_grad("ssm_scan", xc, x_proj, dt_bias, a_log, h0)
     n = a_log.shape[1]
     dev = xc.device
     y = torch.empty((b, t, d), dtype=torch.float32, device=dev)

@@ -2,10 +2,10 @@
 
 ``build_model(cfg, device=)`` returns a :class:`Model` namespace with
 init / loss / forward / prefill / decode_step / init_cache, the surface
-the server and the tests use.  The port runs the dense, MoE, hybrid and
-vlm families (``models/transformer.py``) and the audio family
-(``models/encdec.py``); ``ssm`` raises :class:`NotImplementedError`
-naming the ROADMAP item that ports it.  A batch holds ``tokens``, and
+the trainer, the server and the tests use.  The port runs the dense,
+MoE, hybrid, vlm and ssm (xlstm) families (``models/transformer.py``)
+and the audio family (``models/encdec.py``).  A batch holds ``tokens``
+(and ``labels`` for the loss), and
 ``patch_embeds`` (vlm) or ``frames`` (audio) beside them.  Parameters
 live on ``device`` (``cuda`` unless the caller passes another; without a
 GPU, ``cuda`` raises).

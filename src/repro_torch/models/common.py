@@ -4,10 +4,11 @@ parameter-tree node, and the truncated-normal initializer (the reference's
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,11 +81,23 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
+def remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)``; with ``cfg.remat`` where gradients are taken, under
+    ``torch.utils.checkpoint`` (non-reentrant): nothing inside ``fn`` is
+    kept for the backward, which runs ``fn`` again (the reference's
+    ``jax.checkpoint``).  Bind loop variables into ``fn`` (a partial), as
+    the recompute runs after the loop."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 class Params(nn.Module):
     """A node of the parameter tree.  Children are read as ``p["name"]``,
     like the reference's nested dicts, so the layer functions take either
     a module or a plain dict of tensors.  Parameters are held without
-    gradients: the port serves, it does not train yet."""
+    gradients, as serving wants them; :meth:`trainable` turns gradients on
+    for training."""
 
     def __init__(self, **children: Union[torch.Tensor, nn.Module]):
         super().__init__()
@@ -97,6 +110,13 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+    def trainable(self, flag: bool = True) -> "Params":
+        """Set ``requires_grad`` on every parameter of the tree; returns
+        the tree."""
+        for p in self.parameters():
+            p.requires_grad_(flag)
+        return self
 
 
 def param_count(params: nn.Module) -> int:

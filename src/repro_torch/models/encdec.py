@@ -17,6 +17,7 @@ plain reference.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -24,7 +25,8 @@ from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import ModelConfig, Params, trunc_normal
+from repro_torch.models.common import (ModelConfig, Params, remat,
+                                       trunc_normal)
 from repro_torch.models.layers import (ParamsLike, apply_layernorm,
                                        apply_mlp, cross_entropy,
                                        init_layernorm, init_mlp)
@@ -111,11 +113,26 @@ def encode(params: ParamsLike, frames: torch.Tensor, cfg: ModelConfig
     d]."""
     x = _add_positions(frames)
     for lp in params["enc_layers"]:
-        h = apply_layernorm(lp["ln1"], x)
-        x = x + _mha(lp["attn"], h, h, cfg, causal=False)
-        h = apply_layernorm(lp["ln2"], x)
-        x = x + apply_mlp(lp["mlp"], h, cfg)
+        x = remat(cfg, functools.partial(_enc_layer, lp, cfg), x)
     return apply_layernorm(params["enc_ln"], x)
+
+
+def _enc_layer(lp: ParamsLike, cfg: ModelConfig,
+               x: torch.Tensor) -> torch.Tensor:
+    h = apply_layernorm(lp["ln1"], x)
+    x = x + _mha(lp["attn"], h, h, cfg, causal=False)
+    h = apply_layernorm(lp["ln2"], x)
+    return x + apply_mlp(lp["mlp"], h, cfg)
+
+
+def _dec_layer(lp: ParamsLike, cfg: ModelConfig, x: torch.Tensor,
+               memory: torch.Tensor) -> torch.Tensor:
+    h = apply_layernorm(lp["ln1"], x)
+    x = x + _mha(lp["self_attn"], h, h, cfg, causal=True)
+    h = apply_layernorm(lp["ln_x"], x)
+    x = x + _mha(lp["cross_attn"], h, memory, cfg, causal=False)
+    h = apply_layernorm(lp["ln2"], x)
+    return x + apply_mlp(lp["mlp"], h, cfg)
 
 
 def decode_train(params: ParamsLike, tokens: torch.Tensor,
@@ -123,12 +140,7 @@ def decode_train(params: ParamsLike, tokens: torch.Tensor,
     """Teacher-forced decoder over tokens [B, S] -> logits [B, S, V]."""
     x = _add_positions(_embed(params, tokens))
     for lp in params["dec_layers"]:
-        h = apply_layernorm(lp["ln1"], x)
-        x = x + _mha(lp["self_attn"], h, h, cfg, causal=True)
-        h = apply_layernorm(lp["ln_x"], x)
-        x = x + _mha(lp["cross_attn"], h, memory, cfg, causal=False)
-        h = apply_layernorm(lp["ln2"], x)
-        x = x + apply_mlp(lp["mlp"], h, cfg)
+        x = remat(cfg, functools.partial(_dec_layer, lp, cfg), x, memory)
     return _logits(params, x)
 
 
@@ -140,7 +152,8 @@ def forward(params: ParamsLike, batch: Dict[str, torch.Tensor],
 
 def encdec_loss(params: ParamsLike, batch: Dict[str, torch.Tensor],
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
-    """Forward-only loss (the port does not train yet)."""
+    """The training loss: mean token NLL of the teacher-forced decoder,
+    and {"loss"}."""
     logits = forward(params, batch, cfg)
     loss = cross_entropy(logits, batch["labels"], batch.get("mask"))
     return loss, {"loss": loss}

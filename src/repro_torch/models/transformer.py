@@ -1,20 +1,23 @@
-"""Decoder LM assembly: the dense, MoE, hybrid and vlm families.
+"""Decoder LM assembly: the dense, MoE, hybrid, vlm and ssm families.
 
 The reference's ``models/transformer.py`` for ``family`` ``"dense"``,
 ``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``), ``"hybrid"``
 (hymba: attention and an SSM side by side in every block, sliding-window
-attention on all but the global layers) and ``"vlm"`` (internvl2: the
+attention on all but the global layers), ``"vlm"`` (internvl2: the
 dense stack with ``patch_embeds`` projected by ``patch_proj`` and
-prepended to the text, positions running over both).  Its ``lax.scan``
-over stacked layer parameters becomes a Python loop over one
-:class:`Block` module per layer (PyTorch runs eagerly: there is no graph
-whose size depth could grow), and ``remat``/``scan_layers`` have nothing
-to select.  The ``"audio"`` family is ``models/encdec.py``; ``"ssm"``
-raises :class:`NotImplementedError` naming the ROADMAP item that ports
-it.
+prepended to the text, positions running over both) and ``"ssm"``
+(xlstm: units of ``slstm_every - 1`` mLSTM blocks and one sLSTM block,
+``models/xlstm.py``).  Its ``lax.scan`` over stacked layer parameters
+becomes a Python loop over one module per layer (PyTorch runs eagerly:
+there is no graph whose size depth could grow), so ``scan_layers``
+selects nothing.  ``remat`` recomputes each layer (each xlstm unit) in
+the backward pass through ``torch.utils.checkpoint`` where gradients
+are taken, as the reference's ``jax.checkpoint``.  The ``"audio"`` family
+is ``models/encdec.py``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -23,21 +26,22 @@ from torch import nn
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import KVCache, init_kv_cache
-from repro_torch.models.common import ModelConfig, Params, trunc_normal
+from repro_torch.models.common import (ModelConfig, Params, remat,
+                                       trunc_normal)
 from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        cross_entropy, embed_tokens,
                                        init_embedding, init_mlp, init_norm,
                                        unembed)
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
 BIG_WINDOW = 1 << 30   # "global attention" encoded as a huge window
 
-#: Where each family the port does not run yet is ported (ROADMAP.md).
-PENDING_FAMILIES = {
-    "ssm": "ROADMAP Queue 1, item 3 (xlstm)",
-}
+#: Where each family the port does not run yet is ported (ROADMAP.md):
+#: none is left.
+PENDING_FAMILIES: Dict[str, str] = {}
 
 
 def require_ported_family(cfg: ModelConfig) -> None:
@@ -121,22 +125,161 @@ def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# xLSTM stack (units of (k-1) mLSTM + 1 sLSTM)
+# ---------------------------------------------------------------------------
+
+def _xlstm_unit_shape(cfg: ModelConfig) -> Tuple[int, int]:
+    """(mLSTM blocks a unit, units); units 0 = an all-mLSTM stack."""
+    k = cfg.slstm_every or cfg.num_layers + 1
+    if k > cfg.num_layers:
+        return cfg.num_layers, 0     # all-mLSTM
+    if cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
+                         f"split into units of {k}")
+    return k - 1, cfg.num_layers // k
+
+
+def _xlstm_block(gen: torch.Generator, cfg: ModelConfig,
+                 init_core) -> Params:
+    return Params(norm=init_norm(cfg, device=gen.device),
+                  core=init_core(gen, cfg))
+
+
+def init_xlstm_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """``m_blocks``: a ModuleList of units, each a ModuleList of
+    ``m_per`` mLSTM blocks (a flat list of ``num_layers`` when there is no
+    sLSTM); ``s_blocks``: one sLSTM block a unit.  Each block holds
+    ``norm`` and ``core``: the reference's stacked ``[units, m_per,
+    ...]`` and ``[units, ...]`` leaves, one module a block."""
+    m_per, units = _xlstm_unit_shape(cfg)
+    if units == 0:
+        return Params(m_blocks=nn.ModuleList(
+            _xlstm_block(gen, cfg, xlstm_lib.init_mlstm)
+            for _ in range(cfg.num_layers)))
+    m = nn.ModuleList(
+        nn.ModuleList(_xlstm_block(gen, cfg, xlstm_lib.init_mlstm)
+                      for _ in range(m_per)) for _ in range(units))
+    s = nn.ModuleList(_xlstm_block(gen, cfg, xlstm_lib.init_slstm)
+                      for _ in range(units))
+    return Params(m_blocks=m, s_blocks=s)
+
+
+def _m_block(cfg: ModelConfig, bp: ParamsLike,
+             x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, bp["norm"], x)
+    return x + xlstm_lib.mlstm_block(bp["core"], h, cfg)[0]
+
+
+def _s_block(cfg: ModelConfig, bp: ParamsLike,
+             x: torch.Tensor) -> torch.Tensor:
+    h = apply_norm(cfg, bp["norm"], x)
+    return x + xlstm_lib.slstm_block(bp["core"], h, cfg)[0]
+
+
+def _xlstm_unit(cfg: ModelConfig, m_blocks, s_block: ParamsLike,
+                x: torch.Tensor) -> torch.Tensor:
+    for bp in m_blocks:
+        x = _m_block(cfg, bp, x)
+    return _s_block(cfg, s_block, x)
+
+
+def apply_xlstm_stack(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig
+                      ) -> torch.Tensor:
+    """The stack over x [B, S, d]; ``remat`` recomputes each unit (each
+    block of an all-mLSTM stack), as the reference checkpoints its scan
+    bodies."""
+    m_per, units = _xlstm_unit_shape(cfg)
+    if units == 0:
+        for bp in p["m_blocks"]:
+            x = remat(cfg, functools.partial(_m_block, cfg, bp), x)
+        return x
+    for mu, su in zip(p["m_blocks"], p["s_blocks"]):
+        x = remat(cfg, functools.partial(_xlstm_unit, cfg, mu, su), x)
+    return x
+
+
+def _xlstm_kinds(cfg: ModelConfig) -> List[str]:
+    m_per, units = _xlstm_unit_shape(cfg)
+    if units == 0:
+        return ["mlstm"] * cfg.num_layers
+    return (["mlstm"] * m_per + ["slstm"]) * units
+
+
+def _xlstm_layers(p: ParamsLike, cfg: ModelConfig):
+    """The stack's blocks in layer order: (kind, block params)."""
+    m_per, units = _xlstm_unit_shape(cfg)
+    if units == 0:
+        for bp in p["m_blocks"]:
+            yield "mlstm", bp
+        return
+    for mu, su in zip(p["m_blocks"], p["s_blocks"]):
+        for bp in mu:
+            yield "mlstm", bp
+        yield "slstm", su
+
+
+def _xlstm_decode(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
+                  caches: List["LayerCache"],
+                  new_caches: List["LayerCache"]) -> torch.Tensor:
+    """One token x [B, 1, d] through every block, each stepping its
+    state once."""
+    for (kind, bp), c in zip(_xlstm_layers(p, cfg), caches):
+        h = apply_norm(cfg, bp["norm"], x)
+        if kind == "mlstm":
+            y, st = xlstm_lib.mlstm_block(bp["core"], h, cfg, state=c.mls)
+            new_caches.append(LayerCache("mlstm", mls=st))
+        else:
+            y, st = xlstm_lib.slstm_block(bp["core"], h, cfg, state=c.sls)
+            new_caches.append(LayerCache("slstm", sls=st))
+        x = x + y
+    return x
+
+
+def prefill_ssm(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, List["LayerCache"]]:
+    """xLSTM prefill: run the blocks statefully from zero states,
+    collecting each one's final state."""
+    b = tokens.shape[0]
+    x = embed_tokens(params["embed"], tokens, cfg)
+    caches: List[LayerCache] = []
+    for kind, bp in _xlstm_layers(params["xlstm"], cfg):
+        h = apply_norm(cfg, bp["norm"], x)
+        if kind == "mlstm":
+            y, st = xlstm_lib.mlstm_block(
+                bp["core"], h, cfg,
+                state=xlstm_lib.init_mlstm_state(cfg, b, x.device))
+            caches.append(LayerCache("mlstm", mls=st))
+        else:
+            y, st = xlstm_lib.slstm_block(
+                bp["core"], h, cfg,
+                state=xlstm_lib.init_slstm_state(cfg, b, x.device))
+            caches.append(LayerCache("slstm", sls=st))
+        x = x + y
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
 # LM init / forward
 # ---------------------------------------------------------------------------
 
 class LM(Params):
     """The model's parameters: ``embed``, ``blocks`` (one :class:`Block`
-    per layer), ``final_norm``, and for vlm ``patch_proj`` [d, d].  Names
-    follow the reference's pytree paths: ``blocks.3.attn.wq``,
-    ``embed.table``, ``final_norm.scale``."""
+    per layer; ``xlstm`` in their place for the ssm family),
+    ``final_norm``, and for vlm ``patch_proj`` [d, d].  Names follow the
+    reference's pytree paths: ``blocks.3.attn.wq``, ``embed.table``,
+    ``final_norm.scale``, ``xlstm.m_blocks.2.5.core.wq``."""
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
     require_ported_family(cfg)
     p = dict(embed=init_embedding(gen, cfg),
-             final_norm=init_norm(cfg, device=gen.device),
-             blocks=nn.ModuleList(init_block(gen, cfg)
-                                  for _ in range(cfg.num_layers)))
+             final_norm=init_norm(cfg, device=gen.device))
+    if cfg.family == "ssm":
+        p["xlstm"] = init_xlstm_stack(gen, cfg)
+    else:
+        p["blocks"] = nn.ModuleList(init_block(gen, cfg)
+                                    for _ in range(cfg.num_layers))
     if cfg.family == "vlm" and cfg.num_patches:
         p["patch_proj"] = trunc_normal(gen, (cfg.d_model, cfg.d_model),
                                        cfg.param_dtype)
@@ -187,17 +330,22 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     path).
     """
     require_ported_family(cfg)
-    if return_kv and cfg.family == "hybrid":
+    if return_kv and cfg.family in ("hybrid", "ssm"):
         raise ValueError("return_kv takes a uniform full-attention stack")
     x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        x = apply_xlstm_stack(params["xlstm"], x, cfg)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return unembed(params["embed"], x, cfg), aux_total
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for i, bp in enumerate(params["blocks"]):
-        out = apply_block(bp, x, positions, cfg,
-                          window=layer_window(cfg, i), return_kv=return_kv)
+        out = remat(cfg, functools.partial(
+            apply_block, bp, cfg=cfg, window=layer_window(cfg, i),
+            return_kv=return_kv), x, positions)
         if return_kv:
             x, a, (kt, vt) = out
             ks.append(kt)
@@ -215,8 +363,10 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
 def lm_loss(params: ParamsLike, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict]:
-    """Forward-only loss (the port does not train yet); vlm's patch
-    positions carry no label and are skipped."""
+    """The training loss: mean token NLL plus ``aux_weight`` times the
+    MoE aux loss, and {"loss", "aux_loss"}; vlm's patch positions carry
+    no label and are skipped.  Gradients flow to every parameter that
+    requires grad (through the flash kernel's backward on the card)."""
     logits, aux = forward(params, batch["tokens"], cfg,
                           patch_embeds=batch.get("patch_embeds"))
     labels = batch["labels"]
@@ -285,10 +435,13 @@ def decode_step_scanned(params: ParamsLike, cache: StackedKV,
 class LayerCache(NamedTuple):
     """One layer's decode state in a heterogeneous stack: a hybrid layer
     holds its attention cache (a ring buffer of ``window`` slots on a
-    sliding-window layer) and its SSM state."""
-    kind: str                                  # hybrid
+    sliding-window layer) and its SSM state; an xlstm block its mLSTM or
+    sLSTM state."""
+    kind: str                                  # hybrid | mlstm | slstm
     kv: Optional[KVCache] = None
     ssm: Optional[ssm_lib.SSMState] = None
+    mls: Optional[xlstm_lib.MLSTMState] = None
+    sls: Optional[xlstm_lib.SLSTMState] = None
 
 
 Caches = Union[StackedKV, List[LayerCache]]
@@ -298,8 +451,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Caches:
     """A StackedKV for uniform stacks; for hybrid, one LayerCache per
     layer: sliding-window layers get ring buffers (O(window)), the SSM
-    O(1) recurrent state."""
+    O(1) recurrent state; for ssm, one LayerCache per xlstm block with
+    its O(1) state."""
     require_ported_family(cfg)
+    if cfg.family == "ssm":
+        return [LayerCache("mlstm",
+                           mls=xlstm_lib.init_mlstm_state(cfg, batch, device))
+                if kind == "mlstm" else
+                LayerCache("slstm",
+                           sls=xlstm_lib.init_slstm_state(cfg, batch, device))
+                for kind in _xlstm_kinds(cfg)]
     if cfg.family != "hybrid":
         return init_stacked_cache(cfg, batch, max_len, device=device)
     return [LayerCache("hybrid",
@@ -314,14 +475,18 @@ def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Caches]:
     """tokens: [B] -> (logits [B, V], caches').
 
-    A StackedKV takes the uniform path; a list of LayerCache (hybrid)
-    loops over layers, each attending to its cache and stepping its SSM
-    state once."""
+    A StackedKV takes the uniform path; a list of LayerCache loops over
+    layers: a hybrid layer attends to its cache and steps its SSM state
+    once, an xlstm block steps its state once."""
     require_ported_family(cfg)
     if isinstance(caches, StackedKV):
         return decode_step_scanned(params, caches, tokens, cfg)
     x = embed_tokens(params["embed"], tokens[:, None], cfg)
     new_caches: List[LayerCache] = []
+    if cfg.family == "ssm":
+        x = _xlstm_decode(params["xlstm"], x, cfg, caches, new_caches)
+        x = apply_norm(cfg, params["final_norm"], x)
+        return unembed(params["embed"], x, cfg)[:, 0], new_caches
     for bp, c in zip(params["blocks"], caches):
         h = apply_norm(cfg, bp["norm1"], x)
         a, kv = attn_lib.decode_attention(bp["attn"], h, c.kv, cfg)
@@ -344,6 +509,8 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     require_ported_family(cfg)
     b, s = tokens.shape
     max_len = max_len or s
+    if cfg.family == "ssm":
+        return prefill_ssm(params, tokens, cfg)
     if cfg.family != "hybrid":
         return prefill_scanned(params, tokens, cfg, max_len,
                                patch_embeds=patch_embeds)

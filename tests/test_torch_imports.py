@@ -49,3 +49,8 @@ def test_walk_finds_the_port():
     assert "kernels/ssm_scan/kernel.py" in rel
     assert "kernels/ssm_scan/ops.py" in rel
     assert "models/ssm.py" in rel
+    for mod in ("models/xlstm.py", "kernels/flash_attention/backward.py",
+                "optim/adamw.py", "optim/adafactor.py", "train/step.py",
+                "train/trainer.py", "checkpoint/manager.py",
+                "launch/train.py"):
+        assert mod in rel, mod

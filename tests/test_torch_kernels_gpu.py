@@ -909,3 +909,113 @@ def test_hybrid_layers_launch_ssm_once_per_layer(cuda):
         assert smod.LAUNCHES - s0 == 6
     diff = float((kern - plain).abs().max())
     assert diff <= 1e-2 * float(plain.abs().max()), diff
+
+
+# -- flash-attention backward and the wrappers' gradients ---------------------
+
+FLASH_BWD_CASES = {
+    # b, hq, hkv, sq, sk, d, causal, window
+    "causal": (2, 4, 4, 130, 130, 64, True, None),
+    "gqa 4 d=128": (1, 8, 2, 100, 100, 128, True, None),
+    "window 17": (1, 4, 2, 150, 150, 32, True, 17),
+    "not causal Sk tail": (2, 2, 2, 70, 133, 16, False, None),
+    "rows without keys": (1, 4, 2, 150, 50, 96, True, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=str)
+@pytest.mark.parametrize("name", sorted(FLASH_BWD_CASES))
+def test_flash_backward_kernel_matches_plain_version(cuda, name, dtype):
+    """The backward kernel against the plain backward taken in f32 on the
+    same inputs, by relative RMS error (chip_smoke's limits); two
+    launches give the same bytes; a row without keys gets a zero dq."""
+    from repro_torch.kernels.flash_attention import backward as bmod
+    b, hq, hkv, sq, sk, d, causal, window = FLASH_BWD_CASES[name]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    errs, (q, *_) = cs.flash_bwd_check(cuda, g, name, b, hq, hkv, sq, sk,
+                                       d, dtype, causal, window)
+    assert max(errs[w] for w in ("dq", "dk", "dv")) <= \
+        cs.FLASH_BWD_REL_TOL[str(dtype)]
+    assert bmod.route(cuda) == "simt"
+
+
+def test_flash_attention_returns_grad_fn_and_kernel_gradients(cuda):
+    """On CUDA tensors requiring grad, flash attention goes through the
+    autograd Function: a ``grad_fn``, one forward and one backward launch,
+    the gradients of the plain version; under no_grad a serving call
+    moves only the forward's counter."""
+    from repro_torch.kernels.flash_attention import backward as bmod
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(s, device=cuda, generator=g)
+               for s in ((2, 8, 96, 64), (2, 2, 96, 64), (2, 2, 96, 64)))
+    do = torch.randn((2, 8, 96, 64), device=cuda, generator=g)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fmod.reset_launches()
+    bmod.reset_launches()
+    out = flash_attention(*leaves, causal=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    assert fmod.LAUNCHES == 1 and bmod.LAUNCHES == 1
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_plain(*(t.reshape(-1, 96, 64) for t in plain),
+                              group=4).reshape(2, 8, 96, 64)
+    want = torch.autograd.grad(o, plain, do)
+    for a, w in zip(got, want):
+        assert cs.rel_rms(a, w) < cs.FLASH_BWD_REL_TOL["torch.float32"]
+    with torch.no_grad():
+        assert flash_attention(*leaves).grad_fn is None
+    assert fmod.LAUNCHES == 2 and bmod.LAUNCHES == 1
+
+
+def test_rmsnorm_and_ssm_kernels_raise_where_grads_are_taken(cuda):
+    """A kernel with no backward raises on a CUDA input requiring grad in
+    grad mode, naming its ROADMAP item, and runs under no_grad."""
+    x = torch.randn((4, 64), device=cuda, requires_grad=True)
+    w = torch.ones(64, device=cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP Queue 1, item 23"):
+        rmsnorm(x, w)
+    with torch.no_grad():
+        assert rmsnorm(x, w).shape == (4, 64)
+    n, d = 4, 32
+    xc = torch.randn((1, 8, d), device=cuda, requires_grad=True)
+    args = (torch.randn((d, 2 * n + 1), device=cuda),
+            torch.zeros(d, device=cuda), torch.zeros((d, n), device=cuda),
+            torch.zeros((1, d, n), device=cuda))
+    with pytest.raises(RuntimeError, match="ROADMAP Queue 1, item 23"):
+        smod.ssm_scan_kernel(xc, *args)
+    with torch.no_grad():
+        y, h = smod.ssm_scan_kernel(xc, *args)
+    assert y.shape == (1, 8, d) and h.shape == (1, d, n)
+
+
+def test_llama_train_step_launches_flash_and_its_backward(cuda):
+    """One step of the 2-layer Llama smoke widths on the card at head dim
+    64 in bf16: with remat, two forward launches (wgmma) and one backward
+    launch a layer; every leaf gets a gradient."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import backward as bmod
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train import (StepConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config("llama3.2-1b").scaled(
+        dtype="bfloat16", remat=True, attn_impl="auto", head_dim=64,
+        num_heads=4, num_kv_heads=2, d_model=128)
+    model = build_model(cfg, device=cuda)
+    seen = []
+    opt = cs.grads_checked(adamw(), seen)
+    state = init_train_state(model, opt, 0)
+    step = make_train_step(model, opt, constant(1e-3), StepConfig())
+    batch = train.make_batch_fn(cfg, 2, 128, 0, cuda)(0)
+    fmod.reset_launches()
+    bmod.reset_launches()
+    state, metrics = step(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert fmod.LAUNCHES_BY_ROUTE == {"wgmma": 2 * cfg.num_layers,
+                                      "simt": 0}
+    assert bmod.LAUNCHES == cfg.num_layers
+    assert all(seen[0].values()) and len(seen[0]) == len(
+        list(state.params.parameters()))
