@@ -209,20 +209,25 @@ AdamW with f32 moments, remat on), through the flash-attention backward
 kernel:
 
 17. hold the backward kernel against its plain version taken in f32 on
-    the same inputs, by relative RMS error of dq, dk and dv: in f32 at
-    every head dim, causal, windowed and not causal, GQA 1, 2 and 4, an
-    Sk tail tile and rows without keys (zero dq); in bf16 at the
-    training shape (q [4, 32, 2048, 64], k/v [4, 8, 2048, 64], causal);
-    two launches give the same bytes; time it there by CUDA-graph replay
-    and back to back in turns with autograd of SDPA, beside the plain
-    version and the bound (kept pairs x 10 D operations at the bf16
-    peak), and the forward with and without its lse output;
+    the same inputs, by relative RMS error of dq, dk and dv, each case
+    asserted on its route: in f32 (``simt``) at every head dim, causal,
+    windowed and not causal, GQA 1, 2 and 4, an Sk tail tile and rows
+    without keys (zero dq); in bf16 (``wgmma``) not causal at D = 128,
+    windowed, causal GQA 4 at D = 128 with an Sk tail, rows without keys
+    and the training shape (q [4, 32, 2048, 64], k/v [4, 8, 2048, 64],
+    causal), where SDPA's backward's error on the same inputs is printed
+    beside; two launches give the same bytes; time it there by CUDA-graph
+    replay in turns with the ``simt`` route's kernels, and back to back
+    in turns with both and autograd of SDPA, beside the plain version,
+    the bound (kept pairs x 10 D operations at the bf16 peak) and the
+    two-pass design's floor (14 D), and the forward with and without its
+    lse output;
 18. ``launch/train.py``'s setup and trainer (the main path): 4 steps on
     one repeated batch of 4 x 2048 with a ``CheckpointManager`` in a
     temporary directory, saved at step 2: losses finite and falling,
     every leaf's gradient non-zero (every layer's wq/wk/wv), per step
-    32 flash launches (the forward and remat's recompute, all wgmma) and
-    16 backward launches, step ms and peak allocated bytes;
+    32 flash launches (the forward and remat's recompute) and 16
+    backward launches, all wgmma, step ms and peak allocated bytes;
 19. a fresh state restored from the step-2 checkpoint runs steps 3-4:
     its parameters and moments equal the uninterrupted run's bit for
     bit;
@@ -333,8 +338,9 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
-    flash launch took ``flash_route`` (a served bf16 prefill takes
-    ``"wgmma"``; only an f32 copy of a model takes ``"simt"``), unless
+    flash launch, forward and backward, took ``flash_route`` (a served
+    bf16 prefill and a bf16 training step take ``"wgmma"``; only an f32
+    copy of a model takes ``"simt"``), unless
     every segment-sum launch took the ``binned`` route, every dispatch
     launch the ``cluster`` route and every top-k launch the ``select``
     route, unless the SSM scan's launches split by route as
@@ -363,22 +369,27 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     want = {name: expect.get(name, 0) for name in got}
     want_routes = {r: got["flash_attention"] * (r == flash_route)
                    for r in routes}
+    want_bwd = {r: got["flash_attention_bwd"] * (r == flash_route)
+                for r in bwd}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
     want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
     want_disp = {r: got["moe_dispatch"] * (r == "cluster") for r in disp}
     want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
-    if (got != want or routes != want_routes or ssm != want_ssm
+    if (got != want or routes != want_routes or bwd != want_bwd
+            or ssm != want_ssm
             or seg != want_seg or disp != want_disp
             or topk != want_topk
             or flash_shapes not in (None, shapes)
             or bwd_shapes not in (None, bwd_by_shape)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
-                             f"{routes}, ssm_scan by route {ssm}, "
+                             f"{routes}, flash backward by route {bwd}, "
+                             f"ssm_scan by route {ssm}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
                              f"{topk}, flash by shape {shapes}, flash "
                              f"backward by shape {bwd_by_shape}; expected "
-                             f"{want}, {want_routes}, {want_ssm}, "
+                             f"{want}, {want_routes}, {want_bwd}, "
+                             f"{want_ssm}, "
                              f"{want_seg}, {want_disp}, {want_topk}, "
                              f"{flash_shapes}, {bwd_shapes}")
     return got
@@ -3628,7 +3639,10 @@ FLASH_BWD_REPLACES = ("src/repro/kernels/flash_attention/kernel.py:86 "
 #: Relative RMS error of dq, dk, dv against the plain backward taken in
 #: f32 on the same inputs: f32 kernels differ in summation order only
 #: (measured <= 4e-7 on the H100); bf16 outputs carry bf16's rounding
-#: (2**-9 relative, ~1.7e-3 RMS measured).
+#: (2**-9 relative, ~1.7e-3 RMS measured on the CUDA-core route, which
+#: rounds only its outputs; the wgmma route also rounds P and dS to bf16
+#: for the tensor cores, ~2.5e-3 measured, beside SDPA's backward's,
+#: printed in the same run).
 FLASH_BWD_REL_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 5e-3}
 #: Largest |lse_kernel - lse_plain| over the rows that see a key, the
 #: plain forward's taken in f32 on the same q, k, v.  lse is about 3-9 at
@@ -3648,12 +3662,14 @@ TRAIN_LR, TRAIN_WARMUP = 3e-4, 1
 TRAIN_GRAD_CHECK_LAYERS = 2
 
 
-def flash_bwd_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize):
+def flash_bwd_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize,
+                    per_pair: int = 10):
     """Least time for the gradient on these inputs: five products of 2 d
-    operations a kept (query, key) pair at the tensor cores' peak for the
-    inputs' type, against q, k, v, o, do and lse read once and dq, dk, dv
-    written once over HBM bandwidth."""
-    ops = 10 * d * b * hq * flash_pairs(sq, sk, causal, window)
+    operations a kept (query, key) pair (``per_pair`` = 10; 14 gives the
+    floor of a design that recomputes S and dP in two passes) at the
+    tensor cores' peak for the inputs' type, against q, k, v, o, do and
+    lse read once and dq, dk, dv written once over HBM bandwidth."""
+    ops = per_pair * d * b * hq * flash_pairs(sq, sk, causal, window)
     nbytes = (itemsize * d * (3 * b * hq * sq + 2 * b * hkv * sk)
               + 4 * b * hq * sq + itemsize * d * (b * hq * sq
                                                   + 2 * b * hkv * sk))
@@ -3664,17 +3680,26 @@ def flash_bwd_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize):
 
 
 def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
-                    window) -> tuple:
+                    window, sdpa: bool = False, simt: bool = False
+                    ) -> tuple:
     """The forward kernel (with its lse) and one backward launch on random
-    inputs.  The kernel's lse is held to the plain forward's, taken in f32
-    on the same q, k, v (the same rows +inf, the rest within
-    FLASH_LSE_ABS_TOL), and its o by relative RMS error; dq, dk, dv are
-    held by relative RMS error to the plain backward taken in f32 from
-    the plain forward's o and lse, so no output of the kernels feeds the
-    value they are held to; a second launch must give the same bytes (no
-    float atomics); rows that see no key must get a zero dq.  Returns (the
-    relative RMS errors, the largest absolute error under "max_abs_err"
-    and lse's under "lse_abs_err"; the kernels' inputs)."""
+    inputs, on the route :func:`backward.route` names for them (asserted
+    from the wrapper's counts). The kernel's lse is held to the plain
+    forward's, taken in f32 on the same q, k, v (the same rows +inf, the
+    rest within FLASH_LSE_ABS_TOL), and its o by relative RMS error; dq,
+    dk, dv are held by relative RMS error to the plain backward taken in
+    f32 from the plain forward's o and lse, so no output of the kernels
+    feeds the value they are held to; a second launch must give the same
+    bytes (no float atomics); rows that see no key must get a zero dq. With
+    ``sdpa`` (causal, Sq == Sk) SDPA's autograd backward on the same bf16
+    inputs is held to the same f32 value as a yardstick ("sdpa_rel_rms").
+    With ``simt`` the CUDA-core kernels (``backward.simt_launch``) are held
+    the same way on the same inputs, whatever route the wrapper takes: two
+    launches giving the same bytes, within the tolerance ("simt_rel_rms",
+    "simt_max_abs_err").
+    Returns (the relative RMS errors, the largest absolute error under
+    "max_abs_err", lse's under "lse_abs_err" and the route under "route";
+    the kernels' inputs)."""
     import torch
     from repro_torch.kernels.flash_attention import backward as bmod
     from repro_torch.kernels.flash_attention import kernel as fmod
@@ -3706,16 +3731,18 @@ def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
         raise AssertionError(f"flash backward {name}: the forward's lse "
                              f"{lse_err} > {lse_tol} or o {o_err} > "
                              f"{FLASH_REL_RMS_TOL} from the plain forward")
-    before = bmod.LAUNCHES
+    before = dict(bmod.LAUNCHES_BY_ROUTE)
+    kind = bmod.route(dt, d, dev)
     got = bmod.flash_attention_bwd_kernel(q, k, v, o, do, lse, group=group,
                                           causal=causal, window=window)
     again = bmod.flash_attention_bwd_kernel(q, k, v, o, do, lse,
                                             group=group, causal=causal,
                                             window=window)
     torch.cuda.synchronize()
-    if bmod.LAUNCHES - before != 2:
-        raise AssertionError(f"flash backward {name}: "
-                             f"{bmod.LAUNCHES - before} launches")
+    launched = {r: n - before[r] for r, n in bmod.LAUNCHES_BY_ROUTE.items()}
+    if launched != {r: 2 * (r == kind) for r in launched}:
+        raise AssertionError(f"flash backward {name}: launches by route "
+                             f"{launched}, expected 2 on {kind}")
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"flash backward {name}: two launches differ")
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
@@ -3723,13 +3750,33 @@ def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
                                      causal=causal, window=window)
     del o_ref, lse_ref
     tol = FLASH_BWD_REL_TOL[str(dt)]
-    errs, abs_err = {}, 0.0
+    errs, abs_err, lib = {}, 0.0, {}
+    if sdpa:
+        q4, k4, v4, do4 = (t.reshape(b, -1, t.shape[1], d)
+                           for t in (q, k, v, do))
+        lib_grads = sdpa_backward_call(q4, k4, v4, do4)()
+        lib = {w: rel_rms(x.reshape(y.shape), y)
+               for w, x, y in zip(("dq", "dk", "dv"), lib_grads, want)}
+        del q4, k4, v4, do4, lib_grads
     for what, x, y in zip(("dq", "dk", "dv"), got, want):
         if x.dtype != dt or x.shape != y.shape:
             raise AssertionError(f"flash backward {name}: {what} "
                                  f"{x.dtype} {tuple(x.shape)}")
         errs[what] = rel_rms(x, y)
         abs_err = max(abs_err, float((x.float() - y).abs().max()))
+    simt_errs, simt_abs = {}, 0.0
+    if simt:
+        by_simt = bmod.simt_launch(q, k, v, o, do, lse, group=group,
+                                   causal=causal, window=window)
+        if not all(torch.equal(x, y) for x, y in zip(
+                by_simt, bmod.simt_launch(q, k, v, o, do, lse, group=group,
+                                          causal=causal, window=window))):
+            raise AssertionError(f"flash backward {name}: two launches of "
+                                 f"the simt kernels differ")
+        for what, x, y in zip(("dq", "dk", "dv"), by_simt, want):
+            simt_errs[what] = rel_rms(x, y)
+            simt_abs = max(simt_abs, float((x.float() - y).abs().max()))
+        del by_simt
     empty = sq - sk if causal and sq > sk else 0
     if empty and not bool((got[0].reshape(b * hq, sq, d)[:, :empty] == 0
                            ).all()):
@@ -3738,16 +3785,23 @@ def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
     if not max(errs.values()) <= tol:
         raise AssertionError(f"flash backward {name}: relative RMS errors "
                              f"{errs} > {tol}")
+    if simt and not max(simt_errs.values()) <= tol:
+        raise AssertionError(f"flash backward {name}: the simt kernels' "
+                             f"relative RMS errors {simt_errs} > {tol}")
     del want, again
     phase(f"flash backward check {name}", t0,
           f"q=({b * hq}, {sq}, {d}) kv=({b * hkv}, {sk}, {d}) {dt} "
-          f"group={group} causal={causal} window={window} rel_rms_err="
-          f"{json.dumps(errs)} tol={tol} max_abs_err={abs_err} "
-          f"forward vs plain: lse_abs_err={lse_err} (tol {lse_tol}) "
+          f"group={group} causal={causal} window={window} route={kind} "
+          f"rel_rms_err={json.dumps(errs)} tol={tol} max_abs_err={abs_err} "
+          + (f"sdpa_backward_rel_rms_err={json.dumps(lib)} " if sdpa else "")
+          + (f"simt_rel_rms_err={json.dumps(simt_errs)} simt_max_abs_err="
+             f"{simt_abs} simt_deterministic=True " if simt else "")
+          + f"forward vs plain: lse_abs_err={lse_err} (tol {lse_tol}) "
           f"o_rel_rms_err={o_err:.3e} rows_without_keys={empty * b * hq} "
           f"deterministic=True")
-    return ({**errs, "max_abs_err": abs_err, "lse_abs_err": lse_err},
-            (q, k, v, o, do, lse))
+    return ({**errs, "max_abs_err": abs_err, "lse_abs_err": lse_err,
+             "route": kind, "sdpa_rel_rms": lib, "simt_rel_rms": simt_errs,
+             "simt_max_abs_err": simt_abs}, (q, k, v, o, do, lse))
 
 
 def sdpa_backward_call(q4, k4, v4, do4):
@@ -3764,13 +3818,21 @@ def sdpa_backward_call(q4, k4, v4, do4):
 
 def flash_bwd_kernel_phase(dev) -> dict:
     """The backward kernel against its plain version, and the forward's lse
-    against the plain forward's (``flash_bwd_check``): in f32 at a small
-    shape for every head dim and for causal, windowed and not causal
-    calls, GQA 1 and 4, an Sk tail tile and rows without keys; in bf16 at
-    the Llama-3.2-1B training shape, where it is timed by CUDA-graph
-    replay and back to back in turns with SDPA's autograd backward, beside
-    the plain version and the bound; and the forward with and without its
-    lse output, in turns by graph replay.  Returns the backward's JSON
+    against the plain forward's (``flash_bwd_check``), each case on the
+    route the wrapper takes: in f32 (``simt``) at a small shape for every
+    head dim and for causal, windowed and not causal calls, GQA 1 and 4,
+    an Sk tail tile and rows without keys; in bf16 (``wgmma`` at head dims
+    64 and 128) not causal, windowed, causal GQA 4 at D = 128 with an Sk
+    tail, rows without keys, and at the Llama-3.2-1B training shape, where
+    SDPA's backward's error is printed beside the kernel's; in bf16 on
+    ``simt`` causal GQA 4 at D = 96 with an Sk tail, and the ``simt``
+    kernels at the training shape, held like the route taken there. The
+    kernel is timed at the training shape by CUDA-graph replay in turns
+    with the ``simt`` kernels on the same inputs, and back to back in
+    turns with both and
+    SDPA's autograd backward, beside the plain version, the bound and the
+    two-pass design's floor; and the forward with and without its lse
+    output, in turns by graph replay.  Returns the backward's JSON
     record."""
     import torch
     from repro_torch.kernels.flash_attention import backward as bmod
@@ -3790,14 +3852,25 @@ def flash_bwd_kernel_phase(dev) -> dict:
         ("bf16 not causal d=128", 1, 8, 2, 200, 333, 128, bf16, False,
          None),
         ("bf16 window 64", 1, 8, 2, 300, 300, 64, bf16, True, 64),
+        ("bf16 causal GQA 4 d=128, Sk tail", 1, 8, 2, 200, 333, 128, bf16,
+         True, None),
+        ("bf16 rows without keys", 1, 4, 2, 150, 50, 64, bf16, True, None),
+        ("bf16 causal GQA 4 d=96, Sk tail", 1, 8, 2, 200, 333, 96, bf16,
+         True, None),
     ]
     errs = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
     abs_errs, lse_errs = dict(errs), dict(errs)
+    routes: dict = {}
 
     def note(dt, e):
-        errs[dt] = max(errs[dt], e["dq"], e["dk"], e["dv"])
-        abs_errs[dt] = max(abs_errs[dt], e["max_abs_err"])
+        errs[dt] = max(errs[dt], e["dq"], e["dk"], e["dv"],
+                       *e["simt_rel_rms"].values())
+        abs_errs[dt] = max(abs_errs[dt], e["max_abs_err"],
+                           e["simt_max_abs_err"])
         lse_errs[dt] = max(lse_errs[dt], e["lse_abs_err"])
+        routes[e["route"]] = routes.get(e["route"], 0) + 1
+        if e["simt_rel_rms"]:
+            routes["simt"] = routes.get("simt", 0) + 1
 
     for case in cases:
         e, inputs = flash_bwd_check(dev, g, *case)
@@ -3807,21 +3880,28 @@ def flash_bwd_kernel_phase(dev) -> dict:
     b, hq, hkv, sq, sk, d = cfg_shape
     e, (q, k, v, o, do, lse) = flash_bwd_check(
         dev, g, "llama3.2-1b training", b, hq, hkv, sq, sk, d, bf16, True,
-        None)
+        None, sdpa=True, simt=True)
     note("torch.bfloat16", e)
+    if routes != {"wgmma": 5, "simt": 11} or e["route"] != "wgmma":
+        raise AssertionError(f"flash backward checks by route {routes}")
     t0 = time.perf_counter()
     group = hq // hkv
     kernel = (lambda: bmod.flash_attention_bwd_kernel(
         q, k, v, o, do, lse, group=group, causal=True))
+    simt = (lambda: bmod.simt_launch(q, k, v, o, do, lse, group=group,
+                                     causal=True))
     q4, k4, v4, do4 = (t.reshape(b, -1, t.shape[1], d)
                        for t in (q, k, v, do))
     sdpa_bwd = sdpa_backward_call(q4, k4, v4, do4)
-    ms = graph_ms(kernel, reps=5, replays=3)
-    (b2b, lib), turns = in_turns(lambda fn: cuda_ms(fn, reps=5),
-                                 (kernel, sdpa_bwd))
+    (ms, simt_ms), graph_turns = in_turns(
+        lambda fn: graph_ms(fn, reps=10, replays=3), (kernel, simt))
+    (b2b, simt_b2b, lib), turns = in_turns(
+        lambda fn: cuda_ms(fn, reps=10), (kernel, simt, sdpa_bwd))
     plain = cuda_ms(lambda: flash_attention_bwd_plain(
         q, k, v, o, do, lse, group), reps=3, warmup=1)
     bnd, by = flash_bwd_bound(b, hq, hkv, sq, sk, d, True, None, 2)
+    floor, _ = flash_bwd_bound(b, hq, hkv, sq, sk, d, True, None, 2,
+                               per_pair=14)
     # the forward, with and without its lse output, by graph replay
     (fwd_ms, fwd_lse_ms), fwd_turns = in_turns(
         lambda fn: graph_ms(fn, reps=50),
@@ -3830,26 +3910,37 @@ def flash_bwd_kernel_phase(dev) -> dict:
                                              return_lse=True)))
     phase("flash backward timing llama3.2-1b training", t0,
           f"q=({b * hq}, {sq}, {d}) kv=({b * hkv}, {sk}, {d}) bf16 causal "
-          f"graph: kernel_ms={ms:.5f}; back to back: kernel_ms={b2b:.5f} "
+          f"graph, in turns: wgmma_ms={ms:.5f} simt_ms={simt_ms:.5f} "
+          f"in_turns={['%.5f' % t for t in graph_turns]}; back to back, in "
+          f"turns: wgmma_ms={b2b:.5f} simt_ms={simt_b2b:.5f} "
           f"sdpa_backward_ms={lib:.5f} in_turns="
-          f"{['%.5f' % t for t in turns]}; plain_ms={plain:.4f} "
-          f"bound_ms={bnd:.5f} ({by}) share_of_bound={bnd / ms:.4f} "
-          f"pairs={b * hq * flash_pairs(sq, sk, True, None)}; forward by "
-          f"graph: without lse {fwd_ms:.5f} ms, with lse {fwd_lse_ms:.5f} "
-          f"ms, in_turns={['%.5f' % t for t in fwd_turns]}")
+          f"{['%.5f' % t for t in turns]}; wgmma/sdpa={b2b / lib:.4f}; "
+          f"plain_ms={plain:.4f} bound_ms={bnd:.5f} ({by}, 10·D a pair) "
+          f"share_of_bound={bnd / ms:.4f} design_floor_ms={floor:.5f} "
+          f"(14·D a pair) pairs={b * hq * flash_pairs(sq, sk, True, None)}; "
+          f"rel_rms_err wgmma="
+          f"{json.dumps({w: e[w] for w in ('dq', 'dk', 'dv')})} "
+          f"simt={json.dumps(e['simt_rel_rms'])} "
+          f"sdpa={json.dumps(e['sdpa_rel_rms'])}; forward by graph: "
+          f"without lse {fwd_ms:.5f} ms, with lse {fwd_lse_ms:.5f} ms, "
+          f"in_turns={['%.5f' % t for t in fwd_turns]}")
     del q, k, v, o, do, lse, q4, k4, v4, do4, sdpa_bwd
     return {"name": "flash_attention_bwd", "route": "cuda",
             "source": FLASH_BWD_SOURCE, "replaces": FLASH_BWD_REPLACES,
             "launches": None, "max_abs_err": max(abs_errs.values()),
             "max_abs_err_by_dtype": abs_errs,
             "max_rel_rms_err": max(errs.values()),
-            "max_rel_rms_err_by_dtype": errs,
+            "max_rel_rms_err_by_dtype": errs, "checks_by_route": routes,
             "forward_lse_abs_err_by_dtype": lse_errs, "ms": ms,
-            "timed": "CUDA graph replay", "back_to_back_ms": b2b,
+            "timed": "CUDA graph replay, the wgmma route (the training "
+            "shape's)", "ms_by_route": {"wgmma": ms, "simt": simt_ms},
+            "back_to_back_ms": b2b,
+            "back_to_back_ms_by_route": {"wgmma": b2b, "simt": simt_b2b},
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib, "library": "autograd of "
-            "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
-            "library_timed": "back to back",
+            "library_ms": lib, "library": "autograd "
+            "of scaled_dot_product_attention(is_causal=True, "
+            "enable_gqa=True)", "library_timed": "back to back",
+            "library_rel_rms_err": e["sdpa_rel_rms"],
             "shape": {"q": [b, hq, sq, d], "kv": [b, hkv, sk, d],
                       "causal": True, "dtype": "bfloat16"},
             "forward_ms": {"without_lse": fwd_ms, "with_lse": fwd_lse_ms,
@@ -3890,7 +3981,8 @@ def timed_steps(step_fn, log: list):
     from repro_torch.kernels.flash_attention import kernel as fmod
 
     def step(state, batch):
-        fwd0, bwd0 = dict(fmod.LAUNCHES_BY_ROUTE), bmod.LAUNCHES
+        fwd0 = dict(fmod.LAUNCHES_BY_ROUTE)
+        bwd0 = dict(bmod.LAUNCHES_BY_ROUTE)
         mem0 = torch.cuda.memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3908,7 +4000,9 @@ def timed_steps(step_fn, log: list):
                     "flash_forward_by_route": {
                         r: fmod.LAUNCHES_BY_ROUTE[r] - fwd0[r]
                         for r in fwd0},
-                    "flash_backward": bmod.LAUNCHES - bwd0})
+                    "flash_backward_by_route": {
+                        r: bmod.LAUNCHES_BY_ROUTE[r] - bwd0[r]
+                        for r in bwd0}})
         return state, metrics
 
     return step
@@ -3942,7 +4036,7 @@ def train_run(tmp: str, seed: int) -> tuple:
     fwd_per_step = L * (2 if cfg.remat else 1)
     shape = flash_shape(BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT,
                         PROMPT, True, None)
-    bwd_shape = ("simt",) + shape[1:]
+    bwd_shape = shape  # the forward's route: wgmma
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     reset_launches()
@@ -3977,15 +4071,16 @@ def train_run(tmp: str, seed: int) -> tuple:
     for r in log:
         if r["flash_forward_by_route"] != {"wgmma": fwd_per_step,
                                            "simt": 0} or \
-                r["flash_backward"] != L:
+                r["flash_backward_by_route"] != {"wgmma": L, "simt": 0}:
             raise AssertionError(f"step {r['step']}: flash launches "
                                  f"{r['flash_forward_by_route']}, backward "
-                                 f"{r['flash_backward']}")
+                                 f"{r['flash_backward_by_route']}")
     for r in log:
         print(f"[train] step {r['step']} loss={r['loss']:.6f} grad_norm="
               f"{r['grad_norm']:.6f} step_ms={r['ms']:.3f} flash forward "
               f"by route {json.dumps(r['flash_forward_by_route'])} "
-              f"backward {r['flash_backward']} alloc_retries="
+              f"backward by route "
+              f"{json.dumps(r['flash_backward_by_route'])} alloc_retries="
               f"{r['alloc_retries']} cuda_mallocs={r['cuda_mallocs']}",
               flush=True)
     phase("train (main path)", t0,

@@ -3,9 +3,10 @@
 Each kernel is a CUDA C++ source under ``repro_torch/csrc/`` with a plain
 C interface.  :class:`KernelLibrary` compiles it at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library under
-``build/repro_torch/`` at the repository root, keyed by a digest of source
-and flags, loads it with ``ctypes`` and declares its entry points.  No
-PyTorch header is compiled, so a build takes seconds, not minutes.
+``build/repro_torch/`` at the repository root, keyed by a digest of the
+source, the ``csrc/`` headers it includes and the flags, loads it with
+``ctypes`` and declares its entry points.  No PyTorch header is compiled,
+so a build takes seconds, not minutes.
 
 Nothing here runs at import: a machine without a GPU has no ``nvcc``,
 and only a CUDA tensor ever asks for a library.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -25,6 +27,7 @@ from typing import Dict, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -57,11 +60,29 @@ class KernelLibrary:
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
 
+    def headers(self) -> list:
+        """The ``csrc/`` headers the source includes by quoted name
+        (``#include "x.cuh"``), and theirs, in order of first inclusion."""
+        found: list = []
+        todo = [self.source]
+        while todo:
+            text = todo.pop(0).read_text()
+            for name in _LOCAL_INCLUDE.findall(text):
+                header = CSRC / name
+                if header not in found:
+                    found.append(header)
+                    todo.append(header)
+        return found
+
     def path(self) -> Path:
-        digest = hashlib.sha1(self.source.read_bytes()
-                              + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}_{digest}.so"
+        """The build's path, keyed by the bytes of the source, of every
+        header it includes from ``csrc/`` and of the flags, so that a
+        changed shared header rebuilds each library that includes it."""
+        sha = hashlib.sha1(self.source.read_bytes())
+        for header in self.headers():
+            sha.update(header.read_bytes())
+        sha.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.name}_{sha.hexdigest()[:16]}.so"
 
     def build(self, verbose: bool = False) -> Path:
         """Compile the library if this source has no cached build; returns

@@ -9,14 +9,20 @@ log-sum-exp ``lse`` (the forward kernel's second output), they compute
 ``dq``, ``dk`` and ``dv`` on the flattened layout, GQA's ``dk``/``dv``
 summed over the group's query heads, with no float atomics: a delta
 pre-pass, one kernel over key tiles and one over query tiles, both
-recomputing P from ``lse`` on the CUDA cores in float32.
+recomputing P from ``lse``.
 
-:func:`flash_attention_bwd_kernel` takes the plain version
+:func:`flash_attention_bwd_kernel` takes its route as the forward does
+(:func:`~repro_torch.kernels.flash_attention.kernel.route`): the plain
+version
 (:func:`~repro_torch.kernels.flash_attention.ref.flash_attention_bwd_plain`)
-for a CPU tensor and launches the kernels for a CUDA one, or raises.
-``LAUNCHES`` counts calls that launched (one a backward, the three
-kernels together), ``LAUNCHES_BY_ROUTE`` splits them by route (one route,
-``"simt"``) and ``LAUNCHES_BY_SHAPE`` by shape.
+for a CPU tensor; bf16 at head dim 64 or 128 on CUDA the tensor-core
+kernels (``"wgmma"``: TMA-staged tiles, all five products by ``wgmma``);
+every other CUDA call the CUDA-core kernels (``"simt"``, float32).  A CUDA
+tensor launches its route or raises — no route falls back to another.
+``LAUNCHES`` counts calls that launched, :func:`simt_launch`'s too (one a
+backward, its kernels together), ``LAUNCHES_BY_ROUTE`` splits them by
+route and
+``LAUNCHES_BY_SHAPE`` by shape.
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.build import KernelLibrary, check_launch
-from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, _check,
+                                                        route)
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
 
 _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
@@ -34,15 +41,20 @@ _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 LIBRARY = KernelLibrary("flash_attention_bwd", "flash_attention_bwd.cu",
                         {"flash_attention_bwd_f32": _ARGS,
-                         "flash_attention_bwd_bf16": _ARGS})
+                         "flash_attention_bwd_bf16": _ARGS,
+                         "flash_attention_bwd_bf16_wgmma": _ARGS})
 _ENTRY = {torch.float32: "flash_attention_bwd_f32",
           torch.bfloat16: "flash_attention_bwd_bf16"}
+_WGMMA_ENTRY = "flash_attention_bwd_bf16_wgmma"
+#: The wgmma route's scratch rows (lse and delta a query head) are padded
+#: to a multiple of this (``PAD`` in the source).
+WGMMA_PAD = 128
 _INT_MAX = 2 ** 31 - 1
 
 #: Backward calls that launched since the last reset, in all, by route
 #: and by shape: (route, BH, group, Sq, Sk, D, causal, window) -> calls.
 LAUNCHES = 0
-LAUNCHES_BY_ROUTE = {"simt": 0}
+LAUNCHES_BY_ROUTE = {"wgmma": 0, "simt": 0}
 LAUNCHES_BY_SHAPE: dict = {}
 
 
@@ -52,11 +64,6 @@ def reset_launches() -> None:
     for name in LAUNCHES_BY_ROUTE:
         LAUNCHES_BY_ROUTE[name] = 0
     LAUNCHES_BY_SHAPE.clear()
-
-
-def route(device) -> str:
-    """``"plain"`` for a CPU tensor, ``"simt"`` on CUDA."""
-    return "plain" if torch.device(device).type == "cpu" else "simt"
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -69,7 +76,6 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                           torch.Tensor]:
     """q, o, do: [BH, Sq, D]; k, v: [BH // group, Sk, D]; lse: float32 [BH,
     Sq] from the forward -> (dq, dk, dv) in the inputs' dtype."""
-    global LAUNCHES
     _check(q, k, v, group)
     if o.shape != q.shape or do.shape != q.shape \
             or tuple(lse.shape) != tuple(q.shape[:2]):
@@ -77,10 +83,38 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(q.shape)} and lse [BH, Sq], got "
                          f"{tuple(o.shape)}, {tuple(do.shape)} and "
                          f"{tuple(lse.shape)}")
-    if route(q.device) == "plain":
+    if route(q.dtype, q.shape[2], q.device) == "plain":
         return flash_attention_bwd_plain(q, k, v, o, do, lse, group,
                                          causal=causal, window=window,
                                          sm_scale=sm_scale)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
+            dv, None)
+    return dq, dk, dv
+
+
+def simt_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
+                group: int, causal: bool = True,
+                window: Optional[int] = None,
+                sm_scale: Optional[float] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The CUDA-core route's kernels on CUDA tensors whatever their dtype
+    and head dim, to check and time them beside the route the wrapper
+    takes; counted under ``"simt"`` as the wrapper counts its launches."""
+    _check(q, k, v, group)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
+            dv, "simt")
+    return dq, dk, dv
+
+
+def _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
+            dv, kind: Optional[str]) -> None:
+    """Check a CUDA call, launch its route (``kind``, or the one
+    :func:`route` picks) into dq, dk, dv and count the launch (none where
+    BH is 0: nothing to launch)."""
+    global LAUNCHES
     if q.device.type != "cuda":
         raise ValueError(f"flash attention backward runs on cpu or cuda, "
                          f"got {q.device}")
@@ -101,25 +135,30 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, k, v, o, do, lse)):
         raise ValueError("flash attention backward takes contiguous "
                          "tensors")
+    kind = kind or route(q.dtype, d, q.device)
+    if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
+        raise ValueError("flash attention backward wgmma route: tensor maps "
+                         "take 16-byte aligned q, k, v, do")
     scale = sm_scale if sm_scale is not None else 1.0 / (d ** 0.5)
-    dq = torch.empty_like(q)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
     if bh == 0:
-        return dq, dk, dv
-    delta = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+        return
+    # wgmma: lse log2e and delta, each [BH, Sq padded]; simt: delta
+    scratch = (torch.empty((2, bh, -(-sq // WGMMA_PAD) * WGMMA_PAD),
+                           dtype=torch.float32, device=q.device)
+               if kind == "wgmma" else
+               torch.empty((bh, sq), dtype=torch.float32, device=q.device))
     win = min(int(window or 0), sq + sk + 1)
     lib = LIBRARY.load()
+    entry = _WGMMA_ENTRY if kind == "wgmma" else _ENTRY[q.dtype]
     with torch.cuda.device(q.device):
-        err = getattr(lib, _ENTRY[q.dtype])(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d, group, float(scale),
-            int(causal), int(window is not None), win,
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, sq, sk, d,
+            group, float(scale), int(causal), int(window is not None), win,
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch("flash_attention_bwd", err)
     LAUNCHES += 1
-    LAUNCHES_BY_ROUTE["simt"] += 1
-    shape = ("simt", bh, group, sq, sk, d, bool(causal), window)
+    LAUNCHES_BY_ROUTE[kind] += 1
+    shape = (kind, bh, group, sq, sk, d, bool(causal), window)
     LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
-    return dq, dk, dv

@@ -170,10 +170,22 @@ def test_backward_wrapper_cpu_takes_plain_and_moves_no_counter():
     got = bmod.flash_attention_bwd_kernel(q, k, v, o, do, lse, group=2)
     want = flash_attention_bwd_plain(q, k, v, o, do, lse, 2)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert bmod.LAUNCHES == 0 and bmod.LAUNCHES_BY_ROUTE == {"simt": 0}
+    assert bmod.LAUNCHES == 0
+    assert bmod.LAUNCHES_BY_ROUTE == {"wgmma": 0, "simt": 0}
     assert bmod.LAUNCHES_BY_SHAPE == {}
-    assert bmod.route("cpu") == "plain"
-    assert bmod.route(torch.device("cuda")) == "simt"
+    # the forward's rule: bf16 at head dim 64 or 128 takes the tensor cores
+    for dt in (torch.float32, torch.bfloat16):
+        assert bmod.route(dt, 64, "cpu") == "plain"
+    cuda = torch.device("cuda")
+    assert bmod.route(torch.bfloat16, 64, cuda) == "wgmma"
+    assert bmod.route(torch.bfloat16, 128, cuda) == "wgmma"
+    for dt, d in ((torch.float32, 64), (torch.float32, 128),
+                  (torch.bfloat16, 16), (torch.bfloat16, 32),
+                  (torch.bfloat16, 96)):
+        assert bmod.route(dt, d, cuda) == "simt"
+    assert all(bmod.route(dt, d, cuda) == fmod.route(dt, d, cuda)
+               for dt in (torch.float32, torch.bfloat16)
+               for d in fmod.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("bad", ["o", "do", "lse"])

@@ -920,6 +920,8 @@ FLASH_BWD_CASES = {
     "window 17": (1, 4, 2, 150, 150, 32, True, 17),
     "not causal Sk tail": (2, 2, 2, 70, 133, 16, False, None),
     "rows without keys": (1, 4, 2, 150, 50, 96, True, None),
+    "causal gqa 4 d=128 Sk tail": (1, 8, 2, 200, 333, 128, True, None),
+    "rows without keys d=64": (1, 4, 2, 150, 50, 64, True, None),
 }
 
 
@@ -929,15 +931,21 @@ FLASH_BWD_CASES = {
 def test_flash_backward_kernel_matches_plain_version(cuda, name, dtype):
     """The backward kernel against the plain backward taken in f32 on the
     same inputs, by relative RMS error (chip_smoke's limits); two
-    launches give the same bytes; a row without keys gets a zero dq."""
+    launches give the same bytes; a row without keys gets a zero dq; each
+    case on its route: ``wgmma`` for bf16 at head dim 64 or 128, ``simt``
+    otherwise."""
     from repro_torch.kernels.flash_attention import backward as bmod
     b, hq, hkv, sq, sk, d, causal, window = FLASH_BWD_CASES[name]
     g = torch.Generator(device=cuda).manual_seed(7)
+    before = dict(bmod.LAUNCHES_BY_ROUTE)
     errs, (q, *_) = cs.flash_bwd_check(cuda, g, name, b, hq, hkv, sq, sk,
                                        d, dtype, causal, window)
     assert max(errs[w] for w in ("dq", "dk", "dv")) <= \
         cs.FLASH_BWD_REL_TOL[str(dtype)]
-    assert bmod.route(cuda) == "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert errs["route"] == want == bmod.route(dtype, d, cuda)
+    assert {r: n - before[r] for r, n in bmod.LAUNCHES_BY_ROUTE.items()} \
+        == {r: 2 * (r == want) for r in before}
 
 
 def test_flash_attention_returns_grad_fn_and_kernel_gradients(cuda):
@@ -991,8 +999,8 @@ def test_rmsnorm_and_ssm_kernels_raise_where_grads_are_taken(cuda):
 
 def test_llama_train_step_launches_flash_and_its_backward(cuda):
     """One step of the 2-layer Llama smoke widths on the card at head dim
-    64 in bf16: with remat, two forward launches (wgmma) and one backward
-    launch a layer; every leaf gets a gradient."""
+    64 in bf16: with remat, two forward launches and one backward launch
+    a layer, all on the wgmma route; every leaf gets a gradient."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import backward as bmod
     from repro_torch.launch import train
@@ -1017,5 +1025,6 @@ def test_llama_train_step_launches_flash_and_its_backward(cuda):
     assert fmod.LAUNCHES_BY_ROUTE == {"wgmma": 2 * cfg.num_layers,
                                       "simt": 0}
     assert bmod.LAUNCHES == cfg.num_layers
+    assert bmod.LAUNCHES_BY_ROUTE == {"wgmma": cfg.num_layers, "simt": 0}
     assert all(seen[0].values()) and len(seen[0]) == len(
         list(state.params.parameters()))
