@@ -4,9 +4,10 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the slices of ``repro_torch`` through their public entry
-points.  First it builds the seven CUDA kernel libraries from
-``src/repro_torch/csrc`` (the six forward kernels and flash attention's
-backward; one ``nvcc`` each, started together).
+points.  First it builds the eight CUDA kernel libraries from
+``src/repro_torch/csrc`` (the six forward kernels and the backwards of
+flash attention and the selective scan; one ``nvcc`` each, started
+together).
 
 Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
 chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
@@ -242,13 +243,37 @@ reference has none for it); the sLSTM's sequential prefill is 6 x 2048
 eager steps; the warm repeat and teacher-forced decode against the
 forward pass.
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 8.  Every phase
-prints its wall time; the first failure exits non-zero.  A
+Slice 9, training at the full width and depth of hymba-1.5b (the
+hybrid family, bf16 params, AdamW, remat on, batch 4 x 2048), through the
+selective scan's backward kernel:
+
+21. hold the backward kernel against its plain version taken in f32 on
+    the same inputs, by relative RMS error of each gradient, at the
+    training shape in bf16 and f32 and at the edges (T = 1, 7, L-1, L,
+    L+1, 300, 2048+17; d = 1001; n of 2 to 8; dt past softplus's
+    threshold; a_log large enough that a underflows to 0; carried h0 and
+    dh), two launches giving the same bytes; time it there by CUDA-graph
+    replay beside the plain version, its bound and its design's MUFU
+    floor; hold the flash backward at hymba's two training shapes (GQA 5,
+    window 1024 and global) and time it there by graph replay;
+22. ``launch/train.py``'s setup and trainer (the main path): 3 steps on
+    one repeated batch, no checkpoint: losses finite and falling, per
+    step 64 SSM-scan launches on the chunked route (the forward and
+    remat's recompute), 32 SSM backward launches, 64 flash and 32 flash
+    backward launches, all wgmma, at hymba's two shapes; step ms and
+    peak allocated bytes;
+23. at full width and 2 layers (one global, one windowed) in f32, one
+    batch's gradients through the kernels against the reference's
+    chunked scan and ``attn_impl="ref"``, leaf by leaf.
+
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8.
+Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route or a top-k launch off the select
 route on theirs.  The last lines are a JSON object describing the
-kernels (flash attention's backward among them; every kernel's
+kernels (the backwards of flash attention and the selective scan
+among them; every kernel's
 ``launches_by_path`` but RMSNorm's split by route; flash's
 ``served_shapes``, each with its launches by path as
 counted by shape in this run; the segment sum's times of the real merge,
@@ -303,11 +328,12 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.moe_dispatch import kernel as dmod
     from repro_torch.kernels.rmsnorm import kernel as rmod
     from repro_torch.kernels.segment_reduce import kernel as kmod
+    from repro_torch.kernels.ssm_scan import backward as sbmod
     from repro_torch.kernels.ssm_scan import kernel as smod
     from repro_torch.kernels.topk_reduce import kernel as tmod
     return {"segment_sum": kmod, "flash_attention": fmod, "rmsnorm": rmod,
             "moe_dispatch": dmod, "topk_reduce": tmod, "ssm_scan": smod,
-            "flash_attention_bwd": bmod}
+            "flash_attention_bwd": bmod, "ssm_scan_bwd": sbmod}
 
 
 def reset_launches() -> None:
@@ -317,15 +343,16 @@ def reset_launches() -> None:
 
 #: Each main path's launch counts, read just after it ran with every
 #: counter set to 0 just before it; flash's (forward and backward), the
-#: SSM scan's, the segment sum's, the dispatch's and the top-k's also by
-#: route, flash's forward and backward also by shape (see
-#: :func:`flash_shape`).
+#: SSM scan's (forward and backward), the segment sum's, the dispatch's
+#: and the top-k's also by route, flash's forward and backward also by
+#: shape (see :func:`flash_shape`).
 PATH_LAUNCHES: dict = {}
 FLASH_ROUTES: dict = {}
 FLASH_SHAPES: dict = {}
 FLASH_BWD_ROUTES: dict = {}
 FLASH_BWD_SHAPES: dict = {}
 SSM_ROUTES: dict = {}
+SSM_BWD_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
 TOPK_ROUTES: dict = {}
@@ -351,6 +378,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
+    ssm_bwd = dict(mods["ssm_scan_bwd"].LAUNCHES_BY_ROUTE)
     seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
     disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
     topk = dict(mods["topk_reduce"].LAUNCHES_BY_ROUTE)
@@ -363,6 +391,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     FLASH_ROUTES[path] = routes
     FLASH_SHAPES[path] = shapes
     SSM_ROUTES[path] = ssm
+    SSM_BWD_ROUTES[path] = ssm_bwd
     SEGMENT_ROUTES[path] = seg
     DISPATCH_ROUTES[path] = disp
     TOPK_ROUTES[path] = topk
@@ -3195,12 +3224,15 @@ def ssm_mufu_floor_ms(b: int, t: int, d: int, n: int, chunk: int) -> tuple:
 
 
 def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool,
-               h0_scale: float = 0.3, dt_shift: float = 0.0):
+               h0_scale: float = 0.3, dt_shift: float = 0.0,
+               a_shift: float = 0.0):
     """Inputs shaped like the model's: xc a SiLU output, x_proj at the
     init's 1/sqrt(d) scale, dt_bias and a_log near the init's, h0 zero
     (a prefill) or carried (a decode step, ``h0_scale`` x a normal).
     ``dt_shift`` moves dt_bias: a shift of -6 makes dt ~2.5e-3, so that
-    the state decays over thousands of steps, not a few."""
+    the state decays over thousands of steps, not a few.  ``a_shift``
+    moves a_log: +6 with dt ~3 makes A dt ~1e3, and a = exp(-A dt)
+    underflows to 0."""
     import torch
 
     def rn(*shape):
@@ -3211,7 +3243,7 @@ def ssm_inputs(dev, g, b, t, d, n, dtype, carried: bool,
     dt_bias = 0.5 * rn(d) + dt_shift
     a_log = torch.log(torch.arange(1, n + 1, device=dev,
                                    dtype=torch.float32)).repeat(d, 1) \
-        + 0.1 * rn(d, n)
+        + 0.1 * rn(d, n) + a_shift
     h0 = h0_scale * rn(b, d, n) if carried else torch.zeros((b, d, n),
                                                             device=dev)
     return xc, x_proj, dt_bias, a_log, h0
@@ -3973,16 +4005,20 @@ def grads_checked(opt, seen: list):
 
 def timed_steps(step_fn, log: list):
     """``step_fn`` that records each step's host wall (after a
-    synchronize), loss and grad norm, its flash launches by route, and
-    the caching allocator's retries (a failed cudaMalloc that frees the
-    cache and tries again) and cudaMallocs in it."""
+    synchronize), loss and grad norm, its flash and SSM-scan launches by
+    route, and the caching allocator's retries (a failed cudaMalloc that
+    frees the cache and tries again) and cudaMallocs in it."""
     import torch
     from repro_torch.kernels.flash_attention import backward as bmod
     from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.kernels.ssm_scan import kernel as smod
 
     def step(state, batch):
         fwd0 = dict(fmod.LAUNCHES_BY_ROUTE)
         bwd0 = dict(bmod.LAUNCHES_BY_ROUTE)
+        ssm0 = dict(smod.LAUNCHES_BY_ROUTE)
+        ssm_bwd0 = sbmod.LAUNCHES
         mem0 = torch.cuda.memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4002,7 +4038,11 @@ def timed_steps(step_fn, log: list):
                         for r in fwd0},
                     "flash_backward_by_route": {
                         r: bmod.LAUNCHES_BY_ROUTE[r] - bwd0[r]
-                        for r in bwd0}})
+                        for r in bwd0},
+                    "ssm_forward_by_route": {
+                        r: smod.LAUNCHES_BY_ROUTE[r] - ssm0[r]
+                        for r in ssm0},
+                    "ssm_backward": sbmod.LAUNCHES - ssm_bwd0})
         return state, metrics
 
     return step
@@ -4241,6 +4281,607 @@ def train_slice(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# slice 9: hymba-1.5b training at full width and depth, through the
+# selective scan's backward kernel
+# ---------------------------------------------------------------------------
+
+SSM_BWD_SOURCE = "src/repro_torch/csrc/ssm_scan_bwd.cu"
+SSM_BWD_REPLACES = ("src/repro/kernels/ssm_scan/kernel.py:72 (its "
+                    "gradient: the port's own kernel, as no pl.pallas_call "
+                    "in the reference computes one and jax.grad through "
+                    "this one raises; the reference trains through XLA's "
+                    "autodiff of the chunked lax.scan in "
+                    "src/repro/models/ssm.py:ssm_scan)")
+#: Relative RMS error of each gradient against the plain backward taken in
+#: f32 on the same inputs: f32 kernels differ from it in summation order
+#: and in the MUFU's exp2 (2^-22 relative a step of the recurrence); bf16
+#: xc gives dxc and dx_proj in bf16 (2^-9 relative rounding, ~1.1e-3 RMS),
+#: the other gradients stay f32.
+SSM_BWD_REL_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 5e-3}
+HYMBA_TRAIN_STEPS = 3
+SSM_GRADS = ("dxc", "dx_proj", "ddt_bias", "da_log", "dh0")
+
+
+def ssm_bwd_bound(b: int, t: int, d: int, n: int, itemsize: int):
+    """Least time for the gradient on these inputs: xc, x_proj, dt_bias,
+    a_log, h0, dy, dh and the forward's saved projection rows and
+    chunk-entering states read once, dxc, dx_proj, ddt_bias, da_log and
+    dh0 written once, over HBM bandwidth; against the operations at the
+    CUDA cores' f32 peak: the forward's 7 a state-step re-run (see
+    :func:`ssm_bound`) and 15 a state-step back (lam, a, a h, the carry,
+    dA, sum lam B, sum q A, dB and dC), 15 a channel-step (softplus,
+    sigmoid, ddt, dz, dx) and 4 (2n + 1) a channel-step for dxc and
+    dx_proj."""
+    cols = 2 * n + 1
+    ends = -(-t // 128) - 1
+    rows = b * t
+    nbytes = (2 * itemsize * (rows * d + d * cols)
+              + 4 * 2 * (d + d * n + b * d * n)
+              + 4 * (rows * d + b * d * n)
+              + 4 * (rows * (2 * (4 if n <= 4 else 8 if n <= 8 else 16
+                                  if n <= 16 else 32) + 4)
+                     + b * ends * n * d))
+    ops = rows * d * (22 * n + 15 + 4 * cols)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOP_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssm_bwd_mufu_floor_ms(b: int, t: int, d: int, n: int,
+                          chunk: int) -> tuple:
+    """(the floor of a backward that walks the steps twice, forward and
+    back: n + 2 transcendentals a channel-step forward, n + 3 back; the
+    floor of this design, which also runs the chunk-local walk back over
+    every chunk but the first and an exp a state and chunk end), at
+    MUFU_PER_S."""
+    nc = -(-t // chunk)
+    two = b * d * t * (2 * n + 5)
+    design = two + b * d * (n + 2) * (t - min(t, chunk)) \
+        + b * d * n * (nc - 1)
+    return two / MUFU_PER_S * 1e3, design / MUFU_PER_S * 1e3
+
+
+def grad_errors(name: str, got, want, tol: float) -> tuple:
+    """Per-gradient relative RMS error (``||got - want|| / ||want||`` in
+    f32) and the largest absolute error; raises past ``tol``, on a dtype or
+    shape other than the plain version's, or on a value that is not
+    finite."""
+    import torch
+    errs, abs_err = {}, 0.0
+    for what, x, y in zip(SSM_GRADS, got, want):
+        if x.shape != y.shape or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"ssm backward {name} {what}: {x.dtype}"
+                                 f"{tuple(x.shape)} against {y.dtype}"
+                                 f"{tuple(y.shape)}, or not finite")
+        diff = x.float() - y.float()
+        errs[what] = float(diff.norm() / y.float().norm().clamp_min(1e-30))
+        abs_err = max(abs_err, float(diff.abs().max()))
+    if not max(errs.values()) <= tol:
+        raise AssertionError(f"ssm backward {name}: relative RMS errors "
+                             f"{errs} > {tol}")
+    return errs, abs_err
+
+
+def ssm_bwd_check(dev, g, name, b, t, d, n, dtype, carried: bool,
+                  **shifts) -> tuple:
+    """The forward on its chunked route saving its states, then two
+    backward launches (the same bytes, asserted on the launch counts),
+    held per gradient to the plain backward taken in f32 on the same
+    inputs.  ``carried`` gives h0 and dh random values (else zero, as in
+    training); ``shifts`` go to :func:`ssm_inputs`.  Returns (errors,
+    the kernels' inputs)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    t0 = time.perf_counter()
+    args = ssm_inputs(dev, g, b, t, d, n, dtype, carried, **shifts)
+    dy = torch.randn((b, t, d), device=dev, generator=g)
+    dh = torch.randn((b, d, n), device=dev, generator=g) if carried else \
+        torch.zeros((b, d, n), device=dev)
+    before = (smod.LAUNCHES_BY_ROUTE["chunked"], sbmod.LAUNCHES)
+    _, _, saved = smod.ssm_scan_kernel(*args, save=True)
+    got = sbmod.ssm_scan_bwd_kernel(*args, dy, dh, *saved)
+    again = sbmod.ssm_scan_bwd_kernel(*args, dy, dh, *saved)
+    torch.cuda.synchronize()
+    moved = (smod.LAUNCHES_BY_ROUTE["chunked"] - before[0],
+             sbmod.LAUNCHES - before[1])
+    if moved != (1, 2):
+        raise AssertionError(f"ssm backward {name}: chunked forward and "
+                             f"backward launches {moved}, expected (1, 2)")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"ssm backward {name}: two launches differ")
+    if tuple(x.dtype for x in got) != (dtype, dtype) + (torch.float32,) * 3:
+        raise AssertionError(f"ssm backward {name}: dtypes "
+                             f"{[x.dtype for x in got]}")
+    want = ssm_scan_bwd_ref(*(a.float() for a in args), dy, dh)
+    tol = SSM_BWD_REL_TOL[str(dtype)]
+    errs, abs_err = grad_errors(name, got, want, tol)
+    del want, again, got
+    phase(f"ssm backward check {name}", t0,
+          f"xc={(b, t, d)} {dtype} n={n} carried_h0_dh={carried} "
+          f"{json.dumps(shifts)} rel_rms_err={json.dumps(errs)} tol={tol} "
+          f"max_abs_err={abs_err} deterministic=True")
+    return {**errs, "max_abs_err": abs_err}, (*args, dy, dh, *saved)
+
+
+def ssm_bwd_kernel_phase(dev, d: int, n: int) -> dict:
+    """The SSM backward kernel against its plain version at hymba's
+    training shape (bf16 and f32, h0 and dh zero as in training) and at
+    the edges, each launched twice to the same bytes; timed at the
+    training shape by CUDA-graph replay beside the plain version, the
+    bound and the MUFU floors.  Returns the kernel's JSON record."""
+    import torch
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    L = smod.CHUNK
+    g = torch.Generator(device=dev).manual_seed(61)
+    cases = [
+        # name, b, t, d, n, xc dtype, carried h0 and dh, shifts
+        ("training f32", BATCH, PROMPT, d, n, f32, False, {}),
+        ("carried h0 and dh, f32", 2, 300, d, n, f32, True, {}),
+        ("T=1", 2, 1, d, n, bf16, True, {}),
+        ("T=7", 2, 7, 80, n, f32, True, {}),
+        (f"T=L-1={L - 1}", 2, L - 1, d, n, bf16, True, {}),
+        (f"T=L={L}", 2, L, d, n, f32, True, {}),
+        (f"T=L+1={L + 1}", 2, L + 1, d, n, bf16, True, {}),
+        (f"T={PROMPT}+17", BATCH, PROMPT + 17, d, n, bf16, True, {}),
+        ("d=1001 (not a multiple of the block)", 3, 300, 1001, n, bf16,
+         True, {}),
+        ("n=2", 2, 300, 37, 2, f32, True, {}),
+        ("n=5 (not a power of two)", 1, 140, 9, 5, f32, True, {}),
+        ("n=8", 2, 300, 80, 8, bf16, True, {}),
+        ("dt past softplus's threshold", 2, 300, 80, n, f32, True,
+         {"dt_shift": 25.0}),
+        ("a underflows to 0", 2, 300, 80, n, f32, True,
+         {"dt_shift": 3.0, "a_shift": 6.0}),
+    ]
+    errs = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
+    abs_errs = dict(errs)
+    for name, b, t, dd, nn, dt, carried, shifts in cases:
+        e, inputs = ssm_bwd_check(dev, g, name, b, t, dd, nn, dt, carried,
+                                  **shifts)
+        errs[str(dt)] = max(errs[str(dt)], *(e[k] for k in SSM_GRADS))
+        abs_errs[str(dt)] = max(abs_errs[str(dt)], e["max_abs_err"])
+        del inputs
+    e, inputs = ssm_bwd_check(dev, g, "training bf16", BATCH, PROMPT, d, n,
+                              bf16, False)
+    errs["torch.bfloat16"] = max(errs["torch.bfloat16"],
+                                 *(e[k] for k in SSM_GRADS))
+    abs_errs["torch.bfloat16"] = max(abs_errs["torch.bfloat16"],
+                                     e["max_abs_err"])
+    t0 = time.perf_counter()
+    ms = graph_ms(lambda: sbmod.ssm_scan_bwd_kernel(*inputs), reps=10,
+                  replays=3)
+    b2b = cuda_ms(lambda: sbmod.ssm_scan_bwd_kernel(*inputs), reps=10)
+    fwd_ms = graph_ms(lambda: smod.ssm_scan_kernel(*inputs[:5], save=True),
+                      reps=10, replays=3)
+    plain = cuda_ms(lambda: ssm_scan_bwd_ref(*inputs[:7]), reps=2,
+                    warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sbmod.ssm_scan_bwd_kernel(*inputs)
+    torch.cuda.synchronize()
+    call_bytes = torch.cuda.max_memory_allocated() - base
+    bnd, by = ssm_bwd_bound(BATCH, PROMPT, d, n, 2)
+    two_walks, floor = ssm_bwd_mufu_floor_ms(BATCH, PROMPT, d, n, L)
+    states_ms = 2 * 4 * BATCH * PROMPT * d * n / HBM_BYTES_PER_S * 1e3
+    phase("ssm backward timing training bf16", t0,
+          f"xc=({BATCH}, {PROMPT}, {d}) n={n} graph_ms={ms:.5f} "
+          f"back_to_back_ms={b2b:.5f} forward_with_saved_states_graph_ms="
+          f"{fwd_ms:.5f} plain_ms={plain:.4f} bound_ms={bnd:.5f} ({by}) "
+          f"share_of_bound={bnd / ms:.4f} mufu_floor_ms={floor:.5f} (two "
+          f"walks {two_walks:.5f}) h_t_round_trip_ms={states_ms:.5f} "
+          f"call_allocated_bytes={call_bytes}; library: none")
+    del inputs
+    return {"name": "ssm_scan_bwd", "route": "cuda",
+            "source": SSM_BWD_SOURCE, "replaces": SSM_BWD_REPLACES,
+            "launches": None, "max_abs_err": max(abs_errs.values()),
+            "max_abs_err_by_dtype": abs_errs,
+            "max_rel_rms_err": max(errs.values()),
+            "max_rel_rms_err_by_dtype": errs, "ms": ms,
+            "timed": "CUDA graph replay, training shape bf16",
+            "back_to_back_ms": b2b, "forward_with_saved_states_ms": fwd_ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "call_allocated_bytes": call_bytes, "library_ms": None,
+            "library": "none: no single PyTorch call computes a selective "
+                       "scan's gradient",
+            "shape": {"xc": [BATCH, PROMPT, d], "n": n, "dtype": "bfloat16"}}
+
+
+def hymba_flash_bwd(dev, cfg) -> dict:
+    """The flash backward at hymba's two training shapes (GQA group 5,
+    causal, window 1024 and global), held like the Llama shape's and timed
+    by CUDA-graph replay; returns {window: ms}."""
+    from repro_torch.kernels.flash_attention import backward as bmod
+    import torch
+    g = torch.Generator(device=dev).manual_seed(62)
+    out = {}
+    for w in (cfg.window, None):
+        e, (q, k, v, o, do, lse) = flash_bwd_check(
+            dev, g, f"hymba training window={w}", BATCH, cfg.num_heads,
+            cfg.num_kv_heads, PROMPT, PROMPT, cfg.hd, torch.bfloat16, True, w)
+        if e["route"] != "wgmma":
+            raise AssertionError(f"flash backward at hymba's shape: route "
+                                 f"{e['route']}")
+        t0 = time.perf_counter()
+        group = cfg.num_heads // cfg.num_kv_heads
+        out[str(w)] = graph_ms(lambda: bmod.flash_attention_bwd_kernel(
+            q, k, v, o, do, lse, group=group, causal=True, window=w),
+            reps=10, replays=3)
+        bnd, by = flash_bwd_bound(BATCH, cfg.num_heads, cfg.num_kv_heads,
+                                  PROMPT, PROMPT, cfg.hd, True, w, 2)
+        errs = {x: e[x] for x in ("dq", "dk", "dv")}
+        phase(f"flash backward timing hymba window={w}", t0,
+              f"graph_ms={out[str(w)]:.5f} bound_ms={bnd:.5f} ({by}) "
+              f"rel_rms_err={json.dumps(errs)}")
+        del q, k, v, o, do, lse
+    return out
+
+
+def hymba_train_args(tmp: str, seed: int,
+                     steps: int = HYMBA_TRAIN_STEPS) -> list:
+    """``launch/train.py``'s flags for hymba's run: full config, batch
+    BATCH x PROMPT, ``steps`` steps, no checkpoint (``--ckpt-every`` past
+    the last step)."""
+    return ["--arch", HYBRID_ARCH, "--steps", str(steps), "--batch",
+            str(BATCH), "--seq", str(PROMPT), "--lr", str(TRAIN_LR),
+            "--warmup", str(TRAIN_WARMUP), "--ckpt-dir", tmp, "--ckpt-every",
+            str(steps + 1), "--log-every", "1", "--seed", str(seed),
+            "--device", "cuda"]
+
+
+def hymba_train_run(tmp: str, seed: int) -> tuple:
+    """The main path: ``launch/train.py``'s setup and trainer at hymba's
+    full width and depth, HYMBA_TRAIN_STEPS AdamW steps on one repeated
+    batch, every launch counter read around them.  Returns (the step log,
+    peak allocated bytes)."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import Trainer, TrainerConfig
+    args = train.parser().parse_args(hymba_train_args(tmp, seed))
+    t0 = time.perf_counter()
+    run = train.setup(args)
+    cfg = run.cfg
+    batch = run.batch_fn(0)
+    params = sum(p.numel() for p in run.state.params.parameters())
+    if params != HYMBA_PARAMS:
+        raise AssertionError(f"{params} parameters, expected {HYMBA_PARAMS}")
+    phase("hymba train setup", t0,
+          f"arch={HYBRID_ARCH} params={params} dtype={cfg.dtype} "
+          f"remat={cfg.remat} layers={cfg.num_layers}")
+    L = cfg.num_layers
+    per = 2 if cfg.remat else 1
+    windows = [tf.layer_window(cfg, i) for i in range(L)]
+    shapes = {}
+    for w in windows:
+        key = flash_shape(BATCH, cfg.num_heads, cfg.num_kv_heads, PROMPT,
+                          PROMPT, True, w)
+        shapes[key] = shapes.get(key, 0) + HYMBA_TRAIN_STEPS
+    log: list = []
+    step = timed_steps(run.train_step, log)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_launches()
+    Trainer(step, run.state, None, CheckpointManager(tmp, keep=1),
+            TrainerConfig(total_steps=args.steps,
+                          checkpoint_every=args.ckpt_every,
+                          log_every=1), batch_fn=lambda s: batch).run()
+    launches = read_launches(
+        f"{HYBRID_ARCH} train",
+        {"ssm_scan": L * per * HYMBA_TRAIN_STEPS,
+         "ssm_scan_bwd": L * HYMBA_TRAIN_STEPS,
+         "flash_attention": L * per * HYMBA_TRAIN_STEPS,
+         "flash_attention_bwd": L * HYMBA_TRAIN_STEPS},
+        ssm_routes={"chunked": L * per * HYMBA_TRAIN_STEPS},
+        flash_shapes={k: v * per for k, v in shapes.items()},
+        bwd_shapes=shapes)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in log]
+    if len(log) != HYMBA_TRAIN_STEPS or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"hymba training losses {losses}: not finite, "
+                             f"or the last not below the first")
+    for r in log:
+        if (r["flash_forward_by_route"] != {"wgmma": L * per, "simt": 0}
+                or r["flash_backward_by_route"] != {"wgmma": L, "simt": 0}
+                or r["ssm_forward_by_route"] != {"chunked": L * per,
+                                                 "step": 0}
+                or r["ssm_backward"] != L):
+            raise AssertionError(f"hymba step {r['step']}: launches {r}")
+        print(f"[hymba train] step {r['step']} loss={r['loss']:.6f} "
+              f"grad_norm={r['grad_norm']:.6f} step_ms={r['ms']:.3f} ssm "
+              f"forward by route {json.dumps(r['ssm_forward_by_route'])} "
+              f"backward {r['ssm_backward']} flash forward by route "
+              f"{json.dumps(r['flash_forward_by_route'])} backward by route "
+              f"{json.dumps(r['flash_backward_by_route'])} alloc_retries="
+              f"{r['alloc_retries']} cuda_mallocs={r['cuda_mallocs']}",
+              flush=True)
+    phase("hymba train (main path)", t0,
+          f"steps={HYMBA_TRAIN_STEPS} batch={BATCH}x{PROMPT} wall_s="
+          f"{wall:.3f} peak_allocated_bytes={peak} losses={losses} "
+          f"grad_norms={[r['grad_norm'] for r in log]} step_ms="
+          f"{[round(r['ms'], 3) for r in log]} "
+          f"launches={json.dumps(launches)}")
+    del run, batch
+    return log, peak
+
+
+def ssm_scan_f64(xc, x_proj, dt_bias, a_log, h0):
+    """The sequential recurrence of ``ssm_scan_ref`` in float64 on every
+    input (y [B, T, d], h_final [B, d, n] in float64), differentiable: the
+    witnesses' scan with next to no rounding."""
+    import torch
+    n = a_log.shape[1]
+    xf = xc.double()
+    proj = xf @ x_proj.double()
+    bb, cc, dtr = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n]
+    dt = torch.logaddexp(dtr[..., None] + dt_bias.double(), xf.new_zeros(()))
+    a = torch.exp(-torch.exp(a_log.double()) * dt[..., None])
+    bx = (dt * xf)[..., None] * bb[..., None, :]
+    h, ys = h0.double(), []
+    for a_t, bx_t, c_t in zip(a.unbind(1), bx.unbind(1), cc.unbind(1)):
+        h = a_t * h + bx_t
+        ys.append(torch.einsum("bdn,bn->bd", h, c_t))
+    return torch.stack(ys, dim=1), h
+
+
+def witness_scans() -> dict:
+    """Stand-ins for ``ops.ssm_scan_fused`` on the model's path (same
+    arguments), for :func:`hymba_grad_check`'s witnesses: ``"plain"``, the
+    SSM kernels' plain versions (``ssm_scan_ref`` forward,
+    ``ssm_scan_bwd_ref`` backward, f32), ``"f64"``,
+    :func:`ssm_scan_f64` with its results cast to f32, and ``"tapped"``,
+    which given a list returns the kernels' op keeping each call's inputs
+    and y's gradient in it."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ref import (ssm_scan_bwd_ref,
+                                                  ssm_scan_ref)
+
+    class Plain(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            ctx.save_for_backward(*args)
+            return ssm_scan_ref(*args)
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            args = ctx.saved_tensors
+            xc, h0 = args[0], args[4]
+            dy = torch.zeros(xc.shape, device=xc.device) if dy is None \
+                else dy
+            dh = torch.zeros(h0.shape, device=h0.device) if dh is None \
+                else dh
+            return ssm_scan_bwd_ref(*args, dy, dh)
+
+    class Tap(torch.autograd.Function):
+        """y unchanged; its backward appends (the scan's inputs, y's
+        gradient) to ``sink``."""
+
+        @staticmethod
+        def forward(ctx, y, args, sink):
+            ctx.args, ctx.sink = args, sink
+            return y.view_as(y)
+
+        @staticmethod
+        def backward(ctx, dy):
+            ctx.sink.append((ctx.args, dy.detach().clone()))
+            return dy, None, None
+
+    def tapped(sink: list):
+        from repro_torch.kernels.ssm_scan.ops import ssm_scan_fused
+
+        def scan(*args, chunk=None):
+            y, h = ssm_scan_fused(*args, chunk=chunk)
+            return Tap.apply(y, tuple(a.detach().contiguous() for a in args),
+                             sink), h
+        return scan
+
+    return {"plain": lambda *args, chunk=None: Plain.apply(*args),
+            "f64": lambda *args, chunk=None: tuple(
+                v.float() for v in ssm_scan_f64(*args)),
+            "tapped": tapped}
+
+
+def ssm_bwd_vs_f64(name: str, args: tuple, dy, dh) -> dict:
+    """The SSM backward kernel (after the forward saving its states) and
+    its plain version, both in f32 on ``args`` (xc, x_proj, dt_bias, a_log,
+    h0), ``dy`` and ``dh``, each held per gradient by relative norm to
+    autograd of :func:`ssm_scan_f64` on the same inputs; the kernel within
+    ``SSM_BWD_REL_TOL`` f32.  Returns {"kernel": errors, "plain":
+    errors}."""
+    import torch
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    t0 = time.perf_counter()
+    _, _, saved = smod.ssm_scan_kernel(*args, save=True)
+    got = {"kernel": sbmod.ssm_scan_bwd_kernel(*args, dy, dh, *saved),
+           "plain": ssm_scan_bwd_ref(*args, dy, dh)}
+    del saved
+    leaves = [a.double().requires_grad_() for a in args]
+    y, h = ssm_scan_f64(*leaves)
+    want = torch.autograd.grad((y, h), leaves, (dy.double(), dh.double()))
+    del y, h, leaves
+    errs = {side: {what: float((x.double() - w).norm() / w.norm())
+                   for what, x, w in zip(SSM_GRADS, grads, want)
+                   if float(w.norm()) > 0}
+            for side, grads in got.items()}
+    tol = SSM_BWD_REL_TOL["torch.float32"]
+    if not max(errs["kernel"].values()) <= tol:
+        raise AssertionError(f"ssm backward against the scan in f64, "
+                             f"{name}: {errs} > {tol}")
+    phase(f"ssm backward against the scan in f64, {name}", t0,
+          f"xc={tuple(args[0].shape)} {args[0].dtype} "
+          f"n={args[3].shape[1]} rel_norm_err={json.dumps(errs)} tol={tol}")
+    return errs
+
+
+def hymba_grad_check(seed: int) -> dict:
+    """At full width and TRAIN_GRAD_CHECK_LAYERS layers (layer 0 global,
+    layer 1 windowed) in f32: one batch's gradients through the kernels
+    (the SSM scan and its backward, flash on its f32 route and its
+    backward) against the same loss through the reference's chunked scan
+    and ``attn_impl="ref"``, leaf by leaf by relative norm.
+
+    Then the witnesses, each with ``attn_impl="ref"`` so that only the scan
+    differs: the SSM kernels, their plain versions (:func:`witness_scans`)
+    and the scan in float64.  Each f32 run's distance from the f64 run is
+    the share of the gap that its own scan's rounding carries; the kernels
+    against their plain versions is what the kernels add to their
+    algorithm; the kernels' runs with and without flash is the attention's
+    share.  These readings are printed, not bounded: at this depth f32
+    rounding alone moves a leaf by 5e-5 to 3e-4 (the plain versions lie
+    farthest from f64), so a bound on them measures rounding.  The kernel
+    is held to the f64 scan at the op instead, at the inputs and the
+    gradient of y that each layer's scan met in the kernels' run
+    (:func:`ssm_bwd_vs_f64`); returns those errors by layer."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.optim import named_tree
+    t0 = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH).scaled(
+        num_layers=TRAIN_GRAD_CHECK_LAYERS, global_layers=(0,),
+        dtype="float32")
+    model = build_model(cfg, device="cuda")
+    ref_model = build_model(cfg.scaled(attn_impl="ref"), device="cuda")
+    params = model.init(seed).trainable()
+    batch = train.make_batch_fn(cfg, BATCH, PROMPT, seed,
+                                model.device)(0)
+    named = named_tree(params)
+    L = cfg.num_layers
+    per = 2 if cfg.remat else 1
+    path = f"{HYBRID_ARCH} train grad check (f32)"
+    ssm_kernels = {"ssm_scan": L * per, "ssm_scan_bwd": L}
+    flash = {"flash_attention": L * per, "flash_attention_bwd": L}
+    stand_ins = witness_scans()
+    taps: list = []
+    runs = [
+        # name, model, scan route, stand-in for ssm_scan_fused, launches
+        ("kernel", model, "kernel", None, {**ssm_kernels, **flash}),
+        ("ref", ref_model, "chunked", None, {}),
+        ("kernel, attn ref", ref_model, "kernel", stand_ins["tapped"](taps),
+         ssm_kernels),
+        ("plain", ref_model, "kernel", stand_ins["plain"], {}),
+        ("f64", ref_model, "kernel", stand_ins["f64"], {}),
+    ]
+    kernel_route, fused = ssm_lib.resolve_scan_impl, ssm_lib.ssm_scan_fused
+    grads = {}
+    for name, m, scan, stand_in, expect in runs:
+        for p in named.values():
+            p.grad = None
+        try:
+            ssm_lib.resolve_scan_impl = lambda device, scan=scan: scan
+            ssm_lib.ssm_scan_fused = stand_in or fused
+            reset_launches()
+            loss, _ = m.loss(params, batch)
+            loss.backward()
+            read_launches(path if name == "kernel" else f"{path}, {name}",
+                          expect, flash_route="simt",
+                          ssm_routes={"chunked": L * per} if expect.get(
+                              "ssm_scan") else None)
+        finally:
+            ssm_lib.resolve_scan_impl, ssm_lib.ssm_scan_fused = \
+                kernel_route, fused
+        grads[name] = ({k: p.grad for k, p in named.items()},
+                       float(loss.detach()))
+        for p in named.values():
+            p.grad = None
+
+    def rel(a: str, b: str) -> dict:
+        return {k: float((grads[a][0][k] - grads[b][0][k]).norm()
+                         / grads[b][0][k].norm()) for k in grads[b][0]}
+
+    gap = rel("kernel", "ref")
+    worst = max(gap, key=gap.get)
+    if not gap[worst] <= TRAIN_GRAD_REL_TOL or any(
+            float(g.norm()) == 0 for g in grads["ref"][0].values()):
+        raise AssertionError(f"f32 gradients through the kernels differ "
+                             f"from the chunked scan and attn_impl='ref': "
+                             f"{worst} {gap[worst]} > {TRAIN_GRAD_REL_TOL}")
+    ssm = {k: v for k, v in gap.items() if ".ssm." in f".{k}."}
+    phase("hymba train gradients vs chunked scan (f32)", t0,
+          f"layers={L} (global {list(cfg.global_layers)}) d={cfg.d_model} "
+          f"batch={BATCH}x{PROMPT} loss kernel={grads['kernel'][1]:.6f} "
+          f"ref={grads['ref'][1]:.6f} leaves={len(gap)} max_rel_norm_err="
+          f"{gap[worst]:.3e} ({worst}) ssm leaves max={max(ssm.values()):.3e}"
+          f" ({json.dumps({k: round(v, 9) for k, v in ssm.items()})}) "
+          f"tol={TRAIN_GRAD_REL_TOL}")
+    t0 = time.perf_counter()
+    pairs = [("kernel", "ref"), ("kernel, attn ref", "ref"),
+             ("kernel, attn ref", "f64"), ("ref", "f64"), ("plain", "f64"),
+             ("kernel, attn ref", "plain"), ("kernel", "kernel, attn ref")]
+    readings = {}
+    for a, b in pairs:
+        r = rel(a, b)
+        top = max(r, key=r.get)
+        readings[f"{a} vs {b}"] = {
+            "max": r[top], "leaf": top,
+            "ssm_max": max(v for k, v in r.items() if ".ssm." in f".{k}."),
+            "other_max": max(v for k, v in r.items()
+                             if ".ssm." not in f".{k}.")}
+    if not all(np.isfinite(v["max"]) for v in readings.values()):
+        raise AssertionError(f"hymba gradient witnesses: {readings}")
+    phase("hymba train gradient witnesses (f32, scan in f64)", t0,
+          f"losses={json.dumps({k: v[1] for k, v in grads.items()})} "
+          f"rel_norm_err={json.dumps(readings)}")
+    del grads, params
+    # the backward's own share: each layer's scan at the inputs the model
+    # gave it (the backward meets layer L-1 first)
+    if len(taps) != L:
+        raise AssertionError(f"{len(taps)} scans tapped, expected {L}")
+    at_inputs = {}
+    for i, (args, dy) in zip(range(L - 1, -1, -1), taps):
+        dh = torch.zeros(args[4].shape, device=dy.device)
+        at_inputs[f"layer {i}"] = ssm_bwd_vs_f64(
+            f"hymba layer {i}, the model's inputs", args, dy, dh)
+    return at_inputs
+
+
+def hymba_train_slice(seed: int) -> dict:
+    """The SSM backward kernel's checks and timing, the flash backward at
+    hymba's shapes, then hymba-1.5b training at full width and depth (the
+    main path), the f32 gradient check with its witnesses and the backward
+    against the scan in f64; returns the SSM backward's JSON record."""
+    import torch
+    from repro_torch.configs import get_config
+    dev = torch.device("cuda")
+    cfg = get_config(HYBRID_ARCH)
+    rec = ssm_bwd_kernel_phase(dev, cfg.d_model * max(cfg.ssm_expand, 1),
+                               cfg.ssm_state)
+    rec["flash_backward_hymba_ms"] = hymba_flash_bwd(dev, cfg)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_hymba_")
+    try:
+        log, peak = hymba_train_run(tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["launches"] = PATH_LAUNCHES[f"{HYBRID_ARCH} train"]["ssm_scan_bwd"]
+    rec["train"] = {"steps": log, "peak_allocated_bytes": peak}
+    torch.cuda.empty_cache()
+    vs_f64 = hymba_grad_check(seed)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(63)
+    args = ssm_inputs(dev, g, BATCH, PROMPT, cfg.d_model * max(
+        cfg.ssm_expand, 1), cfg.ssm_state, torch.float32, True)
+    dy = torch.randn(args[0].shape, device=dev, generator=g)
+    dh = torch.randn(args[4].shape, device=dev, generator=g)
+    vs_f64["training shape, carried h0 and dh"] = ssm_bwd_vs_f64(
+        "training shape, carried h0 and dh", args, dy, dh)
+    rec["rel_norm_err_vs_f64"] = vs_f64
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # slice 8: xlstm-1.3b serving at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -4321,6 +4962,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(train_slice(args.seed))
     torch.cuda.empty_cache()
+    records.append(hymba_train_slice(args.seed))
+    torch.cuda.empty_cache()
     xlstm_slice(args.seed)
     for rec in records:
         if rec["name"] == "flash_attention":
@@ -4331,6 +4974,7 @@ def main() -> int:
         by_route = {"flash_attention": FLASH_ROUTES,
                     "flash_attention_bwd": FLASH_BWD_ROUTES,
                     "ssm_scan": SSM_ROUTES,
+                    "ssm_scan_bwd": SSM_BWD_ROUTES,
                     "segment_sum": SEGMENT_ROUTES,
                     "moe_dispatch": DISPATCH_ROUTES,
                     "topk_reduce": TOPK_ROUTES}.get(rec["name"])

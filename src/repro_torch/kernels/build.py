@@ -132,7 +132,7 @@ def build_all(libraries: Sequence[KernelLibrary],
         return list(pool.map(lambda lib: lib.build(verbose), libraries))
 
 
-#: Where each kernel without a backward gets one (ROADMAP.md).
+#: Where a kernel without a backward (RMSNorm's) gets one (ROADMAP.md).
 BACKWARD_ITEM = "ROADMAP Queue 1, item 23 (backward kernels)"
 
 

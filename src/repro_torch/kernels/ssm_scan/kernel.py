@@ -9,10 +9,17 @@ discretisation and the recurrence ``h = a * h + dt * x * B``, with
 a scan that is parallel over T, and what bounds it.
 
 :func:`ssm_scan_kernel` takes ``xc [B, T, d]`` and :func:`route` picks
-its route from T and the device alone: a CPU tensor takes the plain
-version (:func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_ref`); on CUDA,
-T = 1 (a decode step) takes the step route, one fused launch, and T > 1
-the chunked route (projection, chunk ends, carry and re-run).  A CUDA
+its route from T, the device and whether the call saves for a gradient:
+a CPU tensor takes the plain version
+(:func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_ref`); on CUDA, T = 1
+(a decode step) takes the step route, one fused launch, and T > 1 or a
+call that ``save``s the chunked route (projection, chunk ends, carry and
+re-run), whose projection rows and chunk-entering states the backward
+(:mod:`~repro_torch.kernels.ssm_scan.backward`) starts from.  The kernel
+writes through raw pointers, so a CUDA input that requires grad in grad
+mode raises here: gradients go through
+:class:`~repro_torch.kernels.ssm_scan.ops.SSMScan`, which
+:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_fused` picks.  A CUDA
 tensor launches its route or raises: there is no fallback.  ``LAUNCHES``
 counts calls that launched (one per call, whatever passes it runs);
 ``LAUNCHES_BY_ROUTE`` splits them by route.
@@ -20,12 +27,9 @@ counts calls that launched (one per call, whatever passes it runs);
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
-
 import torch
 
-from repro_torch.kernels.build import (KernelLibrary, check_launch,
-                                      require_no_grad)
+from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -63,15 +67,17 @@ def reset_launches() -> None:
         LAUNCHES_BY_ROUTE[name] = 0
 
 
-def route(t: int, dtype: torch.dtype, device) -> str:
+def route(t: int, dtype: torch.dtype, device, save: bool = False) -> str:
     """The route a call of ``t`` steps takes: ``"plain"`` for a CPU
-    tensor, ``"step"`` for T = 1 on CUDA, ``"chunked"`` for T > 1.  Both
-    dtypes the kernels take (float32, bfloat16) have both routes; only the
-    chunked route's projection differs (tensor cores for bf16)."""
+    tensor, ``"step"`` for T = 1 on CUDA, ``"chunked"`` for T > 1 and for
+    every call that ``save``s what the backward starts from (only the
+    chunked route writes it).  Both dtypes the kernels take (float32,
+    bfloat16) have both routes; only the chunked route's projection
+    differs (tensor cores for bf16)."""
     del dtype
     if torch.device(device).type == "cpu":
         return "plain"
-    return "step" if t == 1 else "chunked"
+    return "step" if t == 1 and not save else "chunked"
 
 
 def _proj_row_floats(n: int) -> int:
@@ -125,18 +131,28 @@ def _check_cuda(xc, got: dict) -> None:
 
 def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
                     dt_bias: torch.Tensor, a_log: torch.Tensor,
-                    h0: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    h0: torch.Tensor, save: bool = False) -> tuple:
     """xc: [B, T, d]; x_proj: [d, 2n+1]; dt_bias: [d]; a_log: [d, n];
-    h0: [B, d, n] -> (y [B, T, d] f32, h_final [B, d, n] f32)."""
+    h0: [B, d, n] -> (y [B, T, d] f32, h_final [B, d, n] f32), one launch
+    of the route :func:`route` picks.  With ``save``, (y, h_final, saved):
+    on CUDA ``saved`` is the chunked route's scratch the backward starts
+    from, its projection rows ``[B*T, row]`` (B, C and dt in slots, see
+    :func:`_proj_row_floats`) and the states entering chunks 1 .. nc-1,
+    ``h_end [B, nc-1, n, d]``; on the CPU ``()``."""
     global LAUNCHES
     got = _check(xc, x_proj, dt_bias, a_log, h0)
     b, t, d = xc.shape
-    kind = route(t, xc.dtype, xc.device)
+    kind = route(t, xc.dtype, xc.device, save)
     if kind == "plain":
-        return ssm_scan_ref(xc, x_proj, dt_bias, a_log, h0)
+        y, h = ssm_scan_ref(xc, x_proj, dt_bias, a_log, h0)
+        return (y, h, ()) if save else (y, h)
     _check_cuda(xc, got)
-    require_no_grad("ssm_scan", xc, x_proj, dt_bias, a_log, h0)
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in (xc, *got.values())):
+        raise RuntimeError("the ssm_scan kernel writes through raw pointers"
+                           ", so autograd would drop every gradient through"
+                           " it: where grads are taken call "
+                           "ops.ssm_scan_fused (SSMScan)")
     n = a_log.shape[1]
     dev = xc.device
     y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
@@ -144,6 +160,7 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     suffix = _SUFFIX[xc.dtype]
+    saved: tuple = ()
     with torch.cuda.device(dev):
         if kind == "step":
             err = getattr(lib, f"ssm_scan_step_{suffix}")(
@@ -162,7 +179,10 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
                 a_log.data_ptr(), h0.data_ptr(), proj.data_ptr(),
                 h_end.data_ptr(), dt_sum.data_ptr(), y.data_ptr(),
                 h.data_ptr(), b, t, d, n, stream)
+            if save:
+                saved = (proj.view(b * t, _proj_row_floats(n)),
+                         h_end.view(b, ends, n, d))
     check_launch(f"ssm_scan ({kind})", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
-    return y, h
+    return (y, h, saved) if save else (y, h)

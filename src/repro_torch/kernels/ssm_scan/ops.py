@@ -1,12 +1,49 @@
-"""Public fused selective scan (the reference's ``ssm_scan/ops.py``)."""
+"""Public fused selective scan (the reference's ``ssm_scan/ops.py``) and
+its gradient.
+
+Where grad mode is on and an input requires grad, :func:`ssm_scan_fused`
+goes through :class:`SSMScan`, a ``torch.autograd.Function`` whose forward
+is the kernel on its chunked route keeping its projection rows and
+chunk-entering states and whose backward is the backward kernel
+(:mod:`~repro_torch.kernels.ssm_scan.backward`); otherwise (serving) the
+forward kernel runs alone and saves nothing.  On a CPU tensor both take
+their plain versions.  Under non-reentrant checkpointing the recompute
+calls the forward again and saves afresh.
+"""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.ssm_scan.backward import ssm_scan_bwd_kernel
 from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+
+class SSMScan(torch.autograd.Function):
+    """The selective scan with a kernel backward: ``apply(xc, x_proj,
+    dt_bias, a_log, h0) -> (y, h_final)``.  A gradient of None (an output
+    not used) counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, xc, x_proj, dt_bias, a_log, h0):
+        y, h, saved = ssm_scan_kernel(xc, x_proj, dt_bias, a_log, h0,
+                                      save=True)
+        ctx.save_for_backward(xc, x_proj, dt_bias, a_log, h0, *saved)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xc, x_proj, dt_bias, a_log, h0, *saved = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xc.shape, dtype=torch.float32,
+                             device=xc.device)
+        if dh is None:
+            dh = torch.zeros(h0.shape, dtype=torch.float32,
+                             device=h0.device)
+        return ssm_scan_bwd_kernel(xc, x_proj, dt_bias, a_log, h0,
+                                   dy.contiguous(), dh.contiguous(), *saved)
 
 
 def ssm_scan_fused(xc: torch.Tensor, x_proj: torch.Tensor,
@@ -25,10 +62,12 @@ def ssm_scan_fused(xc: torch.Tensor, x_proj: torch.Tensor,
         # the kernel computes the projection in f32 anyway: widen the
         # narrower operand (exact) so both share one type
         xc, x_proj = xc.float(), x_proj.float()
-    return ssm_scan_kernel(xc.contiguous(), x_proj.contiguous(),
-                           dt_bias.float().contiguous(),
-                           a_log.float().contiguous(),
-                           h0.float().contiguous())
+    args = (xc.contiguous(), x_proj.contiguous(),
+            dt_bias.float().contiguous(), a_log.float().contiguous(),
+            h0.float().contiguous())
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return SSMScan.apply(*args)
+    return ssm_scan_kernel(*args)
 
 
-__all__ = ["ssm_scan_fused", "ssm_scan_ref"]
+__all__ = ["SSMScan", "ssm_scan_fused", "ssm_scan_ref"]

@@ -36,6 +36,66 @@ def ssm_scan_ref(xc: torch.Tensor, x_proj: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def ssm_scan_bwd_ref(xc: torch.Tensor, x_proj: torch.Tensor,
+                     dt_bias: torch.Tensor, a_log: torch.Tensor,
+                     h0: torch.Tensor, dy: torch.Tensor, dh: torch.Tensor
+                     ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`ssm_scan_ref`: the CUDA backward kernel's
+    plain version, the reverse recurrence in tensor code.
+
+    Given ``dy [B, T, d]`` and ``dh [B, d, n]`` (the cotangents of y and
+    h_final), with ``h_t`` recomputed from ``h0``:
+
+    * ``lam_t = dy_t * C_t + a_{t+1} * lam_{t+1}``, from ``dh`` at T: the
+      gradient reaching ``h_t``; ``dh0 = a_1 * lam_1``;
+    * ``d(bx_t) = lam_t`` gives ``dB`` (summed over d), ``ddt`` and ``dx``;
+      ``dC_t = sum_d dy * h_t``;
+    * ``d(a_t) = lam_t * h_{t-1}`` gives ``ddt`` through ``-A * a`` and
+      ``dA`` through ``-dt * a``; ``da_log = dA * A``;
+    * softplus' is ``sigmoid(dtr + dt_bias)``; ``dproj = [dB | dC |
+      ddtr]``, so ``dxc += dproj @ x_proj^T`` and ``dx_proj = xc^T @
+      dproj``.
+
+    Returns (dxc in xc's dtype, dx_proj in x_proj's, ddt_bias, da_log,
+    dh0 in float32)."""
+    n = a_log.shape[1]
+    b, steps, d = xc.shape
+    xf, w = xc.float(), x_proj.float()
+    proj = xf @ w
+    bb, cc, dtr = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n]
+    z = dtr[..., None] + dt_bias.float()                    # [B, T, d]
+    dt = softplus(z)
+    A = torch.exp(a_log.float())                            # [d, n]
+    a = torch.exp(-A * dt[..., None])                       # [B, T, d, n]
+    dx = dt * xf
+    h = h0.float()
+    hs = []
+    for t in range(steps):
+        h = a[:, t] * h + dx[:, t, :, None] * bb[:, t, None, :]
+        hs.append(h)
+    hs = torch.stack(hs, dim=1)                             # h_t
+    h_prev = torch.cat([h0.float()[:, None], hs[:, :-1]], dim=1)
+    carry = dh.float()
+    lams = []
+    for t in range(steps - 1, -1, -1):
+        lam = dy[:, t, :, None].float() * cc[:, t, None, :] + carry
+        lams.append(lam)
+        carry = a[:, t] * lam
+    lam = torch.stack(lams[::-1], dim=1)                    # [B, T, d, n]
+    q = lam * a * h_prev                                    # d(a) * a
+    lam_b = torch.einsum("btdn,btn->btd", lam, bb)
+    ddt = xf * lam_b - torch.einsum("btdn,dn->btd", q, A)
+    dz = ddt * torch.sigmoid(z)
+    dproj = torch.cat([torch.einsum("btdn,btd->btn", lam, dx),
+                       torch.einsum("btdn,btd->btn", hs, dy.float()),
+                       dz.sum(-1, keepdim=True)], dim=-1)   # [B, T, 2n+1]
+    dxc = dt * lam_b + dproj @ w.T
+    dx_proj = xf.reshape(b * steps, d).T @ dproj.reshape(b * steps, -1)
+    da_log = -(q * dt[..., None]).sum((0, 1)) * A
+    return (dxc.to(xc.dtype), dx_proj.to(x_proj.dtype), dz.sum((0, 1)),
+            da_log, carry)
+
+
 def ssm_scan_chunked_ref(xc: torch.Tensor, x_proj: torch.Tensor,
                          dt_bias: torch.Tensor, a_log: torch.Tensor,
                          h0: torch.Tensor, chunk: int

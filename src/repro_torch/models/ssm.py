@@ -7,8 +7,10 @@ activations' device unless a caller names one:
 * ``"kernel"`` (on a CUDA tensor) — the hand-written CUDA selective scan,
   :func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_fused`, which computes
   the projection, the coefficients and the recurrence in one call; the
-  ``d_skip`` term is added after it.  On a CPU tensor, the same call takes
-  the kernel's plain version.
+  ``d_skip`` term is added after it.  Where gradients are taken the call
+  goes through ``SSMScan``, whose backward is the hand-written backward
+  kernel (remat's recompute calls it again).  On a CPU tensor, the same
+  call takes the plain versions of both.
 * ``"chunked"`` (on a CPU tensor) — the reference's own scan: coefficients
   per chunk of ``cfg.ssm_chunk`` steps, a log-step scan within the chunk,
   the state carried from chunk to chunk.

@@ -6,11 +6,21 @@ import pytest
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import backward, kernel
+from repro_torch.kernels.ssm_scan import backward as ssm_backward
+from repro_torch.kernels.ssm_scan import kernel as ssm_kernel
 
 
 def test_flash_libraries_share_the_hopper_header():
     for lib in (kernel.LIBRARY, backward.LIBRARY):
         assert lib.headers() == [build.CSRC / "hopper.cuh"]
+
+
+def test_ssm_libraries_share_the_scan_header():
+    """The backward re-runs the forward's own chunk step: both sources
+    include ``ssm_scan.cuh``, so a change to it rebuilds both."""
+    for lib in (ssm_kernel.LIBRARY, ssm_backward.LIBRARY):
+        assert lib.headers() == [build.CSRC / "ssm_scan.cuh"]
+    assert ssm_kernel.LIBRARY.path() != ssm_backward.LIBRARY.path()
 
 
 @pytest.mark.parametrize("edit, rebuilds", [

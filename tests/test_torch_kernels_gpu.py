@@ -976,7 +976,7 @@ def test_flash_attention_returns_grad_fn_and_kernel_gradients(cuda):
     assert fmod.LAUNCHES == 2 and bmod.LAUNCHES == 1
 
 
-def test_rmsnorm_and_ssm_kernels_raise_where_grads_are_taken(cuda):
+def test_rmsnorm_kernel_raises_where_grads_are_taken(cuda):
     """A kernel with no backward raises on a CUDA input requiring grad in
     grad mode, naming its ROADMAP item, and runs under no_grad."""
     x = torch.randn((4, 64), device=cuda, requires_grad=True)
@@ -985,16 +985,118 @@ def test_rmsnorm_and_ssm_kernels_raise_where_grads_are_taken(cuda):
         rmsnorm(x, w)
     with torch.no_grad():
         assert rmsnorm(x, w).shape == (4, 64)
+
+
+def test_ssm_kernel_takes_gradients_through_its_backward(cuda):
+    """Where an input requires grad the fused op goes through ``SSMScan``:
+    one forward launch on the chunked route (at T = 1 too), one backward
+    launch, and the plain version's gradients; under no_grad no Function.
+    The kernel's wrapper alone refuses such inputs."""
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_fused
     n, d = 4, 32
-    xc = torch.randn((1, 8, d), device=cuda, requires_grad=True)
-    args = (torch.randn((d, 2 * n + 1), device=cuda),
-            torch.zeros(d, device=cuda), torch.zeros((d, n), device=cuda),
-            torch.zeros((1, d, n), device=cuda))
-    with pytest.raises(RuntimeError, match="ROADMAP Queue 1, item 23"):
-        smod.ssm_scan_kernel(xc, *args)
-    with torch.no_grad():
-        y, h = smod.ssm_scan_kernel(xc, *args)
-    assert y.shape == (1, 8, d) and h.shape == (1, d, n)
+    for t in (1, 8, 300):
+        g = torch.Generator(device=cuda).manual_seed(t)
+        args = [torch.randn((1, t, d), device=cuda, generator=g),
+                torch.randn((d, 2 * n + 1), device=cuda, generator=g) / 6,
+                torch.randn(d, device=cuda, generator=g) * 0.3,
+                torch.randn((d, n), device=cuda, generator=g) * 0.2,
+                torch.randn((1, d, n), device=cuda, generator=g) * 0.3]
+        dy = torch.randn((1, t, d), device=cuda, generator=g)
+        leaves = [a.clone().requires_grad_() for a in args]
+        smod.reset_launches()
+        sbmod.reset_launches()
+        with pytest.raises(RuntimeError, match="ssm_scan_fused"):
+            smod.ssm_scan_kernel(*leaves)
+        y, _ = ssm_scan_fused(*leaves)
+        assert type(y.grad_fn).__name__ == "SSMScanBackward"
+        got = torch.autograd.grad(y, leaves, dy)
+        assert smod.LAUNCHES_BY_ROUTE == {"chunked": 1, "step": 0}
+        assert sbmod.LAUNCHES_BY_ROUTE == {"chunked": 1}
+        plain = [a.clone().requires_grad_() for a in args]
+        want = torch.autograd.grad(ssm_scan_ref(*plain)[0], plain, dy)
+        for a, w in zip(got, want):
+            assert cs.rel_rms(a, w) < cs.SSM_BWD_REL_TOL["torch.float32"]
+        with torch.no_grad():
+            assert ssm_scan_fused(*leaves)[0].grad_fn is None
+
+
+SSM_BWD_CASES = {
+    # b, t, d, n, carried h0 and dh
+    "hymba training": (4, 2048, 1600, 16, False),
+    "hymba training, carried": (4, 2048, 1600, 16, True),
+    "T=1": (2, 1, 1600, 16, True),
+    "T=130": (2, 130, 1600, 16, True),
+    "T=2065 (a short last chunk)": (2, 2065, 256, 16, True),
+    "d=1001, n=5": (3, 300, 1001, 5, True),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(SSM_BWD_CASES))
+def test_ssm_backward_kernel_matches_plain_version(cuda, name, dtype):
+    """``chip_smoke.ssm_bwd_check``: the forward saving its states, two
+    backward launches giving the same bytes, each gradient within
+    ``SSM_BWD_REL_TOL`` relative RMS of the plain backward in f32."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    b, t, d, n, carried = SSM_BWD_CASES[name]
+    errs, _ = cs.ssm_bwd_check(cuda, g, name, b, t, d, n, dtype, carried)
+    assert max(errs[k] for k in cs.SSM_GRADS) <= \
+        cs.SSM_BWD_REL_TOL[str(dtype)]
+
+
+def test_ssm_backward_gradients_stay_finite_where_a_underflows(cuda):
+    """dt past softplus's threshold and a = exp(-A dt) underflowing to 0:
+    every gradient finite and held to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    for name, shifts in (("dt past 20", {"dt_shift": 25.0}),
+                         ("a underflows", {"dt_shift": 3.0,
+                                           "a_shift": 6.0})):
+        cs.ssm_bwd_check(cuda, g, name, 2, 300, 80, 16, torch.float32,
+                         True, **shifts)
+
+
+def test_hymba_train_step_launches_both_ssm_kernels(cuda):
+    """One step of hymba's smoke widths (f32, attn_impl "ref") on the card
+    with remat on: per layer two SSM launches on the chunked route (the
+    forward and the recompute) and one backward launch; every leaf gets a
+    gradient, and the step's loss and gradient norm equal the same step
+    on the CPU (the reference's chunked scan) from the same weights within
+    1e-4 of themselves."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw, named_tree
+    from repro_torch.optim.schedule import constant
+    from repro_torch.train import (StepConfig, init_train_state,
+                                   make_train_step)
+    cfg = get_smoke_config("hymba-1.5b").scaled(remat=True)
+    metrics, weights = {}, None
+    for dev in (torch.device("cpu"), cuda):
+        model = build_model(cfg, device=dev)
+        seen = []
+        opt = cs.grads_checked(adamw(), seen)
+        state = init_train_state(model, opt, 0)
+        named = named_tree(state.params)
+        if weights is None:
+            weights = {k: v.detach().clone() for k, v in named.items()}
+        with torch.no_grad():
+            for k, v in named.items():
+                v.copy_(weights[k])
+        step = make_train_step(model, opt, constant(1e-3), StepConfig())
+        batch = train.make_batch_fn(cfg, 2, 300, 0, dev)(0)
+        smod.reset_launches()
+        sbmod.reset_launches()
+        state, metrics[dev.type] = step(state, batch)
+        assert all(seen[0].values()) and len(seen[0]) == len(named)
+    assert smod.LAUNCHES_BY_ROUTE == {"chunked": 2 * cfg.num_layers,
+                                      "step": 0}
+    assert sbmod.LAUNCHES == cfg.num_layers
+    for k in ("loss", "grad_norm"):
+        a, b = (float(metrics[x][k]) for x in ("cuda", "cpu"))
+        assert np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b), (k, a, b)
 
 
 def test_llama_train_step_launches_flash_and_its_backward(cuda):

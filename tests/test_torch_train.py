@@ -28,6 +28,10 @@ against the reference.
   gradient of -1.07e-9 in the reference and -0.92e-9 in the port, 1.2e-5
   apart after 3 steps, while every gradient agrees within 1e-6 relative
   to its leaf's largest).
+* The same 3 steps of hymba's smoke config with the SSM scan's kernel
+  route forced on the CPU (the autograd Function ``SSMScan``: the plain
+  forward and the backward kernel's plain version, ``ssm_scan_bwd_ref``),
+  with the port's remat off and on, at the hybrid family's limits.
 * ``launch/train.py --smoke --device cpu`` runs and prints the
   reference's ``loss a -> b`` line.
 """
@@ -50,9 +54,12 @@ from repro.train import init_train_state as R_init_train_state
 from repro.train import make_train_step as R_make_train_step
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.ssm_scan import backward as ssm_backward
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
 from repro_torch.launch import train as T_launch
 from repro_torch.models import build_model
 from repro_torch.models.common import ModelConfig
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw, named_tree
 from repro_torch.optim.schedule import constant
@@ -230,7 +237,39 @@ def _smoke_batch(cfg, seed, b=2, s=16):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_smoke_train_step_matches_reference(arch):
+    _smoke_train_steps_match_reference(arch)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["remat off",
+                                                      "remat on"])
+def test_hymba_train_step_through_the_scan_kernel_matches_reference(
+        monkeypatch, remat):
+    """hymba's smoke config with the SSM scan's kernel route forced on
+    the CPU: ``SSMScan`` (the plain forward, then ``ssm_scan_bwd_ref``, the
+    backward kernel's plain version) gives the reference's train steps at
+    the hybrid family's limits above.  With remat on (the port's only;
+    the reference's smoke config keeps it off), each layer's scan runs
+    again in the backward and is differentiated once."""
+    bwd_calls = []
+
+    def counted(*args):
+        bwd_calls.append(args[0].shape)
+        return ssm_scan_bwd_ref(*args)
+
+    monkeypatch.setattr(ssm_lib, "resolve_scan_impl", lambda device:
+                        "kernel")
+    monkeypatch.setattr(ssm_backward, "ssm_scan_bwd_ref", counted)
+    _smoke_train_steps_match_reference("hymba-1.5b", remat=remat)
+    cfg = get_smoke_config("hymba-1.5b")
+    assert len(bwd_calls) == 3 * cfg.num_layers
+
+
+def _smoke_train_steps_match_reference(arch, **port_overrides):
+    """3 AdamW steps of ``arch``'s smoke config through both packages on
+    the same weights and batches (see the module's note); the port's
+    config takes ``port_overrides``."""
     r_cfg, t_cfg = R_get_smoke_config(arch), get_smoke_config(arch)
+    t_cfg = t_cfg.scaled(**port_overrides)
     r_state, t_state = _state_pair(r_cfg, t_cfg)
     r_step = jax.jit(R_make_train_step(R_build_model(r_cfg), R_adamw(),
                                        R_constant(1e-3), R_StepConfig()))

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""Where the time of a Llama-3.2-1B training step goes, on one GPU.
+"""Where the time of a training step goes, on one GPU.
 
-    python3 tools/torch_train_profile.py [--seed 0]
+    python3 tools/torch_train_profile.py [--arch llama3.2-1b|hymba-1.5b]
+                                         [--seed 0]
 
-Sets up ``chip_smoke.py``'s training run through ``launch/train.py``
-(Llama-3.2-1B at full width and depth, bf16 parameters, AdamW, remat,
-one repeated batch of 4 x 2,048 tokens on ``cuda``), runs steps 1-2 with
-the checkpoint saved at step 2 into a temporary directory (its write
-joined and flushed, as ``chip_smoke.train_run`` does), then runs steps 3
-and 4 each under ``torch.profiler`` (CPU + CUDA) and prints, for each:
+Sets up ``chip_smoke.py``'s training run of the arch through
+``launch/train.py`` (full width and depth, bf16 parameters, AdamW, remat,
+one repeated batch of 4 x 2,048 tokens on ``cuda``), runs steps 1-2 (for
+Llama-3.2-1B with the checkpoint saved at step 2 into a temporary
+directory, its write joined and flushed, as ``chip_smoke.train_run`` does;
+hymba-1.5b's run saves none, as ``chip_smoke.hymba_train_run``), then runs
+steps 3 and 4 each under ``torch.profiler`` (CPU + CUDA) and prints, for
+each:
 
 * the step's wall (host clock to a synchronise), the device busy share
   of it and the number of kernel launches;
 * device time by group: the flash forward (``flash_fwd*``) and backward
-  (``flash_bwd*``) kernels, matrix products (cuBLAS), device-to-host
-  copies, and the rest;
-* device time of the f32 cross-entropy over the 128,256 logits, forward
+  (``flash_bwd*``) kernels, the SSM scan's forward (``ssm_proj*``,
+  ``ssm_chunk*``) and backward (``ssm_bwd*``) kernels, matrix products
+  (cuBLAS), device-to-host copies, and the rest;
+* device time of the f32 cross-entropy over the vocabulary, forward
   and backward, and of AdamW's update, each between CUDA events recorded
   around it in the step (the backward's from the loss's gradient to the
   logits'), so they hold every kernel of the phase whatever its name;
 * the 15 kernels with the most device time.
 
 Steps 1-4's walls (without the profiler on step 1-2) and the traces
-(``chiprun_out/torch_train_step{3,4}_trace.json.gz``) come with it.
+(``chiprun_out/torch_train_step{3,4}_trace.json.gz``; hymba's
+``torch_train_hymba_step{3,4}_trace.json.gz``) come with it.
 Prints the card's name and power limit beside the numbers.  Needs a CUDA
 device.
 """
@@ -46,6 +51,10 @@ GROUPS = {
     "flash_forward": ("flash_fwd",),
     # wgmma route: prep, dkdv, dq; simt route: delta, dkdv, dq
     "flash_backward": ("flash_bwd",),
+    # the chunked route's projection and chunk passes
+    "ssm_scan_forward": ("ssm_proj", "ssm_chunk"),
+    # ssm_bwd_chunk_end, _carry, _chunk, _proj_sum, _proj, _params
+    "ssm_scan_backward": ("ssm_bwd",),
     "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
     "memcpy_dtoh": ("Memcpy DtoH",),
 }
@@ -169,6 +178,8 @@ def profile_step(name, step, state, batch, mark, out_dir):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=("llama3.2-1b", "hymba-1.5b"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -196,7 +207,11 @@ def main() -> int:
     marks = [_Mark()]
     restore = instrument(marks)
     try:
-        targs = train.parser().parse_args(cs.train_args(tmp, args.seed))
+        hymba = args.arch == cs.HYBRID_ARCH
+        # hymba: the schedule of the four steps run here, none saved
+        targs = train.parser().parse_args(
+            cs.hymba_train_args(tmp, args.seed, steps=cs.TRAIN_SAVE_AT + 2)
+            if hymba else cs.train_args(tmp, args.seed))
         run = train.setup(targs)
         batch = run.batch_fn(0)
         step = make_train_step(
@@ -217,19 +232,22 @@ def main() -> int:
         manager = CheckpointManager(tmp, keep=1)
         t0 = time.perf_counter()
         state = Trainer(timed, run.state, None, manager, TrainerConfig(
-            total_steps=cs.TRAIN_SAVE_AT, checkpoint_every=cs.TRAIN_SAVE_AT,
-            log_every=1), batch_fn=lambda s: batch).run()
+            total_steps=cs.TRAIN_SAVE_AT,
+            checkpoint_every=targs.ckpt_every, log_every=1),
+            batch_fn=lambda s: batch).run()
         save_s = time.perf_counter() - t0 - sum(walls) / 1e3
         t1 = time.perf_counter()
         os.sync()
-        print(f"steps 1-{cs.TRAIN_SAVE_AT}: step_ms="
-              f"{[round(w, 3) for w in walls]}; checkpoint at step "
-              f"{cs.TRAIN_SAVE_AT}: gather and write {save_s:.3f} s, "
-              f"os.sync {time.perf_counter() - t1:.3f} s")
+        print(f"{args.arch} steps 1-{cs.TRAIN_SAVE_AT}: step_ms="
+              f"{[round(w, 3) for w in walls]}; "
+              + ("no checkpoint" if hymba else
+                 f"checkpoint at step {cs.TRAIN_SAVE_AT}: gather and write "
+                 f"{save_s:.3f} s, os.sync "
+                 f"{time.perf_counter() - t1:.3f} s"))
         for n in (cs.TRAIN_SAVE_AT + 1, cs.TRAIN_SAVE_AT + 2):
             marks.append(_Mark())
-            state = profile_step(f"step{n}", step, state, batch, marks[-1],
-                                 out_dir)
+            state = profile_step(("hymba_" if hymba else "") + f"step{n}",
+                                 step, state, batch, marks[-1], out_dir)
     finally:
         restore()
         shutil.rmtree(tmp, ignore_errors=True)
