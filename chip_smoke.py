@@ -250,16 +250,21 @@ selective scan's backward kernel:
 21. hold the backward kernel against its plain version taken in f32 on
     the same inputs, by relative RMS error of each gradient, at the
     training shape in bf16 and f32 and at the edges (T = 1, 7, L-1, L,
-    L+1, 300, 2048+17; d = 1001; n of 2 to 8; dt past softplus's
+    L+1, 300, two spans +- 1, 2048+17; d = 200 and 1001, no multiples of
+    the kernel's channel group; n of 2 to 8; dt past softplus's
     threshold; a_log large enough that a underflows to 0; carried h0 and
-    dh), two launches giving the same bytes; time it there by CUDA-graph
-    replay beside the plain version, its bound and its design's MUFU
-    floor; hold the flash backward at hymba's two training shapes (GQA 5,
+    dh), two launches giving the same bytes; at the training shape hold
+    it to the first design (the chunks re-run through device memory) and
+    time both in turns by CUDA-graph replay, beside the plain version, its
+    bound, both designs' MUFU floors, device time by kernel and one
+    call's allocation (under ``SSM_BWD_CALL_BYTES``); hold the flash
+    backward at hymba's two training shapes (GQA 5,
     window 1024 and global) and time it there by graph replay;
 22. ``launch/train.py``'s setup and trainer (the main path): 3 steps on
     one repeated batch, no checkpoint: losses finite and falling, per
     step 64 SSM-scan launches on the chunked route (the forward and
-    remat's recompute), 32 SSM backward launches, 64 flash and 32 flash
+    remat's recompute), 32 SSM backward launches on the scan route, 64
+    flash and 32 flash
     backward launches, all wgmma, at hymba's two shapes; step ms and
     peak allocated bytes;
 23. at full width and 2 layers (one global, one windowed) in f32, one
@@ -270,8 +275,8 @@ Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8.
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
-dispatch launch off the cluster route or a top-k launch off the select
-route on theirs.  The last lines are a JSON object describing the
+dispatch launch off the cluster route, a top-k launch off the select
+route or an SSM backward launch off the scan route on theirs.  The last lines are a JSON object describing the
 kernels (the backwards of flash attention and the selective scan
 among them; every kernel's
 ``launches_by_path`` but RMSNorm's split by route; flash's
@@ -289,6 +294,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -371,7 +377,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     every segment-sum launch took the ``binned`` route, every dispatch
     launch the ``cluster`` route and every top-k launch the ``select``
     route, unless the SSM scan's launches split by route as
-    ``ssm_routes`` says (none on any route when it is None), and unless
+    ``ssm_routes`` says (none on any route when it is None), unless every
+    SSM backward launch took the ``scan`` route, and unless
     flash's launches split by shape as ``flash_shapes`` says and the flash
     backward's as ``bwd_shapes`` says, when they are given."""
     mods = kernel_modules()
@@ -401,24 +408,26 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     want_bwd = {r: got["flash_attention_bwd"] * (r == flash_route)
                 for r in bwd}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
+    want_ssm_bwd = {r: got["ssm_scan_bwd"] * (r == "scan") for r in ssm_bwd}
     want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
     want_disp = {r: got["moe_dispatch"] * (r == "cluster") for r in disp}
     want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
     if (got != want or routes != want_routes or bwd != want_bwd
-            or ssm != want_ssm
+            or ssm != want_ssm or ssm_bwd != want_ssm_bwd
             or seg != want_seg or disp != want_disp
             or topk != want_topk
             or flash_shapes not in (None, shapes)
             or bwd_shapes not in (None, bwd_by_shape)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, flash backward by route {bwd}, "
-                             f"ssm_scan by route {ssm}, "
+                             f"ssm_scan by route {ssm}, ssm_scan_bwd by "
+                             f"route {ssm_bwd}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
                              f"{topk}, flash by shape {shapes}, flash "
                              f"backward by shape {bwd_by_shape}; expected "
                              f"{want}, {want_routes}, {want_bwd}, "
-                             f"{want_ssm}, "
+                             f"{want_ssm}, {want_ssm_bwd}, "
                              f"{want_seg}, {want_disp}, {want_topk}, "
                              f"{flash_shapes}, {bwd_shapes}")
     return got
@@ -4298,6 +4307,9 @@ SSM_BWD_REPLACES = ("src/repro/kernels/ssm_scan/kernel.py:72 (its "
 #: xc gives dxc and dx_proj in bf16 (2^-9 relative rounding, ~1.1e-3 RMS),
 #: the other gradients stay f32.
 SSM_BWD_REL_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 5e-3}
+#: One backward call at hymba's training shape allocates less than this
+#: (outputs and scratch; the first design's h_t alone took 0.84 GB).
+SSM_BWD_CALL_BYTES = 200_000_000
 HYMBA_TRAIN_STEPS = 3
 SSM_GRADS = ("dxc", "dx_proj", "ddt_bias", "da_log", "dh0")
 
@@ -4330,16 +4342,45 @@ def ssm_bwd_bound(b: int, t: int, d: int, n: int, itemsize: int):
 
 def ssm_bwd_mufu_floor_ms(b: int, t: int, d: int, n: int,
                           chunk: int) -> tuple:
-    """(the floor of a backward that walks the steps twice, forward and
-    back: n + 2 transcendentals a channel-step forward, n + 3 back; the
-    floor of this design, which also runs the chunk-local walk back over
-    every chunk but the first and an exp a state and chunk end), at
-    MUFU_PER_S."""
+    """(the floor of the scan design: one exp2 a state-step, whose a
+    serves both scans, and a softplus and a sigmoid, two each, a
+    channel-step; the floor of the first design, which walks the steps
+    twice, n + 2 transcendentals a channel-step forward and n + 3 back, and
+    also runs the chunk-local walk back over every chunk but the first and
+    an exp a state and chunk end), at MUFU_PER_S."""
     nc = -(-t // chunk)
-    two = b * d * t * (2 * n + 5)
-    design = two + b * d * (n + 2) * (t - min(t, chunk)) \
-        + b * d * n * (nc - 1)
-    return two / MUFU_PER_S * 1e3, design / MUFU_PER_S * 1e3
+    scan = b * d * t * (n + 4)
+    rerun = b * d * t * (2 * n + 5) \
+        + b * d * (n + 2) * (t - min(t, chunk)) + b * d * n * (nc - 1)
+    return scan / MUFU_PER_S * 1e3, rerun / MUFU_PER_S * 1e3
+
+
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its namespace, template
+    arguments and parameters (``ssm_bwd_scan`` of ``void (anonymous
+    namespace)::ssm_bwd_scan<__nv_bfloat16, 16>(...)``)."""
+    m = re.search(r"(\w+)\s*[<(]", key.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else key
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Device ms of each kernel one call of ``fn`` launches, by name, from
+    ``torch.profiler`` (the card's rows only), after a warm-up call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda and e.self_device_time_total > 0:
+            name = kernel_name(e.key)
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3
+    return out
 
 
 def grad_errors(name: str, got, want, tol: float) -> tuple:
@@ -4409,15 +4450,19 @@ def ssm_bwd_check(dev, g, name, b, t, d, n, dtype, carried: bool,
 def ssm_bwd_kernel_phase(dev, d: int, n: int) -> dict:
     """The SSM backward kernel against its plain version at hymba's
     training shape (bf16 and f32, h0 and dh zero as in training) and at
-    the edges, each launched twice to the same bytes; timed at the
-    training shape by CUDA-graph replay beside the plain version, the
-    bound and the MUFU floors.  Returns the kernel's JSON record."""
+    the edges (spans, channel groups), each launched twice to the same
+    bytes; at the training shape held to the first design too and timed
+    in turns with it by CUDA-graph replay, beside the plain version, the
+    bound and both designs' MUFU floors, with device time by kernel and
+    one call's allocation (under ``SSM_BWD_CALL_BYTES``).  Returns the
+    kernel's JSON record."""
     import torch
     from repro_torch.kernels.ssm_scan import backward as sbmod
     from repro_torch.kernels.ssm_scan import kernel as smod
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     bf16, f32 = torch.bfloat16, torch.float32
     L = smod.CHUNK
+    S, G = sbmod.SPAN, sbmod.GROUP
     g = torch.Generator(device=dev).manual_seed(61)
     cases = [
         # name, b, t, d, n, xc dtype, carried h0 and dh, shifts
@@ -4429,6 +4474,10 @@ def ssm_bwd_kernel_phase(dev, d: int, n: int) -> dict:
         (f"T=L={L}", 2, L, d, n, f32, True, {}),
         (f"T=L+1={L + 1}", 2, L + 1, d, n, bf16, True, {}),
         (f"T={PROMPT}+17", BATCH, PROMPT + 17, d, n, bf16, True, {}),
+        (f"T=2 spans-1={2 * S - 1}", 2, 2 * S - 1, d, n, bf16, True, {}),
+        (f"T=2 spans+1={2 * S + 1}", 2, 2 * S + 1, d, n, f32, True, {}),
+        (f"d=200 (not a multiple of the {G}-channel group)", 2, 300, 200,
+         n, bf16, True, {}),
         ("d=1001 (not a multiple of the block)", 3, 300, 1001, n, bf16,
          True, {}),
         ("n=2", 2, 300, 37, 2, f32, True, {}),
@@ -4453,29 +4502,51 @@ def ssm_bwd_kernel_phase(dev, d: int, n: int) -> dict:
                                  *(e[k] for k in SSM_GRADS))
     abs_errs["torch.bfloat16"] = max(abs_errs["torch.bfloat16"],
                                      e["max_abs_err"])
+    # the first design on the same inputs: within the route's tolerance of
+    # it, then both timed in turns by graph replay
     t0 = time.perf_counter()
-    ms = graph_ms(lambda: sbmod.ssm_scan_bwd_kernel(*inputs), reps=10,
-                  replays=3)
+    new = sbmod.ssm_scan_bwd_kernel(*inputs)
+    old = sbmod.rerun_launch(*inputs)
+    vs_rerun, _ = grad_errors("scan vs the first design", new, old,
+                              SSM_BWD_REL_TOL["torch.bfloat16"])
+    del new, old
+    (ms, rerun_ms), turns = in_turns(
+        lambda fn: graph_ms(fn, reps=10, replays=3),
+        [lambda: sbmod.ssm_scan_bwd_kernel(*inputs),
+         lambda: sbmod.rerun_launch(*inputs)])
     b2b = cuda_ms(lambda: sbmod.ssm_scan_bwd_kernel(*inputs), reps=10)
     fwd_ms = graph_ms(lambda: smod.ssm_scan_kernel(*inputs[:5], save=True),
                       reps=10, replays=3)
     plain = cuda_ms(lambda: ssm_scan_bwd_ref(*inputs[:7]), reps=2,
                     warmup=1)
+    by_kernel = device_ms_by_kernel(
+        lambda: sbmod.ssm_scan_bwd_kernel(*inputs))
+    rerun_by_kernel = device_ms_by_kernel(
+        lambda: sbmod.rerun_launch(*inputs))
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     sbmod.ssm_scan_bwd_kernel(*inputs)
     torch.cuda.synchronize()
     call_bytes = torch.cuda.max_memory_allocated() - base
+    if not call_bytes < SSM_BWD_CALL_BYTES:
+        raise AssertionError(f"ssm backward: one call at the training shape "
+                             f"allocates {call_bytes} B, not under "
+                             f"{SSM_BWD_CALL_BYTES}")
     bnd, by = ssm_bwd_bound(BATCH, PROMPT, d, n, 2)
-    two_walks, floor = ssm_bwd_mufu_floor_ms(BATCH, PROMPT, d, n, L)
-    states_ms = 2 * 4 * BATCH * PROMPT * d * n / HBM_BYTES_PER_S * 1e3
+    floor, rerun_floor = ssm_bwd_mufu_floor_ms(BATCH, PROMPT, d, n, L)
     phase("ssm backward timing training bf16", t0,
           f"xc=({BATCH}, {PROMPT}, {d}) n={n} graph_ms={ms:.5f} "
-          f"back_to_back_ms={b2b:.5f} forward_with_saved_states_graph_ms="
-          f"{fwd_ms:.5f} plain_ms={plain:.4f} bound_ms={bnd:.5f} ({by}) "
-          f"share_of_bound={bnd / ms:.4f} mufu_floor_ms={floor:.5f} (two "
-          f"walks {two_walks:.5f}) h_t_round_trip_ms={states_ms:.5f} "
-          f"call_allocated_bytes={call_bytes}; library: none")
+          f"first_design_graph_ms={rerun_ms:.5f} (in turns: "
+          f"{[round(v, 5) for v in turns]}) back_to_back_ms={b2b:.5f} "
+          f"forward_with_saved_states_graph_ms={fwd_ms:.5f} plain_ms="
+          f"{plain:.4f} bound_ms={bnd:.5f} ({by}) share_of_bound="
+          f"{bnd / ms:.4f} mufu_floor_ms={floor:.5f} first_design_mufu_"
+          f"floor_ms={rerun_floor:.5f} call_allocated_bytes={call_bytes} "
+          f"(limit {SSM_BWD_CALL_BYTES}) device_ms_by_kernel="
+          f"{json.dumps(by_kernel)} first_design_device_ms_by_kernel="
+          f"{json.dumps(rerun_by_kernel)} rel_rms_vs_first_design="
+          f"{json.dumps(vs_rerun)}; library: none")
     del inputs
     return {"name": "ssm_scan_bwd", "route": "cuda",
             "source": SSM_BWD_SOURCE, "replaces": SSM_BWD_REPLACES,
@@ -4484,7 +4555,10 @@ def ssm_bwd_kernel_phase(dev, d: int, n: int) -> dict:
             "max_rel_rms_err": max(errs.values()),
             "max_rel_rms_err_by_dtype": errs, "ms": ms,
             "timed": "CUDA graph replay, training shape bf16",
-            "back_to_back_ms": b2b, "forward_with_saved_states_ms": fwd_ms,
+            "first_design_ms": rerun_ms, "back_to_back_ms": b2b,
+            "forward_with_saved_states_ms": fwd_ms,
+            "device_ms_by_kernel": by_kernel,
+            "first_design_device_ms_by_kernel": rerun_by_kernel,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "call_allocated_bytes": call_bytes, "library_ms": None,
             "library": "none: no single PyTorch call computes a selective "

@@ -9,16 +9,21 @@ forward's chunked route saved (its projection rows and the states
 entering each chunk but the first,
 :func:`~repro_torch.kernels.ssm_scan.kernel.ssm_scan_kernel` with
 ``save``), they compute ``dxc``, ``dx_proj``, ``ddt_bias``, ``da_log`` and
-``dh0`` with no float atomics: the chunks' reverse recurrences from zero,
-the carries between chunks, each chunk re-run forward and walked back, and
-the sums over channels and over (batch, step) as partials added in a
-fixed order.  The source says what bounds it.
+``dh0`` with no float atomics: time-parallel scans over spans of 128
+steps, walked from the last, that keep every state on chip (forward from
+the saved entering states, in reverse from the carried gradient), and the
+sums over channels and over (batch, step) as partials added in a fixed
+order.  The source says what bounds it;
+:func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_bwd_spans_ref` is the
+same decomposition in tensor code.
 
 :func:`ssm_scan_bwd_kernel` takes the plain version
 (:func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_bwd_ref`) for a CPU
-tensor; a CUDA tensor launches the kernels (route ``"chunked"``) or raises.
+tensor; a CUDA tensor launches the kernels (route ``"scan"``) or raises.
 ``LAUNCHES`` counts calls that launched, ``LAUNCHES_BY_ROUTE`` splits them
-by route.
+by route.  The first design (the chunks re-run through device memory)
+stays callable only as :func:`rerun_launch`, for timing beside the
+route; it counts no launch.
 """
 from __future__ import annotations
 
@@ -40,12 +45,24 @@ LIBRARY = KernelLibrary("ssm_scan_bwd", "ssm_scan_bwd.cu", {
     "ssm_scan_bwd_bf16": _ARGS,
     "ssm_scan_bwd_scratch_floats": [_I] * 4 + [
         ctypes.POINTER(ctypes.c_int64)],
+    # the first design, kept for timing beside the route
+    "ssm_scan_bwd_rerun_f32": _ARGS,
+    "ssm_scan_bwd_rerun_bf16": _ARGS,
+    "ssm_scan_bwd_rerun_scratch_floats": [_I] * 4 + [
+        ctypes.POINTER(ctypes.c_int64)],
 })
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
+#: Steps of a span of the scan route's walk (the source's ``SPAN``, which
+#: is the forward's ``CHUNK``: a span starts where the forward saved h) and
+#: channels of a group whose sums over channels one block takes (its
+#: ``GROUP_CH``); both fixed when the source is compiled.
+SPAN = CHUNK
+GROUP = 28
+
 #: Backward calls that launched since the last reset, in all and by route.
 LAUNCHES = 0
-LAUNCHES_BY_ROUTE = {"chunked": 0}
+LAUNCHES_BY_ROUTE = {"scan": 0}
 
 
 def reset_launches() -> None:
@@ -87,6 +104,18 @@ def ssm_scan_bwd_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
            or not v.is_contiguous() for v in inputs):
         raise TypeError("ssm scan backward takes contiguous float32 dy, dh "
                         "and saved states on xc's device")
+    out = _launch("", xc, x_proj, dt_bias, a_log, h0, dy, dh, proj, h_end)
+    LAUNCHES += 1
+    LAUNCHES_BY_ROUTE["scan"] += 1
+    return out
+
+
+def _launch(design: str, xc, x_proj, dt_bias, a_log, h0, dy, dh, proj,
+            h_end) -> Tuple[torch.Tensor, ...]:
+    """Allocates the outputs and the scratch of ``design`` (``""`` the
+    route's, ``"rerun_"`` the first design's) and launches its C entry."""
+    b, t, d = xc.shape
+    n = a_log.shape[1]
     dev = xc.device
     dxc, dx_proj = torch.empty_like(xc), torch.empty_like(x_proj)
     ddt_bias = torch.empty((d,), dtype=torch.float32, device=dev)
@@ -94,17 +123,29 @@ def ssm_scan_bwd_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     dh0 = torch.empty((b, d, n), dtype=torch.float32, device=dev)
     lib = LIBRARY.load()
     floats = ctypes.c_int64()
-    lib.ssm_scan_bwd_scratch_floats(b, t, d, n, ctypes.byref(floats))
+    getattr(lib, f"ssm_scan_bwd_{design}scratch_floats")(
+        b, t, d, n, ctypes.byref(floats))
     scratch = torch.empty(floats.value, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        err = getattr(lib, f"ssm_scan_bwd_{_SUFFIX[xc.dtype]}")(
+        err = getattr(lib, f"ssm_scan_bwd_{design}{_SUFFIX[xc.dtype]}")(
             xc.data_ptr(), x_proj.data_ptr(), dt_bias.data_ptr(),
             a_log.data_ptr(), h0.data_ptr(), proj.data_ptr(),
             h_end.data_ptr(), dy.data_ptr(), dh.data_ptr(),
             scratch.data_ptr(), dxc.data_ptr(), dx_proj.data_ptr(),
             ddt_bias.data_ptr(), da_log.data_ptr(), dh0.data_ptr(), b, t, d,
             n, torch.cuda.current_stream(dev).cuda_stream)
-    check_launch("ssm_scan_bwd", err)
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE["chunked"] += 1
+    check_launch(f"ssm_scan_bwd ({design or 'scan'})", err)
     return dxc, dx_proj, ddt_bias, da_log, dh0
+
+
+def rerun_launch(xc, x_proj, dt_bias, a_log, h0, dy, dh, proj, h_end
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The first design (each chunk's reverse walk from zero, the carries
+    between chunks, each chunk re-run from its saved state with h_t
+    through device memory) on CUDA inputs the route would take: the same
+    results, timed beside the route.  Never a route of the wrapper; counts
+    no launch."""
+    got = _check(xc, x_proj, dt_bias, a_log, h0)
+    _check_cuda(xc, got)
+    return _launch("rerun_", xc, x_proj, dt_bias, a_log, h0, dy, dh, proj,
+                   h_end)

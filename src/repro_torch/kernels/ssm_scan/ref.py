@@ -96,6 +96,153 @@ def ssm_scan_bwd_ref(xc: torch.Tensor, x_proj: torch.Tensor,
             da_log, carry)
 
 
+def _lane_scan(p: torch.Tensor, v: torch.Tensor, reverse: bool
+               ) -> torch.Tensor:
+    """Inclusive scan over dim 1 (the lanes) of the affine maps ``h ->
+    p * h + v`` (Hillis-Steele, as the kernel's warp shuffles): lane i
+    ends with the maps of lanes 0..i composed (``reverse``: i..last)."""
+    p, v = p.clone(), v.clone()
+    lanes, off = p.shape[1], 1
+    while off < lanes:
+        if reverse:
+            v[:, :-off] = p[:, :-off] * v[:, off:] + v[:, :-off]
+            p[:, :-off] = p[:, :-off] * p[:, off:]
+        else:
+            v[:, off:] = p[:, off:] * v[:, :-off] + v[:, off:]
+            p[:, off:] = p[:, off:] * p[:, :-off]
+        off *= 2
+    return v
+
+
+def ssm_scan_bwd_spans_ref(xc: torch.Tensor, x_proj: torch.Tensor,
+                           dt_bias: torch.Tensor, a_log: torch.Tensor,
+                           h0: torch.Tensor, dy: torch.Tensor,
+                           dh: torch.Tensor, span: int = 128,
+                           lanes: int = 16, group: int = 28
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The CUDA backward's decomposition in tensor code (tests only; same
+    arguments and results as :func:`ssm_scan_bwd_ref`).
+
+    T is cut into spans of ``span`` steps, each ``lanes`` lanes of
+    ``span / lanes`` consecutive steps; the last span is padded with steps
+    that change nothing (dt = 0, so a = 1, and x = dy = B = C = 0).  The
+    spans are walked from the last to the first.  In each, for every
+    (channel, state):
+
+    (a) forward: each lane folds its steps into one map ``h -> P h + H``
+        (P the product of its a's), the state entering the span (the
+        forward's saved state; here the sequential forward's) is folded
+        into lane 0's map, the lanes' maps are scanned, and each lane
+        walks its steps from the state the scan gives it: h_t and
+        h_{t-1};
+    (b) reverse: the same for ``g -> a_t (dy_t C_t + g)`` from the right,
+        with the gradient leaving the next span's first step folded into
+        the last lane's map: lam_t and that gradient for this span, the
+        carry into the span before it (dh enters the last span; what
+        leaves the first is dh0).
+
+    One a per state-step serves both.  The sums over states (dx, ddt)
+    stay per (channel, step); the sums over channels (dB, dC, ddtr) are
+    taken per group of ``group`` channels (the last group may be short)
+    and the group partials added in group order; da_log's and ddt_bias's
+    sums over steps are per batch row, added in row order.  Only products
+    of a's are formed, never a division by one."""
+    n = a_log.shape[1]
+    b, steps, d = xc.shape
+    if span % lanes:
+        raise ValueError(f"span {span} is not a whole number of "
+                         f"{lanes} lanes")
+    items = span // lanes
+    nsp = -(-steps // span)
+    pad = nsp * span - steps
+    xf, w = xc.float(), x_proj.float()
+    proj = xf @ w
+    bb, cc, dtr = proj[..., :n], proj[..., n:2 * n], proj[..., 2 * n]
+    z = dtr[..., None] + dt_bias.float()                    # [B, T, d]
+    dt = softplus(z)
+    A = torch.exp(a_log.float())                            # [d, n]
+    a = torch.exp(-A * dt[..., None])
+    # the states entering each span, as the forward saves them
+    h, enter = h0.float(), [h0.float()]
+    for t in range(steps - 1):
+        h = a[:, t] * h + (dt[:, t] * xf[:, t])[..., None] * bb[:, t, None]
+        if (t + 1) % span == 0:
+            enter.append(h)
+
+    def padded(v):
+        return torch.cat([v, v.new_zeros((b, pad) + v.shape[2:])], dim=1)
+
+    dtp, xp, dyp = padded(dt), padded(xf), padded(dy.float())
+    bp, cp = padded(bb), padded(cc)
+    dtx = dtp * xp
+    carry = dh.float()
+    lam_all, q_all, h_all = [], [], []
+    for j in range(nsp - 1, -1, -1):
+        sl = slice(j * span, (j + 1) * span)
+
+        def lanewise(v):
+            return v[:, sl].reshape((b, lanes, items) + v.shape[2:])
+
+        aj = torch.exp(-A * lanewise(dtp)[..., None])       # [B,l,i,d,n]
+        bx = lanewise(dtx)[..., None] * lanewise(bp)[:, :, :, None]
+        dyc = lanewise(dyp)[..., None] * lanewise(cp)[:, :, :, None]
+        p_loc = aj.prod(dim=2)                              # [B,l,d,n]
+        hh = bx[:, :, 0].clone()
+        for k in range(1, items):
+            hh = aj[:, :, k] * hh + bx[:, :, k]             # (a)
+        hh[:, 0] = p_loc[:, 0] * enter[j] + hh[:, 0]
+        hh = _lane_scan(p_loc, hh, reverse=False)
+        hp = torch.cat([enter[j][:, None], hh[:, :-1]], dim=1)
+        hs = []
+        for k in range(items):
+            hs.append(hp)
+            hp = aj[:, :, k] * hp + bx[:, :, k]
+        hs.append(hp)                   # h_{t-1} for each item, then h_T
+        gg = aj[:, :, -1] * dyc[:, :, -1]
+        for k in range(items - 2, -1, -1):
+            gg = aj[:, :, k] * (dyc[:, :, k] + gg)          # (b)
+        gg[:, -1] = p_loc[:, -1] * carry + gg[:, -1]
+        gg = _lane_scan(p_loc, gg, reverse=True)
+        g = torch.cat([gg[:, 1:], carry[:, None]], dim=1)
+        lams = [None] * items
+        for k in range(items - 1, -1, -1):
+            lams[k] = dyc[:, :, k] + g
+            g = aj[:, :, k] * lams[k]
+        carry = g[:, 0]
+
+        def steps_of(vs):
+            return torch.stack(vs, dim=2).reshape((b, span, d, n))
+
+        lam = steps_of(lams)
+        h_prev = steps_of(hs[:items])
+        h_all.append(steps_of(hs[1:]))
+        lam_all.append(lam)
+        q_all.append(lam * aj.reshape(lam.shape) * h_prev)
+    lam = torch.cat(lam_all[::-1], dim=1)[:, :steps]        # [B, T, d, n]
+    q = torch.cat(q_all[::-1], dim=1)[:, :steps]            # d(a) * a
+    hs = torch.cat(h_all[::-1], dim=1)[:, :steps]
+    lam_b = torch.einsum("btdn,btn->btd", lam, bb)
+    ddt = xf * lam_b - torch.einsum("btdn,dn->btd", q, A)
+    dz = ddt * torch.sigmoid(z)
+    dx = dt * xf
+    dproj = 0
+    for c0 in range(0, d, group):                           # group order
+        g = slice(c0, c0 + group)
+        dproj = dproj + torch.cat(
+            [torch.einsum("btdn,btd->btn", lam[:, :, g], dx[:, :, g]),
+             torch.einsum("btdn,btd->btn", hs[:, :, g], dy[:, :, g].float()),
+             dz[:, :, g].sum(-1, keepdim=True)], dim=-1)    # [B, T, 2n+1]
+    dxc = dt * lam_b + dproj @ w.T
+    dx_proj = xf.reshape(b * steps, d).T @ dproj.reshape(b * steps, -1)
+    da = (q * dt[..., None]).sum(1)                         # per row
+    dbias = dz.sum(1)
+    da_sum, dbias_sum = 0, 0
+    for r in range(b):                                      # row order
+        da_sum, dbias_sum = da_sum + da[r], dbias_sum + dbias[r]
+    return (dxc.to(xc.dtype), dx_proj.to(x_proj.dtype), dbias_sum,
+            -da_sum * A, carry)
+
+
 def ssm_scan_chunked_ref(xc: torch.Tensor, x_proj: torch.Tensor,
                          dt_bias: torch.Tensor, a_log: torch.Tensor,
                          h0: torch.Tensor, chunk: int

@@ -1012,7 +1012,7 @@ def test_ssm_kernel_takes_gradients_through_its_backward(cuda):
         assert type(y.grad_fn).__name__ == "SSMScanBackward"
         got = torch.autograd.grad(y, leaves, dy)
         assert smod.LAUNCHES_BY_ROUTE == {"chunked": 1, "step": 0}
-        assert sbmod.LAUNCHES_BY_ROUTE == {"chunked": 1}
+        assert sbmod.LAUNCHES_BY_ROUTE == {"scan": 1}
         plain = [a.clone().requires_grad_() for a in args]
         want = torch.autograd.grad(ssm_scan_ref(*plain)[0], plain, dy)
         for a, w in zip(got, want):
@@ -1029,6 +1029,10 @@ SSM_BWD_CASES = {
     "T=130": (2, 130, 1600, 16, True),
     "T=2065 (a short last chunk)": (2, 2065, 256, 16, True),
     "d=1001, n=5": (3, 300, 1001, 5, True),
+    "T=255 (two spans less a step)": (2, 255, 1600, 16, True),
+    "T=257 (two spans and a step)": (2, 257, 1600, 16, True),
+    "d=200, n=8 (not a multiple of the channel group)": (2, 300, 200, 8,
+                                                         True),
 }
 
 
@@ -1046,6 +1050,24 @@ def test_ssm_backward_kernel_matches_plain_version(cuda, name, dtype):
         cs.SSM_BWD_REL_TOL[str(dtype)]
 
 
+def test_ssm_backward_scan_matches_the_first_design(cuda):
+    """At hymba's training shape in bf16 (h0 and dh zero, as in training)
+    the scan route and the first design (``backward.rerun_launch``, the
+    chunks re-run through device memory) agree within the bf16 tolerance;
+    the first design counts no launch."""
+    from repro_torch.kernels.ssm_scan import backward as sbmod
+    g = torch.Generator(device=cuda).manual_seed(21)
+    _, inputs = cs.ssm_bwd_check(cuda, g, "hymba training bf16", 4, 2048,
+                                 1600, 16, torch.bfloat16, False)
+    new = sbmod.ssm_scan_bwd_kernel(*inputs)
+    before = sbmod.LAUNCHES
+    old = sbmod.rerun_launch(*inputs)
+    assert sbmod.LAUNCHES == before
+    errs, _ = cs.grad_errors("scan vs the first design", new, old,
+                             cs.SSM_BWD_REL_TOL["torch.bfloat16"])
+    assert max(errs.values()) <= cs.SSM_BWD_REL_TOL["torch.bfloat16"]
+
+
 def test_ssm_backward_gradients_stay_finite_where_a_underflows(cuda):
     """dt past softplus's threshold and a = exp(-A dt) underflowing to 0:
     every gradient finite and held to the plain version."""
@@ -1060,10 +1082,10 @@ def test_ssm_backward_gradients_stay_finite_where_a_underflows(cuda):
 def test_hymba_train_step_launches_both_ssm_kernels(cuda):
     """One step of hymba's smoke widths (f32, attn_impl "ref") on the card
     with remat on: per layer two SSM launches on the chunked route (the
-    forward and the recompute) and one backward launch; every leaf gets a
-    gradient, and the step's loss and gradient norm equal the same step
-    on the CPU (the reference's chunked scan) from the same weights within
-    1e-4 of themselves."""
+    forward and the recompute) and one backward launch on the scan route;
+    every leaf gets a gradient, and the step's loss and gradient norm
+    equal the same step on the CPU (the reference's chunked scan) from the
+    same weights within 1e-4 of themselves."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.ssm_scan import backward as sbmod
     from repro_torch.launch import train
@@ -1094,6 +1116,7 @@ def test_hymba_train_step_launches_both_ssm_kernels(cuda):
     assert smod.LAUNCHES_BY_ROUTE == {"chunked": 2 * cfg.num_layers,
                                       "step": 0}
     assert sbmod.LAUNCHES == cfg.num_layers
+    assert sbmod.LAUNCHES_BY_ROUTE == {"scan": cfg.num_layers}
     for k in ("loss", "grad_norm"):
         a, b = (float(metrics[x][k]) for x in ("cuda", "cpu"))
         assert np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b), (k, a, b)

@@ -7,6 +7,13 @@
   n = 8 and 16, d = 80, with h0 and dh non-zero, some channels' dt past
   softplus's threshold (20) and some channels' a_log large enough that
   a = exp(-A dt) underflows to 0;
+* ``ssm_scan_bwd_spans_ref`` (the CUDA backward's decomposition: spans
+  walked from the last, lanes' maps scanned from the saved entering
+  states and, in reverse, from the carried gradient, group partials
+  summed in group order) against ``jax.vjp`` of the same reference, at
+  T = 1, 7, 130 and 300 over spans of 64 steps, n = 5, 8 and 16, d = 80
+  in the kernel's groups of 28 (the last one short), with the same
+  planted channels;
 * the port's ``models/ssm.ssm_scan`` through the kernel's call (on the
   CPU: ``SSMScan`` with the plain forward and ``ssm_scan_bwd_ref``)
   against ``jax.vjp`` of the reference's ``models/ssm.py:ssm_scan`` (its
@@ -33,6 +40,7 @@ from repro_torch.kernels.ssm_scan import (SSMScan, ssm_scan_bwd_kernel,
                                           ssm_scan_kernel, ssm_scan_ref)
 from repro_torch.kernels.ssm_scan import backward as sbmod
 from repro_torch.kernels.ssm_scan import kernel as smod
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_spans_ref
 from repro_torch.models import ssm as T_ssm
 from repro_torch.models.common import ModelConfig
 
@@ -87,6 +95,24 @@ def test_bwd_ref_matches_autograd_and_jax(t, n):
         assert g.dtype == torch.float32 and g.shape == w.shape, what
         assert bool(torch.isfinite(g).all()), what
         assert _rel(g, w) <= TOL, (what, _rel(g, w))
+        assert _rel(g, j) <= TOL, (what, _rel(g, j))
+
+
+@pytest.mark.parametrize("n", [5, 8, 16])
+@pytest.mark.parametrize("t", [1, 7, 130, 300])
+def test_bwd_spans_decomposition_matches_jax(t, n):
+    """The kernel's algebra: spans of 64 steps (16 lanes of 4), so that T
+    crosses them, and the kernel's channel groups of 28, which do not
+    divide d = 80."""
+    arrs = _inputs(1000 + 10 * t + n, 2, t, D, n)
+    ts = [torch.from_numpy(a) for a in arrs]
+    got = ssm_scan_bwd_spans_ref(*ts, span=64, lanes=16,
+                                 group=sbmod.GROUP)
+    _, vjp = jax.vjp(R_ref, *[jnp.asarray(a) for a in arrs[:5]])
+    jax_want = vjp((jnp.asarray(arrs[5]), jnp.asarray(arrs[6])))
+    for what, g, j in zip(GRADS, got, jax_want):
+        assert g.dtype == torch.float32 and g.shape == j.shape, what
+        assert bool(torch.isfinite(g).all()), what
         assert _rel(g, j) <= TOL, (what, _rel(g, j))
 
 
@@ -194,7 +220,7 @@ def test_bwd_kernel_on_cpu_takes_plain_version_and_counts_nothing():
     ts = [torch.from_numpy(a) for a in _inputs(6, 2, 140, 16, 8)]
     sbmod.reset_launches()
     got = ssm_scan_bwd_kernel(*ts)
-    assert sbmod.LAUNCHES == 0 and sbmod.LAUNCHES_BY_ROUTE == {"chunked": 0}
+    assert sbmod.LAUNCHES == 0 and sbmod.LAUNCHES_BY_ROUTE == {"scan": 0}
     for g, w in zip(got, ssm_scan_bwd_ref(*ts)):
         assert torch.equal(g, w)
 

@@ -17,8 +17,8 @@ each:
   of it and the number of kernel launches;
 * device time by group: the flash forward (``flash_fwd*``) and backward
   (``flash_bwd*``) kernels, the SSM scan's forward (``ssm_proj*``,
-  ``ssm_chunk*``) and backward (``ssm_bwd*``) kernels, matrix products
-  (cuBLAS), device-to-host copies, and the rest;
+  ``ssm_chunk*``) and backward (``ssm_bwd*``, also split by kernel)
+  kernels, matrix products (cuBLAS), device-to-host copies, and the rest;
 * device time of the f32 cross-entropy over the vocabulary, forward
   and backward, and of AdamW's update, each between CUDA events recorded
   around it in the step (the backward's from the loss's gradient to the
@@ -53,11 +53,15 @@ GROUPS = {
     "flash_backward": ("flash_bwd",),
     # the chunked route's projection and chunk passes
     "ssm_scan_forward": ("ssm_proj", "ssm_chunk"),
-    # ssm_bwd_chunk_end, _carry, _chunk, _proj_sum, _proj, _params
+    # ssm_bwd_scan, _group_sum, _dxc, _dw, _params
     "ssm_scan_backward": ("ssm_bwd",),
     "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
     "memcpy_dtoh": ("Memcpy DtoH",),
 }
+
+
+#: Groups whose kernels are also printed one by one.
+SPLIT = ("ssm_scan_backward",)
 
 
 class _Mark:
@@ -134,6 +138,7 @@ def profile_step(name, step, state, batch, mark, out_dir):
     """One training step under the profiler; prints its breakdown and
     returns the new state."""
     import torch
+    import chip_smoke as cs
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -159,6 +164,10 @@ def profile_step(name, step, state, batch, mark, out_dir):
         print(f"  {group}: device_ms={us / 1e3:.3f} calls="
               f"{sum(e.count for e in sel)} share_of_device="
               f"{us / max(busy_us, 1):.4f}")
+        if group in SPLIT:
+            for e in sel:
+                print(f"    {cs.kernel_name(e.key)}: device_ms="
+                      f"{e.self_device_time_total / 1e3:.3f} calls={e.count}")
     print(f"  other kernels: device_ms={(busy_us - grouped) / 1e3:.3f} "
           f"share_of_device={(busy_us - grouped) / max(busy_us, 1):.4f}")
     for phase, ms in mark.ms().items():
