@@ -271,12 +271,50 @@ selective scan's backward kernel:
     batch's gradients through the kernels against the reference's
     chunked scan and ``attn_impl="ref"``, leaf by leaf.
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8.
+Slice 10, the mesh: a mesh's shards on the one card, run one after
+another (``core/collectives.py``), at full width, bf16, random weights:
+
+24. hymba-1.5b's prefill at batch 4 x 2048 with ``ssm_cp`` under
+    ``use_rules(make_rules(mesh), mesh)`` on (data 1, model 8): each SSM
+    block context-parallel over eight sequence shards of 256, the scan
+    kernel's chunked route launched twice a shard a layer (512 in all,
+    against 32 for the plain prefill), zero SSM states returned; its
+    logits held to the plain prefill's as the scan routes are (on an f32
+    copy within 1% of the largest |logit|, in bf16 by relative RMS error
+    against that f32 model); the warm walls of both in turns;
+25. granite-moe-1b-a400m's prefill at batch 4 x 2048 on (data 2, model 4)
+    (8 experts a shard, expert d_ff split 2 ways), in both layouts: at
+    capacity factor 8 nothing drops and the logits lie within 10% of the
+    largest |logit| of the dense path's (the dispatch kernel's); at the
+    config's 1.25 the drops and the walls, in turns with the dense
+    prefill; no dispatch kernel launch on this path;
+26. Llama-3.2-1B through ``launch/train.py``'s setup (batch 4 x 2048):
+    one AdamW step each of ``mare_tree`` at depths 1, 2 and 3 and at
+    depth 2 with the int8 codec over (data 4), one sequence a shard, and
+    of ``hierarchical`` over (pod 2, data 2), from the same state and
+    batch as a fused step: flash and its backward launched once a shard
+    a layer (twice forward, with remat), losses within 1e-3 of the fused
+    step's, the gradients handed to AdamW leaf by leaf and their pre-clip
+    norm held to the fused step's (the codec's to its plain version:
+    each shard's gradients through the codec, summed in order), walls and
+    peak allocated bytes; then the same on its 2-layer f32 copy at full
+    width, where the gradients and norm are held within 1e-5 and every
+    parameter within 1e-5 of the fused step that takes the four
+    sequences one at a time, and of the whole-batch fused step's where
+    its gradient is at or above 1e-6 (below, that step's one-at-a-time
+    twin's distance is printed beside each sync's, as a witness);
+27. slice 7's step-2 checkpoint restored through ``checkpoint.rescale``
+    onto (data 2, model 2) with ``make_rules`` and the model's logical
+    axes: every parameter bit-equal to the saved array; the restore's
+    wall.
+
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8, 10.
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route, a top-k launch off the select
-route or an SSM backward launch off the scan route on theirs.  The last lines are a JSON object describing the
+route or an SSM backward launch off the scan route on theirs.  Slice 10 prints
+a ``[mesh]`` JSON line.  The last lines are a JSON object describing the
 kernels (the backwards of flash attention and the selective scan
 among them; every kernel's
 ``launches_by_path`` but RMSNorm's split by route; flash's
@@ -4267,23 +4305,19 @@ def train_grad_check(seed: int) -> None:
     del grads, gk, gr, params
 
 
-def train_slice(seed: int) -> dict:
+def train_slice(seed: int, tmp: str) -> dict:
     """The backward kernel's checks and timings, then Llama-3.2-1B
     training at full width and depth (the main path), its restart from a
-    checkpoint, and the f32 gradient check; returns the backward's JSON
-    record."""
+    checkpoint in ``tmp`` (kept there for slice 10's elastic restore),
+    and the f32 gradient check; returns the backward's JSON record."""
     import torch
     rec = flash_bwd_kernel_phase(torch.device("cuda"))
     torch.cuda.empty_cache()
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        run, batch, log, peak = train_run(tmp, seed)
-        rec["launches"] = PATH_LAUNCHES["train"]["flash_attention_bwd"]
-        rec["train"] = {"steps": log, "peak_allocated_bytes": peak}
-        train_restart(run, batch, tmp, seed)
-        del run, batch
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    run, batch, log, peak = train_run(tmp, seed)
+    rec["launches"] = PATH_LAUNCHES["train"]["flash_attention_bwd"]
+    rec["train"] = {"steps": log, "peak_allocated_bytes": peak}
+    train_restart(run, batch, tmp, seed)
+    del run, batch
     torch.cuda.empty_cache()
     train_grad_check(seed)
     return rec
@@ -4986,6 +5020,580 @@ def xlstm_slice(seed: int) -> None:
                                       expect={}))
 
 
+# ---------------------------------------------------------------------------
+# slice 10: the mesh — its shards on one card, run one after another
+# ---------------------------------------------------------------------------
+
+CP_MESH = ((1, 8), ("data", "model"))         # eight sequence shards
+EP_MESH = ((2, 4), ("data", "model"))         # 8 experts a shard, f_shard 2
+DP_MESH = ((4,), ("data",))                   # one sequence a shard
+POD_MESH = ((2, 2), ("pod", "data"))
+ELASTIC_MESH = ((2, 2), ("data", "model"))
+EP_NO_DROP_CF = 8.0              # no token copy drops at this capacity
+MOE_MODES = ("weight_gather", "token_gather")
+#: The gradient syncs against the fused step: one AdamW step (constant lr
+#: SYNC_LR) of each of SYNCS from the same state and batch as a fused
+#: step.  The loss within SYNC_LOSS_TOL of the fused step's.  The
+#: gradients each step hands AdamW (clipped), leaf by leaf, within
+#: SYNC_GRAD_TOL of the leaf's largest |g|, and the pre-clip gradient norm
+#: within SYNC_NORM_TOL of its reference (both relative; clipping hides a
+#: wrong scale from the gradients, not from the norm): an exact sync's
+#: reference is the fused step, the int8 codec's is its plain version
+#: (each shard's gradients through the codec from a zero residual, added
+#: in f32 in shard order, over the shard count), whose sums are f32 in
+#: both runs.  A bf16 gradient is rounded to 8 significant bits in each
+#: shard's backward, at each level of the tree and in the fused backward:
+#: SYNC_GRAD_TOL["bfloat16"] allows four units in the last place of the
+#: leaf's largest |g|.  On the f32 copy the parameters are held too: every
+#: one within SYNC_PARAM_TOL (the bound of the reference's
+#: ``tests/distributed/grad_sync.py``) of the fused step that takes the
+#: same four sequences one at a time (``StepConfig(microbatch=...)``: the
+#: shards' kernel shapes, accumulated in order), and within SYNC_PARAM_TOL
+#: of the whole-batch fused step's where that step's gradient is at or
+#: above SYNC_GRAD_FLOOR.  Below the floor AdamW's first step
+#: ``lr * g / (|g| + eps)`` (eps 1e-8) turns the f32 rounding of a gradient
+#: near eps into a parameter step of up to lr, and the one-at-a-time fused
+#: step lies as far from the whole-batch one there as the syncs do: that
+#: distance is printed beside each sync's, as the witness.
+SYNC_LR = 1e-3
+SYNC_LOSS_TOL = 1e-3
+SYNC_PARAM_TOL = 1e-5
+SYNC_GRAD_FLOOR = 1e-6
+SYNC_GRAD_TOL = {"float32": 1e-5, "bfloat16": 4 * 2.0 ** -7}
+SYNC_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+SYNCS = (("mare_tree depth 1", "mare_tree", 1, False, DP_MESH),
+         ("mare_tree depth 2", "mare_tree", 2, False, DP_MESH),
+         ("mare_tree depth 3", "mare_tree", 3, False, DP_MESH),
+         ("mare_tree depth 2 int8", "mare_tree", 2, True, DP_MESH),
+         ("hierarchical", "hierarchical", 2, False, POD_MESH))
+
+
+def host_ms(fn) -> float:
+    """Host wall of ``fn()`` between two synchronizes, in ms."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mesh_of(spec):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(spec[0], spec[1])
+
+
+def prefill_under(model, params, tokens, mesh=None, rules=None):
+    """The model's prefill of ``tokens`` (no gradients), under the mesh's
+    rules when a mesh is given; returns (logits, caches)."""
+    import torch
+    from repro_torch.sharding import use_rules
+    with torch.no_grad(), use_rules(rules, mesh):
+        return model.prefill(params, {"tokens": tokens}, tokens.shape[1])
+
+
+def cp_prefill_path(seed: int, cfg=None, batch: int = BATCH,
+                    prompt: int = PROMPT, mesh_spec=CP_MESH) -> dict:
+    """10a: hymba's prefill with ``ssm_cp`` under ``make_rules`` on a
+    (data, model) mesh: each layer's SSM block runs context-parallel,
+    two launches of the scan kernel's chunked route a shard (the second
+    from the carried state), 2 x shards x layers in all; the SSM states
+    it returns are zero, as the reference's.  Its logits are held to the
+    plain prefill's as the scan routes are (``hold_to_f32``: on an f32
+    copy within SSM_ROUTE_TOL_FRAC of the largest |logit|, and in bf16 no
+    farther from that f32 model than the plain bf16 prefill, plus
+    LOGIT_TOL_FRAC).  The warm walls of both in turns."""
+    import copy
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.sharding import make_rules
+    t0 = time.perf_counter()
+    cfg = (cfg or get_config(HYBRID_ARCH)).scaled(ssm_cp=True)
+    L, name = cfg.num_layers, cfg.name
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed)
+    dev = model.device
+    mesh = mesh_of(mesh_spec)
+    rules = make_rules(mesh)
+    cp_ssm = 2 * mesh.size * L
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(seed + 101))
+
+    def run(m, p, cp: bool, path: str):
+        route = "simt" if m.cfg.dtype == "float32" else "wgmma"
+        n = cp_ssm if cp else L
+        reset_launches()
+        logits, caches = prefill_under(m, p, tokens, *(
+            (mesh, rules) if cp else ()))
+        read_launches(path, {"ssm_scan": n, "flash_attention": L}, route,
+                      {"chunked": n})
+        return logits, caches
+
+    logits, caches = run(model, params, True, f"mesh: {name} cp prefill")
+    if any(float(c.ssm.h.abs().max()) != 0.0 for c in caches):
+        raise AssertionError("a cp prefill returned a non-zero SSM state")
+    del caches
+    plain, _ = run(model, params, False, f"mesh: {name} prefill")
+    if not bool(torch.isfinite(logits).all()) or \
+            logits.shape != (batch, prompt, cfg.vocab_size):
+        raise AssertionError(f"cp prefill logits {tuple(logits.shape)} "
+                             f"not finite")
+    if cfg.dtype == "float32":
+        cp32, plain32 = logits, plain
+    else:
+        m32 = build_model(cfg.scaled(dtype="float32"), device=dev)
+        p32 = copy.deepcopy(params).float()
+        cp32, _ = run(m32, p32, True, f"mesh: {name} cp prefill f32")
+        plain32, _ = run(m32, p32, False, f"mesh: {name} prefill f32")
+        del m32, p32
+    scale = max_abs(plain32)
+    f32_diff = max_abs_diff(cp32, plain32)
+    rms = {"cp": rel_rms(logits, plain32), "plain": rel_rms(plain, plain32)}
+    del cp32, plain32
+    hold_to_f32("cp prefill vs plain prefill", f32_diff, scale, rms["cp"],
+                rms["plain"])
+    del logits, plain
+    torch.cuda.empty_cache()
+    (plain_ms, cp_ms), turns = in_turns(host_ms, [
+        lambda: prefill_under(model, params, tokens)[0],
+        lambda: prefill_under(model, params, tokens, mesh, rules)[0]])
+    out = {"mesh": dict(mesh.shape), "batch": [batch, prompt],
+           "ssm_scan_launches": cp_ssm, "plain_ssm_scan_launches": L,
+           "f32_max_abs_diff": f32_diff, "max_abs_logit": scale,
+           "bf16_rel_rms_to_f32": rms, "prefill_ms": plain_ms,
+           "cp_prefill_ms": cp_ms, "ms_in_turns": turns}
+    phase("mesh 10a: context-parallel SSM prefill", t0,
+          f"arch={name} mesh={dict(mesh.shape)} batch={batch}x{prompt} "
+          f"ssm_scan launches cp={cp_ssm} (chunked) plain={L}; f32 "
+          f"max_abs_diff={f32_diff} frac={f32_diff / scale:.3e} "
+          f"tol_frac={SSM_ROUTE_TOL_FRAC}; bf16 to f32 rel_rms cp="
+          f"{rms['cp']:.5f} plain={rms['plain']:.5f} (tol "
+          f"+{LOGIT_TOL_FRAC}); warm prefill_ms plain={plain_ms:.3f} "
+          f"cp={cp_ms:.3f} (in turns {[round(t, 3) for t in turns]})")
+    return out
+
+
+def ep_prefill_path(seed: int, cfg=None, batch: int = BATCH,
+                    prompt: int = PROMPT, mesh_spec=EP_MESH,
+                    tol_frac: float = LOGIT_TOL_FRAC) -> dict:
+    """10b: granite's prefill under ``make_rules`` on a (data, model)
+    mesh, each MoE layer on its expert-parallel path (the token copies
+    packed by owner and exchanged over ``model``; no dispatch kernel
+    launch), in both layouts: at capacity factor EP_NO_DROP_CF no copy
+    drops and the logits lie within ``tol_frac`` of the largest |logit|
+    of the dense path's (the dispatch kernel's); at the config's own
+    capacity factor the drops and the walls, in turns with the dense
+    prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.sharding import make_rules
+    t0 = time.perf_counter()
+    cfg = cfg or get_config(MOE_ARCH)
+    L, name = cfg.num_layers, cfg.name
+    route = "simt" if cfg.dtype == "float32" else "wgmma"
+    model = build_model(cfg, device="cuda")
+    params = model.init(seed)
+    dev = model.device
+    mesh = mesh_of(mesh_spec)
+    rules = make_rules(mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev,
+                           generator=torch.Generator(
+                               device=dev).manual_seed(seed + 202))
+    reset_launches()
+    dense, _ = prefill_under(model, params, tokens)
+    read_launches(f"mesh: {name} dense prefill",
+                  {"moe_dispatch": L, "flash_attention": L}, route)
+    scale = max_abs(dense)
+    out = {"mesh": dict(mesh.shape), "batch": [batch, prompt],
+           "experts_per_shard": cfg.num_experts // mesh.shape["model"],
+           "runs": {}}
+    for cf in (EP_NO_DROP_CF, cfg.capacity_factor):
+        for mode in MOE_MODES:
+            m = build_model(cfg.scaled(capacity_factor=cf, moe_mode=mode),
+                            device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with moe_lib.collect_stats() as stats:
+                logits, _ = prefill_under(m, params, tokens, mesh, rules)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+            read_launches(f"mesh: {name} ep prefill {mode} cf {cf}",
+                          {"flash_attention": L}, route)
+            if len(stats) != L:
+                raise AssertionError(f"{len(stats)} MoE "
+                                     f"layers, expected {L}")
+            dropped = sum(float(st.dropped) for st in stats)
+            diff = max_abs_diff(logits, dense)
+            run = {"dropped": dropped, "max_abs_diff_to_dense": diff,
+                   "prefill_ms": wall,
+                   "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+            del logits
+            if cf == EP_NO_DROP_CF and not (dropped == 0.0 and
+                                            diff <= tol_frac * scale):
+                raise AssertionError(f"{mode} at capacity {cf}: dropped "
+                                     f"{dropped}, logits {diff} from the "
+                                     f"dense path's (> {tol_frac} x "
+                                     f"{scale})")
+            if cf != EP_NO_DROP_CF:
+                (dense_ms, ep_ms), turns = in_turns(host_ms, [
+                    lambda: prefill_under(model, params, tokens)[0],
+                    lambda: prefill_under(m, params, tokens, mesh,
+                                          rules)[0]])
+                run.update(warm_prefill_ms=ep_ms, dense_prefill_ms=dense_ms,
+                           ms_in_turns=turns)
+            out["runs"][f"{mode} cf {cf}"] = run
+            torch.cuda.empty_cache()
+    phase("mesh 10b: expert-parallel MoE prefill", t0,
+          f"arch={name} mesh={dict(mesh.shape)} batch={batch}x{prompt} "
+          f"max_abs_logit={scale} tol_frac={tol_frac} "
+          f"runs={json.dumps(out['runs'])}")
+    return out
+
+
+def sync_state(run_state, params_snapshot, named, residual):
+    """The initial train state again: the snapshot's values copied into
+    the model's parameters (a step updates them in place), fresh AdamW
+    moments, the given residual."""
+    import torch
+    with torch.no_grad():
+        for k, v in named.items():
+            v.copy_(params_snapshot[k])
+    return run_state._replace(residual=residual)
+
+
+def grads_handed(opt, sink: dict):
+    """``opt`` whose update first keeps the (clipped) gradients it is
+    given in ``sink``, by dotted name."""
+    from repro_torch.optim import Optimizer
+
+    def update(grads, state, params, lr):
+        sink.clear()
+        sink.update(grads)
+        return opt.update(grads, state, params, lr)
+
+    return Optimizer(init=opt.init, update=update)
+
+
+def plain_sync_grads(model, params, batch, shards: int, codec: bool,
+                     clip_norm: float) -> tuple:
+    """The plain version of a gradient sync over ``shards`` blocks of the
+    batch's rows: each block's gradients (``backward()`` of the model's
+    loss on its rows), through the int8 codec from a zero residual with
+    ``codec``, added in f32 in block order and divided by ``shards``;
+    returns (the gradients clipped to ``clip_norm``, their pre-clip
+    norm)."""
+    import torch
+    from repro_torch.optim import clip_by_global_norm, named_tree
+    from repro_torch.optim.compression import error_feedback_compress
+    named = named_tree(params)
+    rows = next(iter(batch.values())).shape[0] // shards
+    acc = None
+    for s in range(shards):
+        part = {k: v[s * rows:(s + 1) * rows] for k, v in batch.items()}
+        for p in named.values():
+            p.grad = None
+        model.loss(params, part)[0].backward()
+        g = {k: (p.grad if p.grad is not None else torch.zeros_like(p)
+                 ).float() for k, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        if codec:
+            _, g, _ = error_feedback_compress(g, {
+                k: v.new_zeros(()).expand(v.shape) for k, v in g.items()})
+        acc = g if acc is None else {k: acc[k] + g[k] for k in acc}
+        del g
+    clipped, norm = clip_by_global_norm(
+        {k: v / shards for k, v in acc.items()}, clip_norm)
+    return clipped, float(norm)
+
+
+def grad_diff(grads: dict, ref: dict) -> dict:
+    """The leaf whose max |g - ref| / max |ref| is the largest share of its
+    tolerance (SYNC_GRAD_TOL of the coarser dtype of the two): that
+    relative difference, the tolerance and the leaf."""
+    import torch
+    out = {"grad_rel_diff": 0.0, "grad_tol": SYNC_GRAD_TOL["float32"],
+           "grad_leaf": None}
+    for k, r in ref.items():
+        g = grads[k]
+        tol = SYNC_GRAD_TOL["bfloat16" if torch.bfloat16 in (g.dtype,
+                                                              r.dtype)
+                            else "float32"]
+        d = float((g.float() - r.float()).abs().max())
+        m = float(r.float().abs().max())
+        rel = d / m if m else d
+        if rel / tol > out["grad_rel_diff"] / out["grad_tol"] or \
+                out["grad_leaf"] is None:
+            out = {"grad_rel_diff": rel, "grad_tol": tol, "grad_leaf": k}
+    return out
+
+
+def param_diffs(named: dict, ref: dict, floor: Optional[dict] = None
+                ) -> dict:
+    """The largest |parameter - ref| over every element and, with
+    ``floor``, over the elements whose fused gradient is at or above
+    SYNC_GRAD_FLOOR and over those below it, and how many lie below."""
+    out = {"all": 0.0}
+    if floor is not None:
+        out.update(above_floor=0.0, below_floor=0.0, elements_below_floor=0)
+    for k, v in named.items():
+        diff = (v.detach().float() - ref[k].float()).abs()
+        out["all"] = max(out["all"], float(diff.max()))
+        if floor is None:
+            continue
+        low = floor[k]
+        for key, part in (("above_floor", diff[~low]),
+                          ("below_floor", diff[low])):
+            if part.numel():
+                out[key] = max(out[key], float(part.max()))
+        out["elements_below_floor"] += int(low.sum())
+    return out
+
+
+def sync_steps(label: str, model, optimizer, state, batch,
+               param_check: bool) -> dict:
+    """One AdamW step (constant lr SYNC_LR) of the fused sync and of each
+    of SYNCS from the same state and batch, each with its flash launches
+    (forward, remat's recompute and backward, once a shard a layer), its
+    wall and peak allocated bytes, held as the note on SYNC_LR says; with
+    ``param_check`` also the fused step over the batch's sequences one at
+    a time, and the parameters."""
+    import torch
+    from repro_torch.optim import named_tree
+    from repro_torch.optim.compression import init_residual
+    from repro_torch.optim.schedule import constant
+    from repro_torch.sharding import data_only_rules
+    from repro_torch.train import StepConfig, make_train_step
+    cfg = model.cfg
+    L = cfg.num_layers
+    per = 2 if cfg.remat else 1
+    route = "simt" if cfg.dtype == "float32" else "wgmma"
+    clip = StepConfig().clip_norm
+    rows = next(iter(batch.values())).shape[0]
+    named = named_tree(state.params)
+    snapshot = {k: v.detach().clone() for k, v in named.items()}
+    handed: dict = {}
+    # one untimed fused step first: the first step after the set-up pays
+    # the libraries' start-up (10 s for Llama-3.2-1B on an H100)
+    make_train_step(model, optimizer, constant(SYNC_LR), StepConfig())(
+        sync_state(state, snapshot, named, ()), batch)
+    runs = (("fused", "fused", 2, False, None, 1),)
+    if param_check:
+        runs += (("fused one at a time", "fused", 2, False, None, rows),)
+    runs += tuple(s + (1,) for s in SYNCS)
+    results, refs = {}, {}
+    for name, sync, depth, comp, spec, micro in runs:
+        mesh = mesh_of(spec) if spec else None
+        shards = mesh.size if mesh else micro
+        step = make_train_step(model, grads_handed(optimizer, handed),
+                               constant(SYNC_LR),
+                               StepConfig(grad_sync=sync, tree_depth=depth,
+                                          compression=comp, microbatch=micro),
+                               mesh=mesh, rules=data_only_rules(mesh)
+                               if mesh else None)
+        st = sync_state(state, snapshot, named,
+                        init_residual(state.params) if comp else ())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, metrics = step(st, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        read_launches(f"mesh: {label} {name}",
+                      {"flash_attention": per * L * shards,
+                       "flash_attention_bwd": L * shards}, route)
+        res = {"loss": float(metrics["loss"]),
+               "grad_norm": float(metrics["grad_norm"]), "step_ms": wall,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "mesh": dict(mesh.shape) if mesh else None}
+        grads = dict(handed)
+        handed.clear()
+        if name == "fused":
+            refs["fused"] = (grads, res["grad_norm"])
+            if param_check:
+                refs["floor"] = {k: g.abs() < SYNC_GRAD_FLOOR
+                                 for k, g in grads.items()}
+                refs["fused params"] = {k: v.detach().clone()
+                                        for k, v in named.items()}
+            results[name] = res
+            del new, metrics, st, step, grads
+            continue
+        res["loss_diff"] = abs(res["loss"] - results["fused"]["loss"])
+        if param_check:
+            res["params_vs_fused"] = param_diffs(named, refs["fused params"],
+                                                 refs["floor"])
+        ref_name = "plain int8" if comp else "fused"
+        if comp:
+            # the initial parameters again, for the plain version
+            sync_state(state, snapshot, named, ())
+            ref_grads, ref_norm = plain_sync_grads(model, state.params, batch,
+                                                   shards, True, clip)
+        else:
+            ref_grads, ref_norm = refs["fused"]
+        res["grads_held_to"] = ref_name
+        res["grad_norm_rel_diff"] = abs(res["grad_norm"] - ref_norm) / ref_norm
+        res.update(grad_diff(grads, ref_grads))
+        res["grad_norm_tol"] = SYNC_NORM_TOL[
+            "bfloat16" if any(torch.bfloat16 in (g.dtype, ref_grads[k].dtype)
+                              for k, g in grads.items()) else "float32"]
+        del grads, ref_grads
+        failed = [what for what, bad in (
+            ("loss", not res["loss_diff"] <= SYNC_LOSS_TOL),
+            ("gradient norm",
+             not res["grad_norm_rel_diff"] <= res["grad_norm_tol"]),
+            ("gradients", not res["grad_rel_diff"] <= res["grad_tol"])) if bad]
+        if param_check:
+            if micro > 1:
+                refs["one at a time params"] = {
+                    k: v.detach().clone() for k, v in named.items()}
+            elif not comp:
+                res["params_vs_one_at_a_time"] = param_diffs(
+                    named, refs["one at a time params"])["all"]
+                if not (res["params_vs_fused"]["above_floor"] <=
+                        SYNC_PARAM_TOL and res["params_vs_one_at_a_time"]
+                        <= SYNC_PARAM_TOL):
+                    failed.append("parameters")
+        if comp and not all(bool(torch.isfinite(r).all()) for r in
+                            new.residual.values()):
+            failed.append("residual not finite")
+        if failed:
+            raise AssertionError(f"{label} {name}: {failed} against the "
+                                 f"{ref_name} step: {res}")
+        results[name] = res
+        del new, metrics, st, step
+    with torch.no_grad():
+        for k, v in named.items():
+            v.copy_(snapshot[k])
+    del snapshot, refs
+    torch.cuda.empty_cache()
+    return results
+
+
+def sync_path(seed: int, tmp: str, arch: str = ARCH,
+              smoke: bool = False, batch: int = BATCH,
+              seq: int = PROMPT) -> dict:
+    """10c: the gradient syncs on Llama-3.2-1B, through
+    ``launch/train.py``'s setup (full width and depth, bf16, batch BATCH x
+    PROMPT, one sequence a shard on DP_MESH and POD_MESH), then on its
+    TRAIN_GRAD_CHECK_LAYERS-layer f32 copy at full width, whose
+    parameters are held too (:func:`sync_steps`)."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_train_state
+    t0 = time.perf_counter()
+    argv = ["--arch", arch, "--steps", "1", "--batch", str(batch), "--seq",
+            str(seq), "--ckpt-dir", tmp, "--seed", str(seed), "--device",
+            "cuda"] + (["--smoke"] if smoke else [])
+    run = train.setup(train.parser().parse_args(argv))
+    b = run.batch_fn(0)
+    full = sync_steps(arch, run.model, run.optimizer, run.state, b,
+                      param_check=run.cfg.dtype == "float32")
+    cfg = run.cfg.scaled(num_layers=TRAIN_GRAD_CHECK_LAYERS,
+                         dtype="float32")
+    del run, b
+    torch.cuda.empty_cache()
+    model = build_model(cfg, device="cuda")
+    opt = adamw()
+    state = init_train_state(model, opt, seed)
+    b = train.make_batch_fn(cfg, batch, seq, seed, model.device)(0)
+    f32 = sync_steps(f"{arch} f32 {cfg.num_layers} layers", model, opt,
+                     state, b, param_check=True)
+    del model, state, b
+    torch.cuda.empty_cache()
+    phase("mesh 10c: gradient syncs", t0,
+          f"arch={arch} batch={batch}x{seq} lr={SYNC_LR} "
+          f"loss_tol={SYNC_LOSS_TOL} grad_tol={SYNC_GRAD_TOL} "
+          f"grad_norm_tol={SYNC_NORM_TOL} param_tol={SYNC_PARAM_TOL} (vs "
+          f"the fused step at gradients >= {SYNC_GRAD_FLOOR}, vs the "
+          f"one-at-a-time fused step everywhere) bf16={json.dumps(full)} "
+          f"f32_copy={json.dumps(f32)}")
+    return {"bf16": full, "f32_copy": f32}
+
+
+def elastic_path(seed: int, tmp: str) -> dict:
+    """10d: slice 7's step-TRAIN_SAVE_AT checkpoint restored through
+    ``checkpoint.rescale`` into a fresh state onto ELASTIC_MESH with
+    ``make_rules`` and the model's logical axes: every parameter equal to
+    the saved array bit for bit, every sharding dividing its leaf."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, rescale
+    from repro_torch.launch import train
+    from repro_torch.optim import named_tree
+    from repro_torch.sharding import make_rules
+    t0 = time.perf_counter()
+    args = train.parser().parse_args(train_args(tmp, seed + 2))
+    fresh = train.setup(args)
+    manager = CheckpointManager(tmp, keep=1)
+    if manager.latest_step() != TRAIN_SAVE_AT:
+        raise AssertionError(f"checkpoints {sorted(manager.latest_steps())}")
+    mesh = mesh_of(ELASTIC_MESH)
+    t1 = time.perf_counter()
+    state, shardings = rescale(manager, fresh.state, mesh, make_rules(mesh),
+                               logical_axes=fresh.model.logical_axes(),
+                               step=TRAIN_SAVE_AT)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    named = named_tree(state.params)
+    path = os.path.join(tmp, f"step_{TRAIN_SAVE_AT:08d}", "arrays.npz")
+    differ, split = [], 0
+    with np.load(path) as saved:
+        for key in sorted({"/".join(p for p in k.split(".")
+                                    if not p.isdigit()) for k in named}):
+            arr = saved["params__" + key.replace("/", "__")]
+            for k, v in named.items():
+                parts = k.split(".")
+                if "/".join(p for p in parts if not p.isdigit()) != key:
+                    continue
+                idx = tuple(int(p) for p in parts if p.isdigit())
+                want = torch.from_numpy(arr[idx] if idx else arr).to(
+                    v.device, v.dtype)
+                if not torch.equal(want, v.detach()):
+                    differ.append(k)
+                shardings[k].check(v.shape)
+                split += any(e is not None for e in shardings[k].spec)
+    if differ or int(state.step) != TRAIN_SAVE_AT or \
+            set(shardings) != set(named):
+        raise AssertionError(f"elastic restore: {len(differ)} parameters "
+                             f"differ from the checkpoint ({differ[:5]}), "
+                             f"step {int(state.step)}")
+    out = {"mesh": dict(mesh.shape), "restore_s": restore_s,
+           "parameters": len(named), "split_by_the_rules": split}
+    phase("mesh 10d: elastic restore", t0,
+          f"step {TRAIN_SAVE_AT} checkpoint onto mesh {dict(mesh.shape)} "
+          f"in {restore_s:.3f} s: {len(named)} parameters bit-equal to the "
+          f"saved arrays, {split} split by make_rules, every sharding "
+          f"dividing its leaf")
+    del fresh, state
+    return out
+
+
+def mesh_slice(seed: int, train_tmp: str) -> None:
+    """Slice 10: 10a-10d on the shards of one card; prints a ``[mesh]``
+    JSON line."""
+    import torch
+    out = {"cp_prefill": cp_prefill_path(seed)}
+    torch.cuda.empty_cache()
+    out["ep_prefill"] = ep_prefill_path(seed)
+    torch.cuda.empty_cache()
+    out["grad_sync"] = sync_path(seed, train_tmp)
+    torch.cuda.empty_cache()
+    out["elastic"] = elastic_path(seed, train_tmp)
+    torch.cuda.empty_cache()
+    print("[mesh] " + json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5034,11 +5642,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(hybrid_slice(args.seed))
     torch.cuda.empty_cache()
-    records.append(train_slice(args.seed))
-    torch.cuda.empty_cache()
-    records.append(hymba_train_slice(args.seed))
-    torch.cuda.empty_cache()
-    xlstm_slice(args.seed)
+    train_tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        records.append(train_slice(args.seed, train_tmp))
+        torch.cuda.empty_cache()
+        records.append(hymba_train_slice(args.seed))
+        torch.cuda.empty_cache()
+        xlstm_slice(args.seed)
+        torch.cuda.empty_cache()
+        mesh_slice(args.seed, train_tmp)
+    finally:
+        shutil.rmtree(train_tmp, ignore_errors=True)
     for rec in records:
         if rec["name"] == "flash_attention":
             served_shape_launches(rec)

@@ -25,7 +25,8 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import tree
+from repro_torch.core import collectives, tree
+from repro_torch.core.collectives import SHARDS_AXIS, shards_mesh
 from repro_torch.core.container import Partition, make_partition
 from repro_torch.core.tensors import stable_argsort_false_first, take_clip
 
@@ -175,15 +176,10 @@ def all_to_all(buffers: Sequence[Any]) -> List[Any]:
     """The exchange over logical shards: source ``s`` holds a pytree of
     ``[n, cap, ...]`` blocks, block ``d`` addressed to shard ``d``; the
     result for shard ``d`` is ``[n, cap, ...]`` with row ``s`` from source
-    ``s`` — ``lax.all_to_all(split_axis=0, concat_axis=0)`` per shard."""
-    n = len(buffers)
-
-    def swap(*leaves):
-        stacked = torch.stack(leaves)                 # [src, dst, cap, ...]
-        return stacked.transpose(0, 1).contiguous()   # [dst, src, cap, ...]
-
-    swapped = tree.tree_map(swap, *buffers)
-    return [tree.tree_map(lambda l: l[d], swapped) for d in range(n)]
+    ``s`` — ``lax.all_to_all(split_axis=0, concat_axis=0)`` per shard, over
+    the one-axis mesh of the shards."""
+    return collectives.all_to_all(buffers, shards_mesh(len(buffers)),
+                                  SHARDS_AXIS)
 
 
 def shuffle_partition(parts: Sequence[Partition],
@@ -229,3 +225,28 @@ def shuffle_partition(parts: Sequence[Partition],
         out.append(ShuffleResult(part=part, dropped=packs[d].dropped,
                                  send_counts=packs[d].counts))
     return out
+
+
+def grouped_all_to_all(xs: Sequence[torch.Tensor],
+                       group_ids: Sequence[torch.Tensor],
+                       mesh: collectives.Mesh,
+                       axis_name: collectives.AxisName, capacity: int):
+    """Structured variant used by MoE dispatch: rows of each shard's ``x``
+    [tokens, d] are routed to member ``group_ids[i] % axis_size`` of its
+    group over ``axis_name``, keeping the [source, slot] structure (no
+    compaction).  Returns per shard (recv [axis_size, capacity, d],
+    recv_counts [axis_size]).  This is repartitionBy with an identity
+    partitioner."""
+    n = collectives.axis_size(mesh, axis_name)
+    packs = []
+    for x, gid in zip(xs, group_ids):
+        part = make_partition((x,), torch.tensor(x.shape[0],
+                                                 dtype=torch.int32))
+        dest = (gid % n).to(torch.int32)
+        packs.append(_pack_by_dest(part.records, dest, part.mask(), n,
+                                   capacity))
+    recv = collectives.all_to_all([p.buffer[0] for p in packs], mesh,
+                                  axis_name)
+    counts = collectives.all_to_all([p.counts.reshape(n, 1) for p in packs],
+                                    mesh, axis_name)
+    return [(r, c.reshape(n)) for r, c in zip(recv, counts)]

@@ -13,7 +13,9 @@ the port does the same over a Python list of per-shard partitions.  A
 gets zeros with count 0, and non-leaders keep their partition — exactly
 the values the reference's shards hold.  After K levels shard 0 holds the
 result, which is replicated to every shard (log-doubling, as in the
-reference).
+reference).  The trainer's gradient all-reduces (:func:`tree_allreduce`,
+:func:`fused_allreduce`, :func:`hierarchical_allreduce`) run the same
+levels over an axis of a :class:`~repro_torch.core.collectives.Mesh`.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
-from repro_torch.core import tree
+from repro_torch.core import collectives, tree
+from repro_torch.core.collectives import SHARDS_AXIS, shards_mesh
 from repro_torch.core.container import Partition, make_partition
 from repro_torch.core.tensors import stable_argsort_false_first, take_clip
 
@@ -67,14 +70,23 @@ def _level_pairs(axis_size: int, stride: int, group: int, j: int):
     return [(l + j * stride, l) for l in leaders if l + j * stride < axis_size]
 
 
-def broadcast_from_zero(xs: Sequence[Any]) -> List[Any]:
-    """Replicate shard 0's value to all shards by log-doubling."""
+def broadcast_from_zero(xs: Sequence[Any],
+                        mesh: Optional[collectives.Mesh] = None,
+                        axis_name: collectives.AxisName = SHARDS_AXIS
+                        ) -> List[Any]:
+    """Replicate index 0's value to every member of each group over
+    ``axis_name`` by log-doubling ``ppermute`` waves, as the reference's;
+    without a mesh, over the list's logical shards."""
     xs = list(xs)
-    n = len(xs)
+    mesh = mesh or shards_mesh(len(xs))
+    n = collectives.axis_size(mesh, axis_name)
+    idx = collectives.axis_index(mesh, axis_name)
     k = 1
     while k < n:
-        for s in range(min(k, n - k)):
-            xs[s + k] = xs[s]
+        pairs = [(s, s + k) for s in range(min(k, n - k))]
+        received = collectives.ppermute(xs, mesh, axis_name, pairs)
+        xs = [r if k <= i < 2 * k else x
+              for r, x, i in zip(received, xs, idx)]
         k *= 2
     return xs
 
@@ -244,6 +256,60 @@ def merge_keyed_tables(state: Partition, delta: Partition, num_keys: int,
     cnt = segment_reduce(keys, (counts,), num_keys, op="sum", valid=valid,
                          use_kernel=use_kernel)
     return segment_table_to_partition(merged.values, cnt.values[0], num_keys)
+
+
+# ---------------------------------------------------------------------------
+# Dense-gradient all-reduces over a mesh axis (the trainer's grad syncs)
+# ---------------------------------------------------------------------------
+
+def tree_allreduce(xs: Sequence[Any], mesh: collectives.Mesh,
+                   axis_name: collectives.AxisName, depth: int = 2,
+                   factors: Optional[Sequence[int]] = None) -> List[Any]:
+    """Paper-faithful K-level tree all-reduce of per-shard pytrees over
+    ``axis_name``: each level ships whole partials to group leaders (g-1
+    strided ``ppermute`` sends) and sums them, adding the members in
+    order; the total is tree-broadcast from index 0.  The reference's
+    non-leaders add the zeros they receive and carry that garbage, which
+    they never send and the broadcast overwrites; the port leaves their
+    values as they are.  The MaRe-style gradient synchronizer
+    (``grad_sync="mare_tree"``)."""
+    xs = list(xs)
+    n = collectives.axis_size(mesh, axis_name)
+    if n == 1:
+        return xs
+    factors = list(factors) if factors is not None else split_factors(
+        n, depth)
+    idx = collectives.axis_index(mesh, axis_name)
+    stride = 1
+    for g in factors:
+        if g == 1:
+            continue
+        acc = xs
+        for j in range(1, g):
+            pairs = _level_pairs(n, stride, g, j)
+            leaders = {leader for _, leader in pairs}
+            recv = collectives.ppermute(xs, mesh, axis_name, pairs)
+            acc = [tree.tree_map(torch.add, a, r) if i in leaders else a
+                   for a, r, i in zip(acc, recv, idx)]
+        xs = acc
+        stride *= g
+    return broadcast_from_zero(xs, mesh, axis_name)
+
+
+def fused_allreduce(xs: Sequence[Any], mesh: collectives.Mesh,
+                    axis_name: collectives.AxisName) -> List[Any]:
+    """The reference's beyond-paper path (XLA's fused all-reduce): one
+    ``psum``, an ordered sum in the port."""
+    return collectives.psum(xs, mesh, axis_name)
+
+
+def hierarchical_allreduce(xs: Sequence[Any], mesh: collectives.Mesh,
+                           inner_axis: str, outer_axis: str) -> List[Any]:
+    """Two-level tree across mesh axes: a ``psum`` over ``inner_axis``
+    (within a pod), then over ``outer_axis`` (across pods) — the paper's
+    K=2 tree at mesh granularity."""
+    xs = collectives.psum(xs, mesh, inner_axis)
+    return collectives.psum(xs, mesh, outer_axis)
 
 
 def collective_bytes_tree(nbytes: int, axis_size: int, depth: int = 2) -> int:

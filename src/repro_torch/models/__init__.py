@@ -1,8 +1,10 @@
 """Unified model API: the reference's ``models/__init__.py`` on PyTorch.
 
 ``build_model(cfg, device=)`` returns a :class:`Model` namespace with
-init / loss / forward / prefill / decode_step / init_cache, the surface
-the trainer, the server and the tests use.  The port runs the dense,
+init / loss / forward / prefill / decode_step / init_cache /
+logical_axes, the surface the trainer, the server and the tests use
+(``logical_axes()`` is the reference's tree of logical axis names, for
+``checkpoint.rescale``).  The port runs the dense,
 MoE, hybrid, vlm and ssm (xlstm) families (``models/transformer.py``)
 and the audio family (``models/encdec.py``).  A batch holds ``tokens``
 (and ``labels`` for the loss), and
@@ -35,6 +37,7 @@ class Model:
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Optional[Callable[..., Any]]   # None for audio
+    logical_axes: Callable[[], Any]       # the reference's axes tree
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
@@ -56,7 +59,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
                 p, b["frames"], b["tokens"], cfg, max_len),
             decode_step=lambda p, caches, tok: encdec.decode_step(
                 p, caches, tok, cfg),
-            init_cache=None)
+            init_cache=None,
+            logical_axes=lambda: encdec.encdec_logical_axes(cfg))
 
     def fwd(p, b):
         logits, _ = transformer.forward(
@@ -75,7 +79,8 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
         decode_step=lambda p, caches, tok: transformer.decode_step(
             p, caches, tok, cfg),
         init_cache=lambda batch, max_len: transformer.init_cache(
-            cfg, batch, max_len, device=dev))
+            cfg, batch, max_len, device=dev),
+        logical_axes=lambda: transformer.lm_logical_axes(cfg))
 
 
 __all__ = ["Model", "ModelConfig", "Params", "build_model", "param_count",

@@ -40,6 +40,13 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig,
                   wo=trunc_normal(gen, (H, hd, d), dt))
 
 
+def attention_logical_axes(cfg: ModelConfig) -> dict:
+    return {"wq": ("embed", "heads", "hd"),
+            "wk": ("embed", "kv", "hd"),
+            "wv": ("embed", "kv", "hd"),
+            "wo": ("heads", "hd", "embed")}
+
+
 def _project_qkv(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, rope: bool = True):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])

@@ -81,6 +81,14 @@ class ModelConfig:
         return dataclasses.replace(self, **overrides)
 
 
+def lift_axes(axes: dict, prefix: Tuple[str, ...]) -> dict:
+    """A logical-axes tree (nested dicts whose leaves are tuples of axis
+    names) with ``prefix`` before every leaf: the axes of the reference's
+    stacked ``[L, ...]`` layer leaves."""
+    return {k: lift_axes(v, prefix) if isinstance(v, dict)
+            else tuple(prefix) + tuple(v) for k, v in axes.items()}
+
+
 def remat(cfg: ModelConfig, fn: Callable, *args):
     """``fn(*args)``; with ``cfg.remat`` where gradients are taken, under
     ``torch.utils.checkpoint`` (non-reentrant): nothing inside ``fn`` is

@@ -25,11 +25,12 @@ from torch import nn
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (ModelConfig, Params, remat,
-                                       trunc_normal)
+from repro_torch.models.common import (ModelConfig, Params, lift_axes,
+                                       remat, trunc_normal)
 from repro_torch.models.layers import (ParamsLike, apply_layernorm,
                                        apply_mlp, cross_entropy,
-                                       init_layernorm, init_mlp)
+                                       init_layernorm, init_mlp,
+                                       mlp_logical_axes)
 
 
 class EncDec(Params):
@@ -78,6 +79,22 @@ def init_encdec(gen: torch.Generator, cfg: ModelConfig) -> EncDec:
         dec_layers=nn.ModuleList(dec_layer()
                                  for _ in range(cfg.num_layers)),
         dec_ln=ln())
+
+
+def encdec_logical_axes(cfg: ModelConfig) -> dict:
+    """The reference's axes tree: ``enc_layers`` / ``dec_layers`` are its
+    stacked ``[L, ...]`` leaves (the port's per-layer tensors drop the
+    leading ``"layers"``)."""
+    ln = {"scale": ("embed",), "bias": ("embed",)}
+    attn_ax = attn_lib.attention_logical_axes(cfg)
+    enc = {"ln1": dict(ln), "attn": attn_ax, "ln2": dict(ln),
+           "mlp": mlp_logical_axes(cfg)}
+    dec = {"ln1": dict(ln), "self_attn": attn_ax, "ln_x": dict(ln),
+           "cross_attn": attn_ax, "ln2": dict(ln),
+           "mlp": mlp_logical_axes(cfg)}
+    return {"embed": {"table": ("vocab", "embed_pod")},
+            "enc_layers": lift_axes(enc, ("layers",)), "enc_ln": dict(ln),
+            "dec_layers": lift_axes(dec, ("layers",)), "dec_ln": dict(ln)}
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Shared layers: norms, RoPE, SwiGLU MLP, embeddings.
 
 The reference's ``models/layers.py`` on PyTorch.  Its ``constrain``
-sharding annotations are the identity on one card and are dropped.  Every
+sharding annotations change no value and are dropped
+(``sharding.constrain`` is a checked no-op).  Every
 ``apply_*`` reads its parameters as ``p["name"]``, so it takes a
 :class:`~repro_torch.models.common.Params` module or a plain dict.
 """
@@ -96,6 +97,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
                   w2=trunc_normal(gen, (f, d), dt))    # down
 
 
+def mlp_logical_axes(cfg: ModelConfig) -> dict:
+    if cfg.use_gelu:
+        return {"w1": ("embed", "ff"), "b1": ("ff",),
+                "w2": ("ff", "embed"), "b2": ("embed",)}
+    return {"w1": ("embed", "ff"), "w3": ("embed", "ff"),
+            "w2": ("ff", "embed")}
+
+
 def apply_mlp(p: ParamsLike, x: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     if cfg.use_gelu:
@@ -115,6 +124,13 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = trunc_normal(gen, (cfg.d_model, cfg.vocab_size), dt)
     return Params(**p)
+
+
+def embedding_logical_axes(cfg: ModelConfig) -> dict:
+    p = {"table": ("vocab", "embed_pod")}
+    if not cfg.tie_embeddings:
+        p["unembed"] = ("embed_pod", "vocab")
+    return p
 
 
 def embed_tokens(p: ParamsLike, tokens: torch.Tensor,

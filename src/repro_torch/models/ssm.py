@@ -48,6 +48,13 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig,
         out_proj=trunc_normal(gen, (di, d), dt))
 
 
+def ssm_logical_axes(cfg: ModelConfig) -> dict:
+    return {"in_proj": ("embed", "ff"), "conv_w": ("conv", "ff"),
+            "x_proj": ("ff", None), "dt_bias": ("ff",),
+            "a_log": ("ff", "state"), "d_skip": ("ff",),
+            "out_proj": ("ff", "embed")}
+
+
 class SSMState(NamedTuple):
     conv: torch.Tensor    # [B, conv_width-1, di] trailing inputs
     h: torch.Tensor       # [B, di, n] recurrent state (f32)

@@ -12,8 +12,11 @@ becomes a Python loop over one module per layer (PyTorch runs eagerly:
 there is no graph whose size depth could grow), so ``scan_layers``
 selects nothing.  ``remat`` recomputes each layer (each xlstm unit) in
 the backward pass through ``torch.utils.checkpoint`` where gradients
-are taken, as the reference's ``jax.checkpoint``.  The ``"audio"`` family
-is ``models/encdec.py``.
+are taken, as the reference's ``jax.checkpoint``.  Under an active mesh
+(``sharding.use_rules``) a hybrid prefill with ``cfg.ssm_cp`` runs each
+layer's SSM block context-parallel (``models/ssm_cp.py``) and, as the
+reference's, returns zero SSM states.  The ``"audio"`` family is
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -28,12 +31,15 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.attention import KVCache, init_kv_cache
-from repro_torch.models.common import (ModelConfig, Params, remat,
-                                       trunc_normal)
+from repro_torch.models.common import (ModelConfig, Params, lift_axes,
+                                       remat, trunc_normal)
 from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        cross_entropy, embed_tokens,
+                                       embedding_logical_axes,
                                        init_embedding, init_mlp, init_norm,
-                                       unembed)
+                                       mlp_logical_axes, unembed)
+from repro_torch.models.ssm_cp import ssm_block_context_parallel
+from repro_torch.sharding import active
 
 #: The families the port runs.
 PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
@@ -78,6 +84,25 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
     else:
         p["mlp"] = init_mlp(gen, cfg)
     return Block(**p)
+
+
+def block_logical_axes(cfg: ModelConfig) -> dict:
+    norm = {"scale": ("embed",)} if not cfg.use_layernorm else \
+        {"scale": ("embed",), "bias": ("embed",)}
+    p: dict = {"norm1": dict(norm), "norm2": dict(norm)}
+    if cfg.family in ("dense", "vlm", "audio"):
+        p["attn"] = attn_lib.attention_logical_axes(cfg)
+        p["mlp"] = mlp_logical_axes(cfg)
+    elif cfg.family == "moe":
+        p["attn"] = attn_lib.attention_logical_axes(cfg)
+        p["moe"] = moe_lib.moe_logical_axes(cfg)
+    elif cfg.family == "hybrid":
+        p["attn"] = attn_lib.attention_logical_axes(cfg)
+        p["ssm"] = ssm_lib.ssm_logical_axes(cfg)
+        p["mlp"] = mlp_logical_axes(cfg)
+        p["norm_a"] = dict(norm)
+        p["norm_s"] = dict(norm)
+    return p
 
 
 def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
@@ -162,6 +187,18 @@ def init_xlstm_stack(gen: torch.Generator, cfg: ModelConfig) -> Params:
     s = nn.ModuleList(_xlstm_block(gen, cfg, xlstm_lib.init_slstm)
                       for _ in range(units))
     return Params(m_blocks=m, s_blocks=s)
+
+
+def xlstm_stack_logical_axes(cfg: ModelConfig) -> dict:
+    m_per, units = _xlstm_unit_shape(cfg)
+    norm = {"scale": ("embed",)}
+    m = {"norm": dict(norm), "core": xlstm_lib.mlstm_logical_axes(cfg)}
+    out = {"m_blocks": lift_axes(m, ("layers", "layers") if units
+                                 else ("layers",))}
+    if units:
+        s = {"norm": dict(norm), "core": xlstm_lib.slstm_logical_axes(cfg)}
+        out["s_blocks"] = lift_axes(s, ("layers",))
+    return out
 
 
 def _m_block(cfg: ModelConfig, bp: ParamsLike,
@@ -284,6 +321,25 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
         p["patch_proj"] = trunc_normal(gen, (cfg.d_model, cfg.d_model),
                                        cfg.param_dtype)
     return LM(**p)
+
+
+def lm_logical_axes(cfg: ModelConfig) -> dict:
+    """The reference's logical axes of the model's parameters, a nested
+    dict by its pytree paths: a stacked ``[L, ...]`` leaf leads with
+    ``"layers"`` (two for xlstm's ``[units, m_per, ...]`` mLSTM blocks),
+    which the port's per-layer tensors drop
+    (``checkpoint/elastic.shardings_for_params``)."""
+    p: dict = {"embed": embedding_logical_axes(cfg),
+               "final_norm": {"scale": ("embed",)}
+               if not cfg.use_layernorm
+               else {"scale": ("embed",), "bias": ("embed",)}}
+    if cfg.family == "ssm":
+        p["xlstm"] = xlstm_stack_logical_axes(cfg)
+    else:
+        p["blocks"] = lift_axes(block_logical_axes(cfg), ("layers",))
+    if cfg.family == "vlm" and cfg.num_patches:
+        p["patch_proj"] = ("embed", None)
+    return p
 
 
 def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
@@ -516,15 +572,23 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
                                patch_embeds=patch_embeds)
     x = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    cp_mesh = _context_parallel_mesh(cfg, s)
     caches: List[LayerCache] = []
     for i, bp in enumerate(params["blocks"]):
         w = layer_window(cfg, i)
         h = apply_norm(cfg, bp["norm1"], x)
         a, (kt, vt) = attn_lib.self_attention(bp["attn"], h, positions, cfg,
                                               window=w, return_kv=True)
-        s_out, st = ssm_lib.ssm_block(
-            bp["ssm"], h, cfg,
-            state=ssm_lib.init_ssm_state(cfg, b, device=x.device))
+        if cp_mesh is not None:
+            s_out = ssm_block_context_parallel(
+                bp["ssm"], h, cfg, cp_mesh,
+                batch_axes=tuple(a for a in ("pod", "data")
+                                 if a in cp_mesh.shape))
+            st = ssm_lib.init_ssm_state(cfg, b, device=x.device)  # stateless
+        else:
+            s_out, st = ssm_lib.ssm_block(
+                bp["ssm"], h, cfg,
+                state=ssm_lib.init_ssm_state(cfg, b, device=x.device))
         x = join_heads(cfg, bp, x, a, s_out)
         caches.append(LayerCache("hybrid", kv=_fill_kv_cache(
             cfg, kt, vt, w, max_len, s), ssm=st))
@@ -532,6 +596,17 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
         x = x + apply_ffn(bp, h, cfg)[0]
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(params["embed"], x, cfg), caches
+
+
+def _context_parallel_mesh(cfg: ModelConfig, s: int):
+    """The active mesh when a hybrid prefill of ``s`` positions takes the
+    context-parallel SSM block (``cfg.ssm_cp`` and a ``model`` axis of
+    more than one shard that divides ``s``), else None."""
+    _, mesh = active()
+    if cfg.ssm_cp and mesh is not None and \
+            mesh.shape.get("model", 1) > 1 and s % mesh.shape["model"] == 0:
+        return mesh
+    return None
 
 
 def _fill_kv_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,

@@ -43,6 +43,13 @@ def init_mlstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
                   wo=trunc_normal(gen, (H, hd, d), dt))
 
 
+def mlstm_logical_axes(cfg: ModelConfig) -> dict:
+    return {"wq": ("embed", "heads", "hd"), "wk": ("embed", "heads", "hd"),
+            "wv": ("embed", "heads", "hd"), "wi": ("embed", "heads"),
+            "wf": ("embed", "heads"), "f_bias": ("heads",),
+            "wo": ("heads", "hd", "embed")}
+
+
 class MLSTMState(NamedTuple):
     c: torch.Tensor    # [B, H, hd, hd] f32
     n: torch.Tensor    # [B, H, hd] f32
@@ -159,6 +166,14 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig) -> Params:
                   f_bias=torch.full((H, hd), 3.0, dtype=torch.float32,
                                     device=gen.device),
                   wout=trunc_normal(gen, (H, hd, d), dt))
+
+
+def slstm_logical_axes(cfg: ModelConfig) -> dict:
+    ax3 = ("embed", "heads", "hd")
+    axr = ("heads", "hd", None)
+    return {"wz": ax3, "wi": ax3, "wf": ax3, "wo_g": ax3,
+            "rz": axr, "ri": axr, "rf": axr, "ro": axr,
+            "f_bias": ("heads", "hd"), "wout": ("heads", "hd", "embed")}
 
 
 class SLSTMState(NamedTuple):

@@ -2,8 +2,8 @@
 the reference's five manager cases of ``tests/test_checkpoint.py``
 (roundtrip, retention, async flush, a missing checkpoint, no ``.tmp``
 left), and checkpoints carried across packages.  The sixth case,
-``shardings_for_params``, comes with the multi-card backend (ROADMAP
-Queue 1, item 17).
+``shardings_for_params``, runs on the reference's config and on
+multi-axis meshes, where the port's specs equal the reference's.
 
 The port restores in place into the state it is given, so a roundtrip
 is held to a copy taken before the restore, restored into a fresh state
@@ -206,3 +206,97 @@ def test_reference_bfloat16_checkpoint_restores_in_the_port(tmp_path):
         jax.tree.map(np.asarray, r_state.params), cfg, device="cpu"))
     for k, p in named_tree(state.params).items():
         assert p.dtype == torch.bfloat16 and torch.equal(p, want[k]), k
+
+
+def _reference_specs(r_model, r_params, rules_of, mesh):
+    """The reference's spec of every stacked leaf, by its key."""
+    from repro.checkpoint import shardings_for_params as R_shardings
+    sh = R_shardings(r_params, r_model.logical_axes(), mesh, rules_of(mesh))
+    return {"/".join(str(k.key) for k in path): tuple(s.spec)
+            for path, s in jax.tree_util.tree_leaves_with_path(
+                sh, is_leaf=lambda t: hasattr(t, "spec"))}
+
+
+def test_shardings_for_params_divisibility():
+    """Elastic restore builds divisibility-safe shardings from logical
+    axes (the N->M mesh rescale path): every spec's sharded dims divide
+    the parameter's, on the reference's (1, 1) mesh and on meshes whose
+    axes do not divide every parameter; each spec is the reference's for
+    the stacked leaf without its leading ``"layers"`` entry (the
+    reference's specs on the larger meshes through its rules on a
+    stand-in mesh: a 1-device process builds no such jax mesh)."""
+    import types
+
+    from repro import compat
+    from repro.sharding import make_rules as R_make_rules
+    from repro_torch.checkpoint import shardings_for_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import make_rules
+
+    model = build_model(CFG, device="cpu")
+    params = model.init(0)
+    r_model = R_build_model(R_ModelConfig(**KW))
+    r_params = r_model.init(jax.random.PRNGKey(0))
+    for shape in ((1, 1), (4, 2), (3, 5)):
+        mesh = make_mesh(shape, ("data", "model"))
+        sh = shardings_for_params(params, model.logical_axes(), mesh,
+                                  make_rules(mesh))
+        assert set(sh) == set(named_tree(params))
+        for name, p in named_tree(params).items():
+            for dim, ax in zip(p.shape, tuple(sh[name].spec) + (None,) * 8):
+                if ax is not None:
+                    assert dim % mesh.shape[ax] == 0, (name, shape)
+        r_mesh = compat.make_mesh(shape, ("data", "model")) \
+            if shape == (1, 1) else types.SimpleNamespace(
+                shape=dict(mesh.shape))
+        if shape == (1, 1):
+            want = _reference_specs(r_model, r_params, R_make_rules, r_mesh)
+        else:
+            rules = R_make_rules(r_mesh)
+            axes = jax.tree.leaves(r_model.logical_axes(),
+                                   is_leaf=lambda t: isinstance(t, tuple))
+            want = {"/".join(str(k.key) for k in path): tuple(
+                        rules.spec_for(ax, dims=leaf.shape))
+                    for (path, leaf), ax in zip(
+                        jax.tree_util.tree_leaves_with_path(r_params), axes)}
+        for name, s in sh.items():
+            key = "/".join(p for p in name.split(".") if not p.isdigit())
+            stacked = key.count("/") != name.count(".")
+            w = want[key][1:] if stacked else want[key]
+            assert _trimmed(s.spec) == _trimmed(w), (name, s.spec, w)
+
+
+def test_shardings_for_logical_axes_match_reference():
+    """``elastic.shardings_for`` (no shapes: no divisibility check) maps a
+    logical-axes tree to the reference's specs, leaf for leaf."""
+    from repro import compat
+    from repro.checkpoint.elastic import shardings_for as R_shardings_for
+    from repro.sharding import make_rules as R_make_rules
+    from repro_torch.checkpoint.elastic import shardings_for
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import make_rules
+
+    axes = build_model(CFG, device="cpu").logical_axes()
+    r_mesh = compat.make_mesh((1, 1), ("data", "model"))
+    want = R_shardings_for(R_build_model(R_ModelConfig(**KW)).logical_axes(),
+                           r_mesh, R_make_rules(r_mesh))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    got = shardings_for(axes, mesh, make_rules(mesh))
+
+    def walk(w, g):
+        if isinstance(g, dict):
+            assert set(w) == set(g)
+            for k in g:
+                walk(w[k], g[k])
+        else:
+            assert tuple(g.spec) == tuple(w.spec) and g.mesh is mesh
+
+    walk(want, got)
+
+
+def _trimmed(spec):
+    """A spec without its trailing Nones (the same layout)."""
+    t = tuple(spec)
+    while t and t[-1] is None:
+        t = t[:-1]
+    return t

@@ -1,9 +1,11 @@
 """On the card: each CUDA kernel (segment sum, flash attention, RMSNorm,
 MoE dispatch, top-k, selective scan) against its plain version, the k-mer,
 virtual-screening and SNP-calling paths on ``cuda`` against the same
-paths on the CPU, and the launches of the LM, vlm and encoder-decoder
+paths on the CPU, the launches of the LM, vlm and encoder-decoder
 prefills (flash), the MoE layers (dispatch) and the hybrid layers
-(selective scan).
+(selective scan), and the mesh's paths (``chip_smoke``'s slice 10 at
+smoke widths: the context-parallel SSM prefill, the expert-parallel MoE
+prefill, the gradient syncs against the fused step).
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -1153,3 +1155,68 @@ def test_llama_train_step_launches_flash_and_its_backward(cuda):
     assert bmod.LAUNCHES_BY_ROUTE == {"wgmma": cfg.num_layers, "simt": 0}
     assert all(seen[0].values()) and len(seen[0]) == len(
         list(state.params.parameters()))
+
+
+def test_mesh_cp_prefill_launches_the_scan_twice_a_shard(cuda):
+    """chip_smoke's slice 10a at hymba's smoke widths (f32, flash on the
+    card): the context-parallel prefill on a (data 1, model 4) mesh
+    launches the scan's chunked route twice a shard a layer, returns zero
+    SSM states, and its logits lie within 1% of the largest |logit| of
+    the plain prefill's."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("hymba-1.5b").scaled(attn_impl="auto")
+    out = cs.cp_prefill_path(0, cfg=cfg, batch=2, prompt=256,
+                             mesh_spec=((1, 4), ("data", "model")))
+    assert out["ssm_scan_launches"] == 2 * 4 * cfg.num_layers
+    assert out["f32_max_abs_diff"] <= cs.SSM_ROUTE_TOL_FRAC * \
+        out["max_abs_logit"]
+
+
+def test_mesh_ep_prefill_matches_dense_without_drops(cuda):
+    """chip_smoke's slice 10b at granite's smoke widths (f32): on a (data
+    2, model 2) mesh both expert-parallel layouts launch no dispatch
+    kernel, drop nothing at capacity factor 8 and give the dense path's
+    logits within 1e-4 of the largest |logit|; at the config's 1.25 they
+    count their drops alike."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("granite-moe-1b-a400m").scaled(attn_impl="auto")
+    out = cs.ep_prefill_path(0, cfg=cfg, batch=4, prompt=64,
+                             mesh_spec=((2, 2), ("data", "model")),
+                             tol_frac=1e-4)
+    runs = out["runs"]
+    assert all(runs[f"{m} cf {cs.EP_NO_DROP_CF}"]["dropped"] == 0
+               for m in cs.MOE_MODES)
+    cf = cfg.capacity_factor
+    assert runs[f"weight_gather cf {cf}"]["dropped"] == \
+        runs[f"token_gather cf {cf}"]["dropped"]
+
+
+def test_mesh_grad_syncs_match_the_fused_step(cuda):
+    """chip_smoke's slice 10c at Llama's smoke widths (f32, flash and its
+    backward on the card): one step of ``mare_tree`` at depths 1-3, with
+    the int8 codec and ``hierarchical``, each shard launching flash and
+    its backward once a layer, the losses within 1e-3 of the fused
+    step's, the gradients handed to AdamW and their norm within 1e-5 of
+    the fused step's (the codec's of its plain version), and the
+    parameters within 1e-5 of the fused step's where its gradient is at
+    or above 1e-6 and of the one-at-a-time fused step's everywhere."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_train_state
+    cfg = get_smoke_config("llama3.2-1b").scaled(attn_impl="auto")
+    model = build_model(cfg, device=cuda)
+    opt = adamw()
+    state = init_train_state(model, opt, 0)
+    batch = train.make_batch_fn(cfg, 4, 64, 0, cuda)(0)
+    res = cs.sync_steps("smoke", model, opt, state, batch, param_check=True)
+    assert set(res) == {"fused", "fused one at a time"} | \
+        {s[0] for s in cs.SYNCS}
+    exact = [r for name, r in res.items()
+             if name not in ("fused", "fused one at a time",
+                             "mare_tree depth 2 int8")]
+    assert all(r["params_vs_fused"]["above_floor"] <= cs.SYNC_PARAM_TOL and
+               r["params_vs_one_at_a_time"] <= cs.SYNC_PARAM_TOL and
+               r["grad_rel_diff"] <= 1e-5 for r in exact)
+    assert res["mare_tree depth 2 int8"]["grads_held_to"] == "plain int8"

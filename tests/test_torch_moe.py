@@ -187,3 +187,34 @@ def test_greedy_tokens_match_reference(capsys):
     assert T_serve.main(argv + ["--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
     assert len(out) == 3 and out[0].endswith(" ms for 3x10")
+
+
+def test_collect_stats_reads_each_layers_stats(setup):
+    """``collect_stats``: every MoE layer of a forward appends its stats in
+    layer order, on the dense path and on the expert-parallel one under a
+    mesh (where a prefill keeps only logits and caches); their aux losses
+    add up to the forward's, an inner collector takes what runs inside
+    it, and nothing is kept outside one."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding import make_rules, use_rules
+    _, cfg_t, _, params_t = setup
+    tokens = _t(_tokens(cfg_t, 2, 8, 3))
+    L = cfg_t.num_layers
+    mesh = make_mesh((2, 2), ("data", "model"))
+    with torch.no_grad():
+        for rules in (None, make_rules(mesh)):
+            with use_rules(rules, mesh if rules else None):
+                with T_moe.collect_stats() as outer:
+                    _, aux = T_tf.forward(params_t, tokens, cfg_t)
+                    with T_moe.collect_stats() as inner:
+                        T_tf.prefill(params_t, tokens, cfg_t, 8)
+            assert len(outer) == len(inner) == L
+            total = torch.zeros((), dtype=torch.float32)
+            for st in outer:
+                total = total + st.aux_loss
+            assert torch.equal(total, aux)
+            assert [float(s.aux_loss) for s in inner] == \
+                [float(s.aux_loss) for s in outer]
+            assert all(float(s.dropped) >= 0.0 for s in inner)
+    T_tf.forward(params_t, tokens, cfg_t)   # no collector: nothing kept
+    assert len(outer) == len(inner) == L

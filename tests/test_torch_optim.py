@@ -165,6 +165,34 @@ def test_error_feedback_carries_residual():
     _close(want_res["w"], res["w"])
 
 
+def test_error_feedback_scales_a_stacked_leaf_as_one():
+    """The port's per-layer tensors of one reference leaf (``blocks.0.w``,
+    ``blocks.1.w``: the reference's stacked ``blocks/w``) share that
+    leaf's scale, so the int8 values equal the reference's over the
+    stacked leaf."""
+    rng = np.random.default_rng(3)
+    w0 = rng.normal(size=(3, 4)).astype(np.float32)
+    w1 = 10 * rng.normal(size=(3, 4)).astype(np.float32)
+    e = rng.normal(size=(5,)).astype(np.float32)
+    grads = {"blocks.0.w": torch.from_numpy(w0),
+             "blocks.1.w": torch.from_numpy(w1), "embed": torch.from_numpy(e)}
+    qs, deq, res = T_comp.error_feedback_compress(
+        grads, T_comp.init_residual(grads))
+    r_grads = {"blocks": {"w": jnp.asarray(np.stack([w0, w1]))},
+               "embed": jnp.asarray(e)}
+    want_qs, want_deq, want_res = R_comp.error_feedback_compress(
+        r_grads, R_comp.init_residual(r_grads))
+    for i in range(2):
+        np.testing.assert_array_equal(
+            np.asarray(want_qs["blocks"]["w"][0])[i],
+            qs[f"blocks.{i}.w"][0].numpy())
+        _close(want_qs["blocks"]["w"][1], qs[f"blocks.{i}.w"][1])
+        _close(np.asarray(want_deq["blocks"]["w"])[i], deq[f"blocks.{i}.w"])
+        _close(np.asarray(want_res["blocks"]["w"])[i], res[f"blocks.{i}.w"])
+    np.testing.assert_array_equal(np.asarray(want_qs["embed"][0]),
+                                  qs["embed"][0].numpy())
+
+
 @given(st.lists(st.floats(-1e4, 1e4, allow_nan=False), min_size=1,
                 max_size=128))
 @settings(max_examples=30, deadline=None)

@@ -348,10 +348,28 @@ def test_microbatch_accumulation_matches_reference():
 
 @pytest.mark.parametrize("sync", ["mare_tree", "hierarchical"])
 def test_multi_card_grad_syncs_name_their_roadmap_item(sync):
+    """The mesh's gradient syncs without a mesh: ``mare_tree`` raises
+    (the reference asserts a mesh), ``hierarchical`` is the fused step,
+    as the reference's; ``tests/test_torch_distributed.py`` runs both on
+    meshes against the reference."""
     model = build_model(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    if sync == "mare_tree":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            make_train_step(model, adamw(), constant(1e-3),
+                            StepConfig(grad_sync=sync))
+        return
+    b = {k: torch.from_numpy(v) for k, v in _fixed_batches()[0].items()}
+    got, gm = make_train_step(model, adamw(), constant(1e-3), StepConfig(
+        grad_sync=sync))(init_train_state(model, adamw(), 0), b)
+    want, wm = make_train_step(model, adamw(), constant(1e-3),
+                               StepConfig())(
+        init_train_state(model, adamw(), 0), b)
+    assert float(gm["loss"]) == float(wm["loss"])
+    assert all(torch.equal(named_tree(want.params)[k], v)
+               for k, v in named_tree(got.params).items())
+    with pytest.raises(ValueError):
         make_train_step(model, adamw(), constant(1e-3),
-                        StepConfig(grad_sync=sync))
+                        StepConfig(grad_sync="ring"))
 
 
 def test_eval_and_serve_steps_take_no_gradients():
