@@ -308,14 +308,38 @@ another (``core/collectives.py``), at full width, bf16, random weights:
     axes: every parameter bit-equal to the saved array; the restore's
     wall.
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8, 10.
+Slice 11, the dry run (``launch/dryrun_lib.py``: each cell's step
+counted on the meta device by the work counter ``launch/hlo_cost.py``),
+held to real steps:
+
+28. on this machine's host, three cells on the production mesh (16 x
+    16): Llama-3.2-1B x train_4k, hymba-1.5b x prefill_32k (its batch of
+    32 does not divide 256 shards: ``ssm_cp``), granite-moe-1b-a400m x
+    decode_32k (``token_gather``); each cell's compute, memory and
+    collective terms over the H100's rates and its peak bytes;
+29. one Llama-3.2-1B and one hymba-1.5b training step (slice 7 / 9's
+    setup, 4 x 2048, AdamW, remat) and one granite prefill at the serving
+    shape, each run once on the card under the counter (its launches read
+    as slices 7, 9 and 3a read them) and once on meta: the FLOPs, the
+    bytes and each kernel's reported operations equal as integers, every
+    kernel's reports as many as its launches, and the arguments' bytes
+    within 1% of those allocated for them; the meta peak beside
+    ``max_memory_allocated()``, and the step's share of 989 TFLOP/s at
+    slice 7 / 9's fastest warm step;
+30. with tracing on, from a fresh plan cache, the k-mer action (a
+    4,000,000-base genome, k = 12) and the VS action: each program's
+    ``cost``, its counter's segment-sum / top-k reports as many as the
+    launches, FLOPs and bytes above zero.
+
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8, 10,
+11.
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route, a top-k launch off the select
 route or an SSM backward launch off the scan route on theirs.  Slice 10 prints
-a ``[mesh]`` JSON line.  The last lines are a JSON object describing the
-kernels (the backwards of flash attention and the selective scan
+a ``[mesh]`` JSON line, slice 11 a ``[dryrun]`` one.  The last lines are
+a JSON object describing the kernels (the backwards of flash attention and the selective scan
 among them; every kernel's
 ``launches_by_path`` but RMSNorm's split by route; flash's
 ``served_shapes``, each with its launches by path as
@@ -349,12 +373,8 @@ CHR21_BASES = 46_709_983       # GRCh38 chromosome 21, Ensembl release
 LINE = 60                      # Ensembl FASTA line width
 K = 12
 NUM_SHARDS = 8
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 REPLACES = "src/repro/kernels/segment_reduce/kernel.py:105"
 SOURCE = "src/repro_torch/csrc/segment_sum.cu"
-# H100 SXM dense bf16 tensor-core and float32 CUDA-core peaks (data sheet)
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
 ARCH = "llama3.2-1b"
 BATCH, PROMPT, GEN = 4, 2048, 32
 
@@ -475,6 +495,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
 # data
 # ---------------------------------------------------------------------------
 
+
 def make_genome(n: int, seed: int) -> np.ndarray:
     """Random ACGT bases with ~1% in N runs and ~5% soft-masked
     (lowercase) runs, as uint8 bytes."""
@@ -534,6 +555,7 @@ def kmer_bincount(seq: np.ndarray, k: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # kernel check and timing
 # ---------------------------------------------------------------------------
+
 
 def cuda_ms(fn, reps: Optional[int] = None, warmup: int = 3) -> float:
     """Mean device ms of ``fn`` over ``reps`` back-to-back calls, timed
@@ -625,13 +647,12 @@ def compare(name, kern, plain, atol: float = 0.0) -> float:
 
 
 def bound_ms(n: int, n_valid: int, d: int, num_keys: int) -> float:
-    """Least time for the work on these inputs: every valid flag (1 B)
-    read, the key (4 B) and values (d * 4 B) of each valid record read
-    once, each output byte written once (table, counts, overflow), over
-    HBM bandwidth.  The n_valid * (d + 1) adds take far less time at any
-    peak rate, so bytes bound it."""
-    nbytes = n + n_valid * (4 + 4 * d) + num_keys * (4 * d + 4) + 4
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    """Least time for the segment sum on these inputs
+    (``repro_torch.kernels.work.segment_sum``: every valid flag read, the
+    key and values of each valid record read once, each output byte
+    written once, over HBM bandwidth; its adds take far less)."""
+    from repro_torch.kernels import work
+    return work.segment_sum(n, n_valid, d, num_keys).bound()[0]
 
 
 def plain_and_library_ms(keys, vals, valid, num_keys):
@@ -854,6 +875,7 @@ def capturing(fn, keep: dict, calls: list):
 # ---------------------------------------------------------------------------
 # slice 1: the paper's pipeline at chr21 scale
 # ---------------------------------------------------------------------------
+
 
 def kmer_slice(tmp: str, seed: int) -> tuple:
     """GC count and k-mer statistics on a chr21-sized genome written under
@@ -1731,36 +1753,27 @@ AUDIO_PROMPT = AUDIO_CONTEXT - GEN
 
 
 def flash_pairs(sq: int, sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask keeps, per head."""
-    qpos = np.arange(sq) + (sk - sq)
-    masked = causal or window is not None
-    hi = np.minimum(qpos + 1, sk) if masked else np.full(sq, sk)
-    lo = (np.maximum(qpos - window + 1, 0) if window is not None
-          else np.zeros(sq, np.int64))
-    return int(np.clip(hi - lo, 0, None).sum())
+    """(query, key) pairs the mask keeps, per head
+    (``repro_torch.kernels.work.flash_pairs``)."""
+    from repro_torch.kernels import work
+    return work.flash_pairs(sq, sk, causal, window)
 
 
 def flash_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize):
-    """Least time for attention on these inputs: q.k and p.v over the
-    pairs the mask keeps (4 * d operations a pair) at the tensor cores'
-    peak for the inputs' type, against q, k, v read once and o written
-    once over HBM bandwidth."""
-    ops = 4 * d * b * hq * flash_pairs(sq, sk, causal, window)
-    nbytes = itemsize * d * (2 * b * hq * sq + 2 * b * hkv * sk)
-    t_ops = ops / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound ms, by) of attention on these inputs
+    (``repro_torch.kernels.work.flash``: q.k and p.v over the kept pairs
+    at the tensor cores' peak for the inputs' type, against q, k, v read
+    once and o written once over HBM bandwidth)."""
+    from repro_torch.kernels import work
+    return work.flash(b * hq, hq // hkv, sq, sk, d, causal, window,
+                      itemsize).bound()
 
 
 def rms_bound(rows: int, d: int, itemsize: int):
-    """x read once, w read once, out written once over HBM bandwidth; the
-    ~4 operations per element take far less at any peak rate."""
-    nbytes = itemsize * (2 * rows * d + d)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 4 * rows * d / F32_FLOP_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound ms, by) of RMSNorm (``repro_torch.kernels.work.rmsnorm``:
+    x, w read once, out written once; its operations take far less)."""
+    from repro_torch.kernels import work
+    return work.rmsnorm(rows, d, itemsize).bound()
 
 
 def flash_shape(b, hq, hkv, sq, sk, causal, window) -> tuple:
@@ -2336,6 +2349,7 @@ def lm_slice(seed: int) -> list:
 # serving at full width and depth
 # ---------------------------------------------------------------------------
 
+
 def prefill_and_step_launches(run, arch: str, prefill: dict,
                               flash_shapes: dict) -> None:
     """One prefill and one decode step apart, each with every launch
@@ -2435,19 +2449,12 @@ DISPATCH_REPLACES = "src/repro/kernels/moe_dispatch/kernel.py:50"
 DISPATCH_SOURCE = "src/repro_torch/csrc/moe_dispatch.cu"
 
 
-def bytes_bound(nbytes: int, ops: int):
-    """(bound ms, by): ``nbytes`` over HBM bandwidth against ``ops``
-    integer or compare operations at the CUDA cores' 67 T/s."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_FLOP_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes")
-
-
 def dispatch_bound(n: int, groups: int):
-    """n ids read, n positions and ``groups`` counts written; one compare
-    and one add an id."""
-    return bytes_bound(4 * (2 * n + groups), 2 * n)
+    """(bound ms, by) of the dispatch
+    (``repro_torch.kernels.work.dispatch``: n ids read, n positions and
+    ``groups`` counts written; one compare and one add an id)."""
+    from repro_torch.kernels import work
+    return work.dispatch(n, groups).bound()
 
 
 def sort_index_add(a, groups, ones):
@@ -2759,9 +2766,10 @@ def topk_combines(num_shards: int, depth: int) -> int:
 
 
 def topk_bound(n: int, k: int):
-    """n scores read, k values and indices written; one compare a
-    score."""
-    return bytes_bound(4 * n + 8 * k + 4, n)
+    """(bound ms, by) of the top-k (``repro_torch.kernels.work.topk``: n
+    scores read, k values and indices written; one compare a score)."""
+    from repro_torch.kernels import work
+    return work.topk(n, k).bound()
 
 
 def special_scores(dev, n: int, seed: int):
@@ -3234,21 +3242,13 @@ SSM_TOL_FRAC = 1e-3
 
 
 def ssm_bound(b: int, t: int, d: int, n: int, itemsize: int):
-    """Least time for the scan on these inputs: xc and x_proj read once
-    (their type), dt_bias, a_log and h0 once, y and h written once (f32),
-    over HBM bandwidth; against the operations at the CUDA cores' f32
-    peak: 2 a multiply-add of the projection (2n+1 columns), 5 a channel
-    and step (dt * x and softplus's add, exp, log1p, max) and 7 a state
-    and step (-A * dt, exp, dt * x * B, a * h + bx, h * C summed)."""
-    cols = 2 * n + 1
-    nbytes = (itemsize * (b * t * d + d * cols) + 4 * (d + d * n + b * d * n)
-              + 4 * (b * t * d + b * d * n))
-    ops = 2 * b * t * d * cols + 5 * b * t * d + 7 * b * t * d * n
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_FLOP_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
+    """(bound ms, by) of the scan on these inputs
+    (``repro_torch.kernels.work.ssm``: its inputs read and outputs written
+    once over HBM bandwidth, against the projection's multiply-adds and 5
+    operations a channel-step and 7 a state-step at the CUDA cores' f32
+    peak)."""
+    from repro_torch.kernels import work
+    return work.ssm(b, t, d, n, itemsize).bound()
 
 # The chunked route's time is bounded by its transcendentals, not by the
 # bound above: one exp a state and step, an exp and a log1p (softplus) a
@@ -3743,19 +3743,13 @@ TRAIN_GRAD_CHECK_LAYERS = 2
 
 def flash_bwd_bound(b, hq, hkv, sq, sk, d, causal, window, itemsize,
                     per_pair: int = 10):
-    """Least time for the gradient on these inputs: five products of 2 d
-    operations a kept (query, key) pair (``per_pair`` = 10; 14 gives the
-    floor of a design that recomputes S and dP in two passes) at the
-    tensor cores' peak for the inputs' type, against q, k, v, o, do and
-    lse read once and dq, dk, dv written once over HBM bandwidth."""
-    ops = per_pair * d * b * hq * flash_pairs(sq, sk, causal, window)
-    nbytes = (itemsize * d * (3 * b * hq * sq + 2 * b * hkv * sk)
-              + 4 * b * hq * sq + itemsize * d * (b * hq * sq
-                                                  + 2 * b * hkv * sk))
-    t_ops = ops / (BF16_FLOP_PER_S if itemsize == 2 else F32_FLOP_PER_S)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound ms, by) of attention's gradient
+    (``repro_torch.kernels.work.flash_bwd``: five products of 2 d
+    operations a kept pair, ``per_pair`` = 10; 14 gives the floor of a
+    design that recomputes S and dP in two passes)."""
+    from repro_torch.kernels import work
+    return work.flash_bwd(b * hq, hq // hkv, sq, sk, d, causal, window,
+                          itemsize, per_pair).bound()
 
 
 def flash_bwd_check(dev, g, name, b, hq, hkv, sq, sk, d, dt, causal,
@@ -4314,6 +4308,7 @@ def train_slice(seed: int, tmp: str) -> dict:
     rec = flash_bwd_kernel_phase(torch.device("cuda"))
     torch.cuda.empty_cache()
     run, batch, log, peak = train_run(tmp, seed)
+    WARM_STEP_MS[ARCH] = min(r["ms"] for r in log[1:])
     rec["launches"] = PATH_LAUNCHES["train"]["flash_attention_bwd"]
     rec["train"] = {"steps": log, "peak_allocated_bytes": peak}
     train_restart(run, batch, tmp, seed)
@@ -4349,29 +4344,13 @@ SSM_GRADS = ("dxc", "dx_proj", "ddt_bias", "da_log", "dh0")
 
 
 def ssm_bwd_bound(b: int, t: int, d: int, n: int, itemsize: int):
-    """Least time for the gradient on these inputs: xc, x_proj, dt_bias,
-    a_log, h0, dy, dh and the forward's saved projection rows and
-    chunk-entering states read once, dxc, dx_proj, ddt_bias, da_log and
-    dh0 written once, over HBM bandwidth; against the operations at the
-    CUDA cores' f32 peak: the forward's 7 a state-step re-run (see
-    :func:`ssm_bound`) and 15 a state-step back (lam, a, a h, the carry,
-    dA, sum lam B, sum q A, dB and dC), 15 a channel-step (softplus,
-    sigmoid, ddt, dz, dx) and 4 (2n + 1) a channel-step for dxc and
-    dx_proj."""
-    cols = 2 * n + 1
-    ends = -(-t // 128) - 1
-    rows = b * t
-    nbytes = (2 * itemsize * (rows * d + d * cols)
-              + 4 * 2 * (d + d * n + b * d * n)
-              + 4 * (rows * d + b * d * n)
-              + 4 * (rows * (2 * (4 if n <= 4 else 8 if n <= 8 else 16
-                                  if n <= 16 else 32) + 4)
-                     + b * ends * n * d))
-    ops = rows * d * (22 * n + 15 + 4 * cols)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_FLOP_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    """(bound ms, by) of the scan's gradient
+    (``repro_torch.kernels.work.ssm_bwd``: the forward's inputs, dy, dh and
+    the saved rows and states read once, the five gradients written once,
+    against 22 operations a state-step, 15 a channel-step and 4 (2n + 1)
+    a channel-step for dxc and dx_proj at the CUDA cores' f32 peak)."""
+    from repro_torch.kernels import work
+    return work.ssm_bwd(b, t, d, n, itemsize).bound()
 
 
 def ssm_bwd_mufu_floor_ms(b: int, t: int, d: int, n: int,
@@ -4971,6 +4950,7 @@ def hymba_train_slice(seed: int) -> dict:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_hymba_")
     try:
         log, peak = hymba_train_run(tmp, seed)
+        WARM_STEP_MS[HYBRID_ARCH] = min(r["ms"] for r in log[1:])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rec["launches"] = PATH_LAUNCHES[f"{HYBRID_ARCH} train"]["ssm_scan_bwd"]
@@ -5594,6 +5574,238 @@ def mesh_slice(seed: int, train_tmp: str) -> None:
     print("[mesh] " + json.dumps(out), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the dry run, and its count held to real steps on the card
+# ---------------------------------------------------------------------------
+
+#: Slice 11a's cells on the production mesh (16 x 16).
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k"), ("hymba-1.5b", "prefill_32k"),
+                ("granite-moe-1b-a400m", "decode_32k"))
+#: ``argument_bytes`` against the bytes the caching allocator was asked
+#: for at the step's start.
+DRYRUN_ARG_TOL = 0.01
+#: The k-mer action of slice 11c runs on a genome of this many bases.
+DRYRUN_KMER_BASES = 4_000_000
+#: The warm step's ms of slices 7 and 9's training runs, by arch.
+WARM_STEP_MS: dict = {}
+
+
+def dryrun_cells() -> dict:
+    """11a: the dry run of DRYRUN_CELLS on meta, on this machine's host."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch.dryrun_lib import dry_run_cell
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    out = {}
+    for arch, shape in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = dry_run_cell(get_config(arch), get_shape(shape), mesh)
+        cell = {k: r[k] for k in ("flops", "bytes", "compute_s", "memory_s",
+                                  "collective_s", "lower_s", "ssm_cp",
+                                  "moe_mode", "optimizer")}
+        cell["peak_bytes"] = r["memory"]["peak_bytes"]
+        cell["argument_bytes"] = r["memory"]["argument_bytes"]
+        cell["kernel_calls"] = {k: v["calls"] for k, v in
+                                r["kernels"].items()}
+        if not r["flops"] > 0 or not r["bytes"] > 0:
+            raise AssertionError(f"dry run {arch} x {shape}: {cell}")
+        out[f"{arch} x {shape}"] = cell
+        phase(f"dry run {arch} x {shape}", t0, json.dumps(cell))
+    if not out["hymba-1.5b x prefill_32k"]["ssm_cp"] or \
+            out["granite-moe-1b-a400m x decode_32k"]["moe_mode"] \
+            != "token_gather" or any(
+                out[c]["collective_s"] is None for c in
+                ("hymba-1.5b x prefill_32k",
+                 "granite-moe-1b-a400m x decode_32k")):
+        raise AssertionError(f"dry run policies: {out}")
+    return out
+
+
+def granite_prefill_step(device: str, seed: int):
+    """(the granite prefill at the serving shape as a function of no
+    arguments, what it is handed) on ``device``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(MOE_ARCH)
+    model = build_model(cfg, device=device)
+    params = model.init(seed)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int32)).to(device)
+
+    def prefill():
+        with torch.no_grad():
+            return model.prefill(params, {"tokens": tokens}, PROMPT + GEN)
+    return prefill, (params, {"tokens": tokens})
+
+
+def train_step_of(arch_args: list, device: str):
+    """(one training step of ``launch/train.py``'s setup as a function of
+    no arguments, what it is handed) on ``device``."""
+    from repro_torch.launch import train
+    args = train.parser().parse_args(arch_args)
+    args.device = device
+    run = train.setup(args)
+    batch = run.batch_fn(0)
+    return (lambda: run.train_step(run.state, batch)), (run.state, batch)
+
+
+def counted_twins(name: str, build, expect: dict, arch: Optional[str],
+                  **read_kw) -> dict:
+    """11b: the step ``build(device)`` makes, run once on the card under
+    the work counter (every launch counter read around it) and once on
+    meta; flops, bytes and every kernel's reported operations must be
+    equal, and ``argument_bytes`` within DRYRUN_ARG_TOL of the bytes the
+    caching allocator was asked for at the step's start, beyond those
+    before the step was built (what earlier slices hold is not the
+    step's; ``memory_allocated()``, printed beside, adds the allocator's
+    rounding of each block, 1.4% at hymba's widths)."""
+    import gc
+    import torch
+    from repro_torch.launch import hlo_cost
+    from repro_torch.launch.dryrun_lib import argument_bytes
+    t0 = time.perf_counter()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    requested0 = torch.cuda.memory_stats().get(
+        "requested_bytes.all.current", 0)
+    fn, args = build("cuda")
+    torch.cuda.synchronize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    arg_bytes = argument_bytes(*args, device=dev)
+    allocated = torch.cuda.memory_allocated() - before
+    requested = torch.cuda.memory_stats()[
+        "requested_bytes.all.current"] - requested0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with hlo_cost.Counter() as card:
+        fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches(f"dry run twin: {name}", expect, **read_kw)
+    del fn, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    mfn, margs = build("meta")
+    meta_arg_bytes = argument_bytes(*margs)
+    with hlo_cost.Counter() as meta:
+        mfn()
+    got, want = card.result(), meta.result()
+    calls = {k: v["calls"] for k, v in got["kernels"].items()}
+    out = {"flops": got["flops"], "bytes": got["bytes"],
+           "meta_flops": want["flops"], "meta_bytes": want["bytes"],
+           "matmul_flops": got["matmul_flops"], "ops": got["ops"],
+           "kernel_ops": {k: v["ops"] for k, v in got["kernels"].items()},
+           "kernel_calls": calls,
+           "argument_bytes": arg_bytes, "meta_argument_bytes":
+           meta_arg_bytes, "requested_at_start": requested,
+           "allocated_at_start": allocated,
+           "allocated_before_building": before,
+           "meta_peak_bytes": meta_arg_bytes + want["peak_bytes"],
+           "max_memory_allocated": peak}
+    out["peak_ratio"] = out["meta_peak_bytes"] / peak
+    if arch in WARM_STEP_MS:
+        out["warm_step_ms"] = WARM_STEP_MS[arch]
+        out["peak_share"] = got["flops"] / (
+            WARM_STEP_MS[arch] / 1e3 * 989e12)
+    phase(f"dry run twin: {name}", t0, json.dumps(out))
+    diff = {op: (row, want_row) for op, row in card.by_op.items()
+            for want_row in [meta.by_op.get(op)] if row != want_row}
+    diff.update({op: (None, row) for op, row in meta.by_op.items()
+                 if op not in card.by_op})
+    if (got["flops"], got["bytes"]) != (want["flops"], want["bytes"]) or \
+            got["kernels"] != want["kernels"]:
+        raise AssertionError(f"{name}: the card's count {got['flops']} "
+                             f"flops, {got['bytes']} bytes, kernels "
+                             f"{got['kernels']}; meta's {want['flops']}, "
+                             f"{want['bytes']}, {want['kernels']}; ops "
+                             f"that differ (calls, flops, bytes): {diff}")
+    if calls != {k: v for k, v in launches.items() if v}:
+        raise AssertionError(f"{name}: kernel reports {calls}, launches "
+                             f"{launches}")
+    if abs(arg_bytes - requested) > DRYRUN_ARG_TOL * requested or \
+            arg_bytes != meta_arg_bytes:
+        raise AssertionError(f"{name}: argument_bytes {arg_bytes} (meta "
+                             f"{meta_arg_bytes}), requested at the step's "
+                             f"start {requested} (allocated {allocated})")
+    return out
+
+
+def planner_cost(name: str, action, kernel: str, expect: int,
+                 **read_kw) -> dict:
+    """11c: ``action()`` (a MaRe chain) collected with tracing on, from a
+    fresh plan cache: the program's ``cost``, and its counter's reports of
+    ``kernel`` against the launches the action made."""
+    from repro_torch.core import planner
+    from repro_torch.obs import tracing
+    t0 = time.perf_counter()
+    planner.DEFAULT_CACHE.clear()
+    chain = action()
+    reset_launches()
+    with tracing():
+        chain.collect()
+    launches = read_launches(f"dry run cost: {name}", {kernel: expect},
+                             **read_kw)
+    progs = [p for p in planner.DEFAULT_CACHE._programs.values()
+             if p.cost is not None]
+    calls = sum(p.work["kernels"].get(kernel, {}).get("calls", 0)
+                for p in progs)
+    out = {"programs": len(progs), "cost": [p.cost for p in progs],
+           "kernel_calls": calls, "launches": launches[kernel]}
+    phase(f"dry run cost: {name}", t0, json.dumps(out))
+    if not progs or calls != launches[kernel] or not all(
+            p.cost["flops"] > 0 and p.cost["bytes"] > 0 for p in progs):
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+def dryrun_slice(seed: int, tmp: str) -> None:
+    """Slice 11: 11a the dry run of three cells on meta; 11b the card's
+    counted Llama and hymba training steps and granite prefill against
+    their meta twins; 11c the planner's count of the k-mer and VS
+    actions; prints a ``[dryrun]`` JSON line."""
+    import torch
+    out = {"cells": dryrun_cells()}
+    L = 16
+    llama_shape = flash_shape(BATCH, 32, 8, PROMPT, PROMPT, True, None)
+    out["llama3.2-1b train step"] = counted_twins(
+        "llama3.2-1b train step",
+        lambda dev: train_step_of(train_args(tmp, seed, 1), dev),
+        {"flash_attention": 2 * L, "flash_attention_bwd": L}, ARCH,
+        flash_shapes={llama_shape: 2 * L}, bwd_shapes={llama_shape: L})
+    torch.cuda.empty_cache()
+    H = 32
+    out["hymba-1.5b train step"] = counted_twins(
+        "hymba-1.5b train step",
+        lambda dev: train_step_of(hymba_train_args(tmp, seed, 1), dev),
+        {"ssm_scan": 2 * H, "ssm_scan_bwd": H, "flash_attention": 2 * H,
+         "flash_attention_bwd": H}, HYBRID_ARCH,
+        ssm_routes={"chunked": 2 * H})
+    torch.cuda.empty_cache()
+    G = 24
+    out["granite prefill"] = counted_twins(
+        "granite-moe-1b-a400m prefill",
+        lambda dev: granite_prefill_step(dev, seed),
+        {"moe_dispatch": G, "flash_attention": G}, None)
+    torch.cuda.empty_cache()
+    genome = os.path.join(tmp, "dryrun.fa")
+    write_fasta(genome, make_genome(DRYRUN_KMER_BASES, seed))
+
+    def kmer():
+        from repro_torch.core import MaRe
+        from repro_torch.io import fasta_source
+        return kmer_query(MaRe.from_source(fasta_source(genome),
+                                           num_shards=NUM_SHARDS))
+    out["k-mer cost"] = planner_cost("k-mer", kmer, "segment_sum",
+                                     2 * NUM_SHARDS)
+    lib = make_library(VS_MOLECULES, seed)
+    out["VS cost"] = planner_cost(
+        "VS", lambda: virtual_screening(lib, num_shards=NUM_SHARDS),
+        "topk_reduce", topk_combines(NUM_SHARDS, VS_DEPTH))
+    torch.cuda.empty_cache()
+    print("[dryrun] " + json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5651,6 +5863,8 @@ def main() -> int:
         xlstm_slice(args.seed)
         torch.cuda.empty_cache()
         mesh_slice(args.seed, train_tmp)
+        torch.cuda.empty_cache()
+        dryrun_slice(args.seed, train_tmp)
     finally:
         shutil.rmtree(train_tmp, ignore_errors=True)
     for rec in records:

@@ -18,6 +18,17 @@ collective is an exact gather, permutation or ordered sum of the
 per-shard values: a sum adds in group order, so a result never depends
 on timing.  Members of a group that receive the same value share one
 tensor; treat results as read-only.
+
+Under a work counter (:mod:`repro_torch.launch.hlo_cost`) each
+collective reports one shard's result bytes under the reference's op
+name (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``all-to-all``, ``collective-permute``), its ring over the mesh's
+largest axis, and every shard's operand and result bytes as memory
+traffic, as the reference's HLO walk counts a collective; where the
+gradient runs through it, its transpose (an all-gather's is a
+reduce-scatter) reports itself alike.  The copies and adds that stand in
+for the exchange here are not counted again, nor are :func:`unshard`'s
+copies (the layout a ``shard_map`` assembles).
 """
 from __future__ import annotations
 
@@ -28,6 +39,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.core import tree
+from repro_torch.launch import hlo_cost
 
 AxisName = Union[str, Tuple[str, ...]]
 
@@ -183,16 +195,51 @@ def _ordered_sum(leaves: List[torch.Tensor]) -> torch.Tensor:
     return acc
 
 
+def _leaf_bytes(x: Any) -> int:
+    """Bytes a shard's value holds (a received zero block in full)."""
+    return sum(t.numel() * t.element_size() for t in tree.flatten(x)[0]
+               if isinstance(t, torch.Tensor))
+
+
+#: The collective a collective's gradient is.
+_TRANSPOSE = {"all-reduce": "all-reduce", "all-gather": "reduce-scatter",
+              "reduce-scatter": "all-gather", "all-to-all": "all-to-all",
+              "collective-permute": "collective-permute"}
+
+
+def _collective(op: str, mesh: Mesh, axis_name: AxisName,
+                xs: Sequence[Any],
+                fn: Callable[[List[torch.Tensor]], List[torch.Tensor]]
+                ) -> List[Any]:
+    """``_per_group`` of ``fn``, reported to the active work counter as
+    one ``op``, and its gradient as the transposed collective (see the
+    module's docstring)."""
+    if hlo_cost.active() is None:
+        return _per_group(mesh, axis_name, xs, fn)
+    ring = max(mesh.axis_sizes)
+    traffic = [sum(_leaf_bytes(x) for x in xs)]
+
+    def backward():     # the gradient's result on a shard is x's shape
+        hlo_cost.report_collective(_TRANSPOSE[op], _leaf_bytes(xs[0]),
+                                   ring, traffic[0])
+
+    with hlo_cost.stand_in(backward):
+        out = _per_group(mesh, axis_name, xs, fn)
+    traffic[0] += sum(_leaf_bytes(y) for y in out)
+    hlo_cost.report_collective(op, _leaf_bytes(out[0]), ring, traffic[0])
+    return out
+
+
 def psum(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName) -> List[Any]:
     """``lax.psum``: each group's sum, added in index order."""
-    return _per_group(mesh, axis_name, xs,
-                      lambda g: [_ordered_sum(g)] * len(g))
+    return _collective("all-reduce", mesh, axis_name, xs,
+                       lambda g: [_ordered_sum(g)] * len(g))
 
 
 def pmean(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName) -> List[Any]:
     """``lax.pmean``: each group's ordered sum over its size."""
-    return _per_group(mesh, axis_name, xs,
-                      lambda g: [_ordered_sum(g) / len(g)] * len(g))
+    return _collective("all-reduce", mesh, axis_name, xs,
+                       lambda g: [_ordered_sum(g) / len(g)] * len(g))
 
 
 def all_gather(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
@@ -202,7 +249,7 @@ def all_gather(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
     def gather(g):
         out = torch.cat(g, dim=axis) if tiled else torch.stack(g, dim=axis)
         return [out] * len(g)
-    return _per_group(mesh, axis_name, xs, gather)
+    return _collective("all-gather", mesh, axis_name, xs, gather)
 
 
 def _chunks(x: torch.Tensor, n: int, dim: int, tiled: bool
@@ -226,7 +273,7 @@ def psum_scatter(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
     size/n, else index ``j`` of a dimension of the group's size)."""
     def scatter(g):
         return _chunks(_ordered_sum(g), len(g), scatter_dimension, tiled)
-    return _per_group(mesh, axis_name, xs, scatter)
+    return _collective("reduce-scatter", mesh, axis_name, xs, scatter)
 
 
 def all_to_all(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
@@ -248,7 +295,7 @@ def all_to_all(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
         join = torch.cat if tiled else torch.stack
         return [join([parts[i][j] for i in range(n)], dim=concat_axis)
                 for j in range(n)]
-    return _per_group(mesh, axis_name, xs, exchange)
+    return _collective("all-to-all", mesh, axis_name, xs, exchange)
 
 
 def _zeros(x: torch.Tensor) -> torch.Tensor:
@@ -275,7 +322,7 @@ def ppermute(xs: Sequence[Any], mesh: Mesh, axis_name: AxisName,
         for s, d in perm:
             out[d] = g[s]
         return out
-    return _per_group(mesh, axis_name, xs, move)
+    return _collective("collective-permute", mesh, axis_name, xs, move)
 
 
 # ---------------------------------------------------------------------------
@@ -340,8 +387,9 @@ def unshard(xs: Sequence[torch.Tensor], mesh: Mesh, spec: Sequence[Any]
         for a in _dim_axes(entry):
             shape[dim] *= mesh.shape[a]
     out = xs[0].new_empty(shape)
-    for s in range(mesh.size):
-        if any(mesh.coords(s)[a] for a in free):
-            continue
-        _block(out, mesh, spec, s).copy_(xs[s])
+    with hlo_cost.uncounted():
+        for s in range(mesh.size):
+            if any(mesh.coords(s)[a] for a in free):
+                continue
+            _block(out, mesh, spec, s).copy_(xs[s])
     return out

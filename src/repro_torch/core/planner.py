@@ -18,6 +18,10 @@ logical shards.
 
 This module is *lowering only*: dispatching a program, syncing its
 counters and recording diagnostics is :mod:`repro_torch.runtime.executor`.
+With tracing on, the first dispatch of a new program runs under the work
+counter (:mod:`repro_torch.launch.hlo_cost`) and fills
+:attr:`CompiledProgram.cost` (the reference annotates its compile span so;
+the port has no compile, so the dispatch's span carries it).
 """
 from __future__ import annotations
 
@@ -39,7 +43,8 @@ from repro_torch.core.tensors import stable_argsort_false_first, take_clip
 from repro_torch.core.tree_reduce import (keyed_combine_partition,
                                           keyed_merge_partition,
                                           tree_reduce_partition)
-from repro_torch.obs import METRICS, timed
+from repro_torch.launch import hlo_cost
+from repro_torch.obs import METRICS, TRACER, timed
 
 Counters = List[List[torch.Tensor]]     # [shard][counter] int32 scalars
 
@@ -51,9 +56,27 @@ class CompiledProgram:
     fn: Callable[..., Tuple]      # (records, counts) -> outputs
     counters: Tuple[Tuple[int, str], ...]  # trailing counter-vector layout
     key: Hashable                 # cache key it was lowered under
+    #: FLOP / byte / wire-byte count of one dispatch (launch/hlo_cost),
+    #: filled by the first dispatch when tracing is enabled; ``work`` is
+    #: the counter's whole result (each kernel's reports among it).
+    cost: Optional[Dict[str, float]] = None
+    work: Optional[Dict[str, Any]] = None
+    _dispatched: bool = False
 
-    def __call__(self, records: Any, counts: torch.Tensor) -> Tuple:
-        return self.fn(records, counts)
+    def __call__(self, records: Any, counts: torch.Tensor,
+                 span: Any = None) -> Tuple:
+        """Run the program; the first dispatch under an enabled tracer
+        counts its work into :attr:`cost` and onto ``span``."""
+        first = not self._dispatched
+        self._dispatched = True
+        if not (first and TRACER.enabled):
+            return self.fn(records, counts)
+        outs, self.work = hlo_cost.count(self.fn, records, counts)
+        self.cost = {k: float(self.work[k])
+                     for k in ("flops", "bytes", "wire_bytes")}
+        if span is not None:
+            span.set(**self.cost)
+        return outs
 
     @property
     def num_counters(self) -> int:

@@ -17,24 +17,30 @@ version
 (:func:`~repro_torch.kernels.flash_attention.ref.flash_attention_bwd_plain`)
 for a CPU tensor; bf16 at head dim 64 or 128 on CUDA the tensor-core
 kernels (``"wgmma"``: TMA-staged tiles, all five products by ``wgmma``);
-every other CUDA call the CUDA-core kernels (``"simt"``, float32).  A CUDA
-tensor launches its route or raises — no route falls back to another.
-``LAUNCHES`` counts calls that launched, :func:`simt_launch`'s too (one a
-backward, its kernels together), ``LAUNCHES_BY_ROUTE`` splits them by
-route and
+every other CUDA call the CUDA-core kernels (``"simt"``, float32); a meta
+tensor the CUDA checks but the head dim and empty gradients, no launch
+(``"meta"``).  A CUDA tensor launches its route or raises — no route falls
+back to another.  A call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.flash_bwd`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  ``LAUNCHES`` counts calls that
+launched, :func:`simt_launch`'s too (one a backward, its kernels
+together), ``LAUNCHES_BY_ROUTE`` splits them by route and
 ``LAUNCHES_BY_SHAPE`` by shape.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.flash_attention.kernel import (HEAD_DIMS, _check,
                                                         route)
 from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_plain
+from repro_torch.launch import hlo_cost
 
 _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -93,6 +99,13 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     return dq, dk, dv
 
 
+def _work(q: torch.Tensor, k: torch.Tensor, group: int, causal: bool,
+          window: Optional[int]) -> work.Work:
+    bh, sq, d = q.shape
+    return work.flash_bwd(bh, group, sq, k.shape[1], d, causal, window,
+                          q.element_size())
+
+
 def simt_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor, *,
                 group: int, causal: bool = True,
@@ -113,11 +126,12 @@ def _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
             dv, kind: Optional[str]) -> None:
     """Check a CUDA call, launch its route (``kind``, or the one
     :func:`route` picks) into dq, dk, dv and count the launch (none where
-    BH is 0: nothing to launch)."""
+    BH is 0: nothing to launch); on a meta tensor check it and report its
+    work, launching nothing."""
     global LAUNCHES
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention backward runs on cpu or cuda, "
-                         f"got {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash attention backward runs on cpu, cuda or "
+                         f"meta, got {q.device}")
     if q.dtype not in _ENTRY or any(t.dtype != q.dtype
                                     for t in (k, v, o, do)) \
             or lse.dtype != torch.float32:
@@ -127,7 +141,7 @@ def _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
                         f"{o.dtype}, {do.dtype} and {lse.dtype}")
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS and q.device.type == "cuda":
         raise ValueError(f"flash attention backward takes head dims "
                          f"{HEAD_DIMS}, got {d}")
     if max(bh, sq, sk) > _INT_MAX // 2:
@@ -136,6 +150,11 @@ def _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
         raise ValueError("flash attention backward takes contiguous "
                          "tensors")
     kind = kind or route(q.dtype, d, q.device)
+    if q.device.type == "meta":
+        if bh:
+            hlo_cost.report_kernel("flash_attention_bwd", partial(
+                _work, q, k, group, causal, window))
+        return
     if kind == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v, do)):
         raise ValueError("flash attention backward wgmma route: tensor maps "
                          "take 16-byte aligned q, k, v, do")
@@ -162,3 +181,5 @@ def _launch(q, k, v, o, do, lse, group, causal, window, sm_scale, dq, dk,
     LAUNCHES_BY_ROUTE[kind] += 1
     shape = (kind, bh, group, sq, sk, d, bool(causal), window)
     LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
+    hlo_cost.report_kernel("flash_attention_bwd", partial(
+        _work, q, k, group, causal, window))

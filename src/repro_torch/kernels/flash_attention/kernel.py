@@ -14,24 +14,32 @@ its route from dtype, head dim and device alone: a CPU tensor takes the
 plain version (:func:`~repro_torch.kernels.flash_attention.ref.
 flash_attention_plain`); bf16 at head dim 64 or 128 on CUDA takes the
 tensor-core kernel (``"wgmma"``, ``flash_fwd_wgmma``); every other CUDA
-call takes the CUDA-core kernel (``"simt"``, ``flash_fwd``).  A CUDA
-tensor launches its route's kernel or raises — no route falls back to
-another.  With ``return_lse`` both routes also write each row's
-log-sum-exp (float32 ``[BH, Sq]``, +inf for a row that sees no key), which
-the backward (:mod:`~repro_torch.kernels.flash_attention.backward`)
-recomputes the probabilities from; serving asks for none.  ``LAUNCHES``
-counts kernel launches, ``LAUNCHES_BY_ROUTE`` splits them by route and
+call takes the CUDA-core kernel (``"simt"``, ``flash_fwd``); a meta tensor
+takes ``"meta"``: the CUDA checks but the head dim (the work of any head
+dim is counted), empty outputs of the kernel's shapes and dtypes, no
+launch.  A CUDA tensor launches its route's kernel or raises — no route
+falls back to another.  A call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.flash`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  With ``return_lse`` both routes also
+write each row's log-sum-exp (float32 ``[BH, Sq]``, +inf for a row that
+sees no key), which the backward
+(:mod:`~repro_torch.kernels.flash_attention.backward`) recomputes the
+probabilities from; serving asks for none.  ``LAUNCHES`` counts kernel
+launches, ``LAUNCHES_BY_ROUTE`` splits them by route and
 ``LAUNCHES_BY_SHAPE`` by shape.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+from repro_torch.launch import hlo_cost
 
 # q, k, v, o, lse; bh, sq, sk, d, group; scale; causal, use_window,
 # window; stream
@@ -67,11 +75,12 @@ def reset_launches() -> None:
 
 
 def route(dtype: torch.dtype, head_dim: int, device) -> str:
-    """The route a call takes: ``"plain"`` for a CPU tensor, ``"wgmma"``
-    for bf16 at a head dim in :data:`WGMMA_HEAD_DIMS`, ``"simt"`` for
-    every other call on CUDA."""
-    if torch.device(device).type == "cpu":
-        return "plain"
+    """The route a call takes: ``"plain"`` for a CPU tensor, ``"meta"``
+    for a meta tensor, ``"wgmma"`` for bf16 at a head dim in
+    :data:`WGMMA_HEAD_DIMS`, ``"simt"`` for every other call on CUDA."""
+    kind = torch.device(device).type
+    if kind in ("cpu", "meta"):
+        return "plain" if kind == "cpu" else "meta"
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
@@ -105,8 +114,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         return flash_attention_plain(q, k, v, group, causal=causal,
                                      window=window, sm_scale=sm_scale,
                                      return_lse=return_lse)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cpu or cuda, got "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash attention runs on cpu, cuda or meta, got "
                          f"{q.device}")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash attention kernel takes float32 or bfloat16 "
@@ -114,7 +123,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                         f"and {v.dtype}")
     bh, sq, d = q.shape
     sk = k.shape[1]
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS and q.device.type == "cuda":
         raise ValueError(f"flash attention kernel takes head dims "
                          f"{HEAD_DIMS}, got {d}")
     if max(bh, sq, sk) > _INT_MAX // 2:
@@ -127,7 +136,12 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
            if return_lse else None)
     if bh == 0 or sq == 0:
         return (out, lse) if return_lse else out
+    cost = partial(work.flash, bh, group, sq, sk, d, causal, window,
+                   q.element_size(), lse=return_lse)
     kind = route(q.dtype, d, q.device)
+    if kind == "meta":
+        hlo_cost.report_kernel("flash_attention", cost)
+        return (out, lse) if return_lse else out
     if kind == "wgmma" and any(t.data_ptr() % 16
                                for t in (q, k, v, out)):
         raise ValueError("flash attention wgmma route: tensor maps take "
@@ -147,4 +161,5 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     LAUNCHES_BY_ROUTE[kind] += 1
     shape = (kind, bh, group, sq, sk, d, bool(causal), window)
     LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
+    hlo_cost.report_kernel("flash_attention", cost)
     return (out, lse) if return_lse else out

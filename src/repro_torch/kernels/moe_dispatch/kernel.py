@@ -15,19 +15,26 @@ launch: one thread-block cluster ranks the ids and adds the earlier
 blocks' counts through distributed shared memory) takes every input of
 at most ``CLUSTER_REACH`` ids over at most ``CLUSTER_GROUPS`` groups,
 and the ``tiled`` route (three passes) the rest.  A CUDA tensor launches
-its route or raises — there is no fallback.  ``LAUNCHES`` counts calls
+its route or raises — there is no fallback.  A meta tensor takes the CUDA
+checks and empty outputs of the kernel's shapes and dtypes, no launch.
+A call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.dispatch`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  ``LAUNCHES`` counts calls
 that launched, ``LAUNCHES_BY_ROUTE`` splits them by route.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
+from repro_torch.launch import hlo_cost
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 LIBRARY = KernelLibrary("moe_dispatch", "moe_dispatch.cu", {
@@ -105,8 +112,9 @@ def moe_dispatch_kernel(assignments: torch.Tensor, num_groups: int
     dev = assignments.device
     if dev.type == "cpu":
         return dispatch_ref(assignments, num_groups)
-    if dev.type != "cuda":
-        raise ValueError(f"moe_dispatch runs on cpu or cuda, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"moe_dispatch runs on cpu, cuda or meta, got "
+                         f"{dev}")
     if assignments.dtype != torch.int32 or not assignments.is_contiguous():
         raise TypeError(f"moe_dispatch kernel takes contiguous int32 "
                         f"assignments, got {assignments.dtype}")
@@ -117,6 +125,11 @@ def moe_dispatch_kernel(assignments: torch.Tensor, num_groups: int
     if n == 0:
         return (torch.empty((0,), dtype=torch.int32, device=dev),
                 torch.zeros((num_groups,), dtype=torch.int32, device=dev))
+    cost = partial(work.dispatch, n, num_groups)
+    if dev.type == "meta":
+        hlo_cost.report_kernel("moe_dispatch", cost)
+        return (torch.empty((n,), dtype=torch.int32, device=dev),
+                torch.empty((num_groups,), dtype=torch.int32, device=dev))
     kind = route(n, num_groups, dev)
     if kind == "tiled":
         positions, counts = tiled_launch(assignments, num_groups)
@@ -131,4 +144,5 @@ def moe_dispatch_kernel(assignments: torch.Tensor, num_groups: int
         check_launch("moe_dispatch (cluster)", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
+    hlo_cost.report_kernel("moe_dispatch", cost)
     return positions, counts

@@ -7,22 +7,28 @@ cast back to x's dtype.  The source says what bounds it.
 
 :func:`rmsnorm_kernel` takes ``x [rows, d]``.  A tensor on the CPU takes
 the plain version (:func:`~repro_torch.kernels.rmsnorm.ref.rmsnorm_ref`);
-a CUDA tensor launches the kernel or raises — there is no fallback.
-:func:`path` names the kernel's path for a call: ``"one_pass"`` (the row
-kept in registers) where the width and alignment allow, else two passes
-over the row (``"loop16"``, 16 bytes a lane, or ``"loop"``).
-``LAUNCHES`` counts kernel launches, ``LAUNCHES_BY_PATH`` splits them by
-path.
+a CUDA tensor launches the kernel or raises — there is no fallback.  A
+meta tensor takes the CUDA checks and empty outputs of the kernel's shapes
+and dtypes, no launch.  A call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.rmsnorm`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  :func:`path` names the kernel's path
+for a call: ``"one_pass"`` (the row kept in registers) where the width and
+alignment allow, else two passes over the row (``"loop16"``, 16 bytes a
+lane, or ``"loop"``).  ``LAUNCHES`` counts kernel launches,
+``LAUNCHES_BY_PATH`` splits them by path.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import (KernelLibrary, check_launch,
                                       require_no_grad)
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.launch import hlo_cost
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
          ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -72,8 +78,9 @@ def rmsnorm_kernel(x: torch.Tensor, weight: torch.Tensor,
                          f"{weight.device}")
     if x.device.type == "cpu":
         return rmsnorm_ref(x, weight, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm runs on cpu or cuda, got {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"rmsnorm runs on cpu, cuda or meta, got "
+                         f"{x.device}")
     require_no_grad("rmsnorm", x, weight)
     if x.dtype not in _ENTRY or weight.dtype != x.dtype:
         raise TypeError(f"rmsnorm kernel takes float32 or bfloat16 x and a "
@@ -84,6 +91,10 @@ def rmsnorm_kernel(x: torch.Tensor, weight: torch.Tensor,
     rows, d = x.shape
     out = torch.empty_like(x)
     if rows == 0 or d == 0:
+        return out
+    cost = partial(work.rmsnorm, rows, d, x.element_size())
+    if x.device.type == "meta":
+        hlo_cost.report_kernel("rmsnorm", cost)
         return out
     kind = path(d, x.dtype, all(t.data_ptr() % 16 == 0
                                 for t in (x, weight, out)))
@@ -96,4 +107,5 @@ def rmsnorm_kernel(x: torch.Tensor, weight: torch.Tensor,
     check_launch("rmsnorm", err)
     LAUNCHES += 1
     LAUNCHES_BY_PATH[kind] += 1
+    hlo_cost.report_kernel("rmsnorm", cost)
     return out

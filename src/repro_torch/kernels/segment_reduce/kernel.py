@@ -19,7 +19,13 @@ segment_reduce.ref.segment_sum_ref`); on CUDA the ``binned`` route
 written whole) takes every call of one to three value columns whose key
 space it can tile, and the ``atomic`` route (one thread a record, global
 atomics into a zero-filled table) the rest.
-A CUDA tensor launches its route or raises — there is no fallback.
+A CUDA tensor launches its route or raises — there is no fallback.  A
+meta tensor takes ``"meta"``: the CUDA checks and empty outputs of the
+kernels' shapes and dtypes, no launch.  A call on CUDA or meta reports
+its function's work (:func:`repro_torch.kernels.work.segment_sum`, every
+record taken as valid: the valid count lives on the device) to the
+active work counter (:mod:`repro_torch.launch.hlo_cost`); the atomic
+route's zero-filled outputs are part of that work, not counted apart.
 ``LAUNCHES`` counts calls that launched (one per call, whatever passes it
 runs), so a run can show that its path went through the kernels;
 ``LAUNCHES_BY_ROUTE`` splits them by route.
@@ -27,12 +33,15 @@ runs), so a run can show that its path went through the kernels;
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.segment_reduce.ref import SPLIT, segment_sum_ref
+from repro_torch.launch import hlo_cost
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ATOMIC_ARGS = [_P, _P, _P, _L, _I, _L, _P, _P, _P, _I, _P]
@@ -84,12 +93,14 @@ def key_block(num_keys: int, d: int) -> int:
 
 
 def route(num_keys: int, d: int, n: int, device) -> str:
-    """The route a call takes: ``"plain"`` for a CPU tensor; on CUDA
+    """The route a call takes: ``"plain"`` for a CPU tensor, ``"meta"``
+    for a meta tensor; on CUDA
     ``"binned"`` for 1 to ``MAX_BINNED_COLUMNS`` value columns when the
     key space needs at most ``MAX_TILES`` tiles and record positions fit
     int32, else ``"atomic"``."""
-    if torch.device(device).type == "cpu":
-        return "plain"
+    kind = torch.device(device).type
+    if kind in ("cpu", "meta"):
+        return "plain" if kind == "cpu" else "meta"
     if (1 <= d <= MAX_BINNED_COLUMNS and n <= _INT_MAX
             and cdiv(num_keys, _widest_key_block(d)) <= MAX_TILES):
         return "binned"
@@ -138,12 +149,33 @@ def segment_sum(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
     kind = route(num_keys, d, n, dev)
     if kind == "plain":
         return segment_sum_ref(keys, values, num_keys, valid)
-    if dev.type != "cuda":
-        raise ValueError(f"segment_sum runs on cpu or cuda, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"segment_sum runs on cpu, cuda or meta, got "
+                         f"{dev}")
     if n == 0:
         return (torch.zeros((num_keys, d), dtype=values.dtype, device=dev),
                 torch.zeros((num_keys,), dtype=torch.int32, device=dev),
                 torch.zeros((1,), dtype=torch.int32, device=dev))
+    cost = partial(work.segment_sum, n, n, d, num_keys)
+    if kind == "meta":
+        hlo_cost.report_kernel("segment_sum", cost)
+        return (torch.empty((num_keys, d), dtype=values.dtype, device=dev),
+                torch.empty((num_keys,), dtype=torch.int32, device=dev),
+                torch.empty((1,), dtype=torch.int32, device=dev))
+    with hlo_cost.uncounted():
+        table, counts, overflow = _launch(kind, keys, values, valid,
+                                          num_keys)
+    LAUNCHES += 1
+    LAUNCHES_BY_ROUTE[kind] += 1
+    hlo_cost.report_kernel("segment_sum", cost)
+    return table, counts, overflow
+
+
+def _launch(kind: str, keys: torch.Tensor, values: torch.Tensor,
+            valid: torch.Tensor, num_keys: int):
+    """Allocate the outputs and scratch of route ``kind`` and launch it."""
+    dev = keys.device
+    n, d = values.shape
     lib = LIBRARY.load()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -176,6 +208,4 @@ def segment_sum(keys: torch.Tensor, values: torch.Tensor, num_keys: int,
                 *ptrs, n, d, num_keys, table.data_ptr(), counts.data_ptr(),
                 overflow.data_ptr(), sms * 16, stream)
     check_launch(f"segment_sum ({kind})", err)
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[kind] += 1
     return table, counts, overflow

@@ -19,7 +19,11 @@ same decomposition in tensor code.
 
 :func:`ssm_scan_bwd_kernel` takes the plain version
 (:func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_bwd_ref`) for a CPU
-tensor; a CUDA tensor launches the kernels (route ``"scan"``) or raises.
+tensor; a CUDA tensor launches the kernels (route ``"scan"``) or raises;
+a meta tensor takes the CUDA checks and empty gradients, no launch.  A
+call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.ssm_bwd`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).
 ``LAUNCHES`` counts calls that launched, ``LAUNCHES_BY_ROUTE`` splits them
 by route.  The first design (the chunks re-run through device memory)
 stays callable only as :func:`rerun_launch`, for timing beside the
@@ -28,15 +32,18 @@ route; it counts no launch.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ssm_scan.kernel import (CHUNK, _check, _check_cuda,
                                                  _proj_row_floats, route)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+from repro_torch.launch import hlo_cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 15 + [_I] * 4 + [_P]
@@ -104,9 +111,16 @@ def ssm_scan_bwd_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
            or not v.is_contiguous() for v in inputs):
         raise TypeError("ssm scan backward takes contiguous float32 dy, dh "
                         "and saved states on xc's device")
+    cost = partial(work.ssm_bwd, b, t, d, n, xc.element_size())
+    if xc.device.type == "meta":
+        hlo_cost.report_kernel("ssm_scan_bwd", cost)
+        return (torch.empty_like(xc), torch.empty_like(x_proj),
+                *(torch.empty(shape, dtype=torch.float32, device=xc.device)
+                  for shape in ((d,), (d, n), (b, d, n))))
     out = _launch("", xc, x_proj, dt_bias, a_log, h0, dy, dh, proj, h_end)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE["scan"] += 1
+    hlo_cost.report_kernel("ssm_scan_bwd", cost)
     return out
 
 

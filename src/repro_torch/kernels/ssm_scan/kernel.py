@@ -19,19 +19,27 @@ re-run), whose projection rows and chunk-entering states the backward
 writes through raw pointers, so a CUDA input that requires grad in grad
 mode raises here: gradients go through
 :class:`~repro_torch.kernels.ssm_scan.ops.SSMScan`, which
-:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_fused` picks.  A CUDA
-tensor launches its route or raises: there is no fallback.  ``LAUNCHES``
+:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_fused` picks.  A meta
+tensor takes ``"meta"``: the CUDA checks and empty outputs of the
+kernel's shapes and dtypes (the saved states too), no launch.  A CUDA
+tensor launches its route or raises: there is no fallback.  A call on
+CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.ssm`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  ``LAUNCHES``
 counts calls that launched (one per call, whatever passes it runs);
 ``LAUNCHES_BY_ROUTE`` splits them by route.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.launch import hlo_cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CHUNKED_ARGS = [_P] * 10 + [_I] * 4 + [_P]
@@ -69,14 +77,15 @@ def reset_launches() -> None:
 
 def route(t: int, dtype: torch.dtype, device, save: bool = False) -> str:
     """The route a call of ``t`` steps takes: ``"plain"`` for a CPU
-    tensor, ``"step"`` for T = 1 on CUDA, ``"chunked"`` for T > 1 and for
-    every call that ``save``s what the backward starts from (only the
-    chunked route writes it).  Both dtypes the kernels take (float32,
-    bfloat16) have both routes; only the chunked route's projection
-    differs (tensor cores for bf16)."""
+    tensor, ``"meta"`` for a meta tensor, ``"step"`` for T = 1 on CUDA,
+    ``"chunked"`` for T > 1 and for every call that ``save``s what the
+    backward starts from (only the chunked route writes it).  Both dtypes
+    the kernels take (float32, bfloat16) have both routes; only the
+    chunked route's projection differs (tensor cores for bf16)."""
     del dtype
-    if torch.device(device).type == "cpu":
-        return "plain"
+    kind = torch.device(device).type
+    if kind in ("cpu", "meta"):
+        return "plain" if kind == "cpu" else "meta"
     return "step" if t == 1 and not save else "chunked"
 
 
@@ -110,8 +119,10 @@ def _check(xc, x_proj, dt_bias, a_log, h0) -> dict:
 
 
 def _check_cuda(xc, got: dict) -> None:
-    if xc.device.type != "cuda":
-        raise ValueError(f"ssm scan runs on cpu or cuda, got {xc.device}")
+    """The kernel's checks, on a CUDA or a meta tensor."""
+    if xc.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssm scan runs on cpu, cuda or meta, got "
+                         f"{xc.device}")
     if xc.dtype not in _SUFFIX or got["x_proj"].dtype != xc.dtype:
         raise TypeError(f"ssm scan kernel takes float32 or bfloat16 xc and "
                         f"an x_proj of the same dtype, got {xc.dtype} and "
@@ -157,6 +168,15 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     dev = xc.device
     y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
     h = torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    cost = partial(work.ssm, b, t, d, n, xc.element_size(), save=save)
+    if kind == "meta":
+        ends = cdiv(t, CHUNK) - 1
+        saved = (torch.empty((b * t, _proj_row_floats(n)),
+                             dtype=torch.float32, device=dev),
+                 torch.empty((b, ends, n, d), dtype=torch.float32,
+                             device=dev)) if save else ()
+        hlo_cost.report_kernel("ssm_scan", cost)
+        return (y, h, saved) if save else (y, h)
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     suffix = _SUFFIX[xc.dtype]
@@ -185,4 +205,5 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     check_launch(f"ssm_scan ({kind})", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
+    hlo_cost.report_kernel("ssm_scan", cost)
     return (y, h, saved) if save else (y, h)

@@ -7,27 +7,33 @@ past ``valid_count`` masked to -inf, ties to the earlier index.  The
 source says how the TPU's sequential running buffer crosses blocks on
 each route and what bounds it.
 
-:func:`topk_reduce_kernel` takes float32 ``scores [n]``, and
-:func:`route` picks its route from k, n and the device alone: a tensor
-on the CPU takes the plain version (:func:`~repro_torch.kernels.
+:func:`topk_reduce_kernel` takes float32 ``scores [n]``, and :func:`route`
+picks its route from k, n and the device alone: a tensor on the CPU takes
+the plain version (:func:`~repro_torch.kernels.
 topk_reduce.ref.topk_ref`); on CUDA the ``select`` route (one launch:
-sorted per-warp lists merged by shuffles, the last block to finish
-merging the blocks' lists) takes every k up to ``SELECT_MAX_K``, and the
-``tree`` route (levels of block-wide argmax rounds) larger k.  A CUDA
-tensor launches its route or raises — there is no fallback.
-``LAUNCHES`` counts calls that launched, ``LAUNCHES_BY_ROUTE`` splits
-them by route.
+sorted per-warp lists merged by shuffles, the last block to finish merging
+the blocks' lists) takes every k up to ``SELECT_MAX_K``, and the ``tree``
+route (levels of block-wide argmax rounds) larger k.  A CUDA tensor
+launches its route or raises — there is no fallback.  A meta tensor takes
+the CUDA checks and empty outputs of the kernel's shapes and dtypes, no
+launch.  A call on CUDA or meta reports its function's work
+(:func:`repro_torch.kernels.work.topk`) to the active work counter
+(:mod:`repro_torch.launch.hlo_cost`).  ``LAUNCHES`` counts calls that
+launched, ``LAUNCHES_BY_ROUTE`` splits them by route.
 """
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Tuple, Union
 
 import torch
 
+from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
 from repro_torch.kernels.topk_reduce.ref import topk_ref
+from repro_torch.launch import hlo_cost
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 LIBRARY = KernelLibrary("topk_reduce", "topk_reduce.cu", {
@@ -94,8 +100,8 @@ def topk_reduce_kernel(scores: torch.Tensor, k: int,
     dev = scores.device
     if dev.type == "cpu":
         return topk_ref(scores, k, valid_count)
-    if dev.type != "cuda":
-        raise ValueError(f"top-k runs on cpu or cuda, got {dev}")
+    if dev.type not in ("cuda", "meta"):
+        raise ValueError(f"top-k runs on cpu, cuda or meta, got {dev}")
     if scores.dtype != torch.float32 or not scores.is_contiguous():
         raise TypeError(f"top-k kernel takes contiguous float32 scores, "
                         f"got {scores.dtype}")
@@ -106,6 +112,11 @@ def topk_reduce_kernel(scores: torch.Tensor, k: int,
         return (torch.empty((0,), dtype=torch.float32, device=dev),
                 torch.empty((0,), dtype=torch.int32, device=dev))
     vc = _valid_on(valid_count, n, dev)
+    cost = partial(work.topk, n, k)
+    if dev.type == "meta":
+        hlo_cost.report_kernel("topk_reduce", cost)
+        return (torch.empty((k,), dtype=torch.float32, device=dev),
+                torch.empty((k,), dtype=torch.int32, device=dev))
     kind = route(k, n, dev)
     if kind == "tree":
         values, indices = tree_launch(scores, k, vc)
@@ -120,6 +131,7 @@ def topk_reduce_kernel(scores: torch.Tensor, k: int,
         check_launch("topk_reduce (select)", err)
     LAUNCHES += 1
     LAUNCHES_BY_ROUTE[kind] += 1
+    hlo_cost.report_kernel("topk_reduce", cost)
     return values, indices
 
 

@@ -10,7 +10,10 @@ and the audio family (``models/encdec.py``).  A batch holds ``tokens``
 (and ``labels`` for the loss), and
 ``patch_embeds`` (vlm) or ``frames`` (audio) beside them.  Parameters
 live on ``device`` (``cuda`` unless the caller passes another; without a
-GPU, ``cuda`` raises).
+GPU, ``cuda`` raises).  On ``meta`` every family builds its parameters
+without drawing or allocating anything (``common.MetaDraws``), and its
+kernels take their meta routes: the dry run counts a step's work there
+(``launch/dryrun_lib.py``).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import torch
 
 from repro_torch.core.dataset import DeviceLike, resolve_device
 from repro_torch.models import encdec, transformer
-from repro_torch.models.common import (ModelConfig, Params,
+from repro_torch.models.common import (MetaDraws, ModelConfig, Params,
                                        active_param_count, param_count,
                                        param_count_analytic)
 
@@ -44,9 +47,13 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> Model:
     transformer.require_ported_family(cfg)
     dev = resolve_device(device)
 
-    def generator(seed: Union[int, torch.Generator]) -> torch.Generator:
-        return seed if isinstance(seed, torch.Generator) else \
-            torch.Generator(device=dev).manual_seed(int(seed))
+    def generator(seed: Union[int, torch.Generator]
+                  ) -> Union[torch.Generator, MetaDraws]:
+        if isinstance(seed, torch.Generator):
+            return seed
+        if dev.type == "meta":
+            return MetaDraws()
+        return torch.Generator(device=dev).manual_seed(int(seed))
 
     if cfg.family == "audio":
         return Model(

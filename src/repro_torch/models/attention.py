@@ -123,10 +123,11 @@ def full_attention(q, k, v, causal, window, impl: str = "ref",
 
 def resolve_impl(cfg: ModelConfig, seq: int, device) -> str:
     """``cfg.attn_impl`` unless it is "auto": then the kernel on a CUDA
-    device, and the reference's non-TPU rule on the CPU."""
+    device (and on meta, where its work is counted), and the reference's
+    non-TPU rule on the CPU."""
     if cfg.attn_impl != "auto":
         return cfg.attn_impl
-    if torch.device(device).type == "cuda":
+    if torch.device(device).type in ("cuda", "meta"):
         return "pallas"
     return "chunked" if seq > 2048 else "ref"
 

@@ -3,12 +3,15 @@ parameter-tree node, and the truncated-normal initializer (the reference's
 ``models/common.py`` on PyTorch)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.launch import hlo_cost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +99,15 @@ def remat(cfg: ModelConfig, fn: Callable, *args):
     ``jax.checkpoint``).  Bind loop variables into ``fn`` (a partial), as
     the recompute runs after the loop."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_remat_contexts)
     return fn(*args)
+
+
+def _remat_contexts():
+    """Checkpoint's (forward, recompute) contexts: a work counter counts a
+    recompute as the forward it repeats (``launch/hlo_cost``)."""
+    return contextlib.nullcontext(), hlo_cost.recomputing()
 
 
 class Params(nn.Module):
@@ -165,12 +175,23 @@ def param_count_analytic(cfg: ModelConfig) -> int:
     return embed + cfg.num_layers * per_layer + enc + d
 
 
-def trunc_normal(gen: torch.Generator, shape, dtype: torch.dtype,
-                 scale: float = 1.0) -> torch.Tensor:
+class MetaDraws:
+    """Stands in for a generator on the meta device, where no generator
+    can live: parameters built with it have shapes and dtypes only, and
+    nothing is drawn or allocated (the dry run's models)."""
+
+    device = torch.device("meta")
+
+
+def trunc_normal(gen: Union[torch.Generator, MetaDraws], shape,
+                 dtype: torch.dtype, scale: float = 1.0) -> torch.Tensor:
     """Standard normal truncated at +-2, times ``scale / sqrt(fan_in)``
     (fan_in = product of all but the last dim), cast to ``dtype`` — the
     reference's initializer.  Draws from ``gen`` on ``gen``'s device; the
-    numbers differ from ``jax.random``'s."""
+    numbers differ from ``jax.random``'s.  On the meta device
+    (:class:`MetaDraws`) an empty tensor of the shape and dtype."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     fan_in = shape[0] if len(shape) >= 1 else 1
     if len(shape) >= 2:
         fan_in = 1

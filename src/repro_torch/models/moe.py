@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from repro_torch.core import collectives
 from repro_torch.core.shuffle import _pack_by_dest, unpack_gather
 from repro_torch.kernels.moe_dispatch.ops import moe_dispatch
+from repro_torch.launch import hlo_cost
 from repro_torch.models.common import ModelConfig, Params, trunc_normal
 from repro_torch.models.layers import ParamsLike
 from repro_torch.sharding import P, active
@@ -82,7 +83,10 @@ def _route(p: ParamsLike, x2d: torch.Tensor, cfg: ModelConfig):
     gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     E = cfg.num_experts
-    f_e = torch.mean(F.one_hot(idx[:, 0], E).float(), dim=0)
+    # one-hot by a compare, which every device runs alike (F.one_hot
+    # scatters on CUDA and compares on meta: the work counts would differ)
+    f_e = torch.mean((idx[:, :1] == torch.arange(E, device=idx.device))
+                     .float(), dim=0)
     p_e = torch.mean(probs, dim=0)
     aux = E * torch.sum(f_e * p_e)
     return idx, gates.to(x2d.dtype), aux
@@ -95,17 +99,42 @@ def _expert_mlp(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
     rows; rows past the groups' total are 0.
 
     The slice bounds come to the host: one device-to-host copy of
-    ``group_sizes`` (a stream sync) per call, i.e. per layer."""
-    ys = torch.empty_like(xs)
-    off = 0
-    for e, c in enumerate(group_sizes.tolist()):
-        if c:
-            x = xs[off:off + c]
-            h = F.silu(x @ w1[e]) * (x @ w3[e])
-            ys[off:off + c] = h @ w2[e]
-        off += c
-    ys[off:] = 0
+    ``group_sizes`` (a stream sync) per call, i.e. per layer.  On the
+    meta device the sizes have no values: the rows split evenly over the
+    experts.  A work counter counts the products' work by
+    :func:`expert_work`, whatever the sizes (which experts are empty is
+    the data's)."""
+    n, e_all = xs.shape[0], w1.shape[0]
+    with hlo_cost.counted_as(*expert_work(n, xs.shape[1], w1.shape[2],
+                                          e_all, xs.element_size())):
+        ys = torch.empty_like(xs)
+        off = 0
+        if xs.device.type == "meta":
+            sizes = [n // e_all + (e < n % e_all) for e in range(e_all)]
+        else:
+            sizes = group_sizes.tolist()
+        for e, c in enumerate(sizes):
+            if c:
+                x = xs[off:off + c]
+                h = F.silu(x @ w1[e]) * (x @ w3[e])
+                ys[off:off + c] = h @ w2[e]
+            off += c
+        ys[off:] = 0
     return ys
+
+
+def expert_work(n: int, d: int, f: int, experts: int,
+                itemsize: int) -> Tuple[int, int, int]:
+    """(operations, bytes, matmul operations) of the grouped SwiGLU over
+    ``n`` rows of width ``d``, expert width ``f``: the three products
+    (2 n d f operations each), SiLU and the gate's multiply (n f each);
+    every expert's weights read once, each product's rows read and output
+    written, and SiLU's, the multiply's and the copy into the output's
+    traffic, as its eager ops move them when every expert holds rows."""
+    matmul = 6 * n * d * f
+    return (matmul + 2 * n * f,
+            itemsize * (5 * n * d + 8 * n * f + 3 * experts * d * f),
+            matmul)
 
 
 def moe_ffn_dense(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig
@@ -185,9 +214,12 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
     n_shards = mesh.size
     d = x.shape[-1]
 
-    # route and pack each shard's token copies by owner shard
+    # route and pack each shard's token copies by owner shard (each
+    # loop's shard bodies are alike: a work counter that counts loops once
+    # runs three, launch/hlo_cost.like_bodies)
     gates, aux, pack1, bx, be, counts = ([None] * n_shards for _ in range(6))
-    for s in range(n_shards):
+    shards = hlo_cost.like_bodies(n_shards)
+    for s in shards:
         x2 = xs[s].reshape(-1, d).to(dt)
         tl = x2.shape[0]
         idx, g, aux[s] = _route({"router": p["router"]}, x2, cfg)
@@ -201,6 +233,7 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
                                  valid, m, cap)
         bx[s], be[s] = pack1[s].buffer
         counts[s] = pack1[s].counts.reshape(m, 1)
+    shards.fill(gates, aux, pack1, bx, be, counts)
     rx = collectives.all_to_all(bx, mesh, "model")       # [m, cap, d]
     re = collectives.all_to_all(be, mesh, "model")
     rc = collectives.all_to_all(counts, mesh, "model")
@@ -208,7 +241,8 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
 
     # pack what each shard received by LOCAL expert into [e_loc, cap_e, d]
     pack2, bx2 = [None] * n_shards, [None] * n_shards
-    for s in range(n_shards):
+    shards = hlo_cost.like_bodies(n_shards)
+    for s in shards:
         cap = rx[s].shape[1]
         slot_ok = (torch.arange(cap, device=x.device)[None, :]
                    < rc[s].reshape(m)[:, None]).reshape(-1)
@@ -220,6 +254,7 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
                                  slot_ok, e_loc, cap_e)
         (bx2[s],) = pack2[s].buffer
         rx[s] = re[s] = None
+    shards.fill(pack2, bx2)
 
     def experts(xb, w1, w3, w2):
         h = torch.einsum("ecd,edf->ecf", xb, w1)
@@ -232,10 +267,12 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
         # back (the down-proj contracts f so partials sum exactly)
         xg = collectives.all_gather(bx2, mesh, f_axes, axis=1, tiled=True)
         del bx2
-        yg = []
-        for s in range(n_shards):
-            yg.append(experts(xg[s], w1s[s], w3s[s], w2s[s]))
+        yg = [None] * n_shards
+        shards = hlo_cost.like_bodies(n_shards)
+        for s in shards:
+            yg[s] = experts(xg[s], w1s[s], w3s[s], w2s[s])
             xg[s] = None
+        shards.fill(yg)
         ys_blk = collectives.psum_scatter(
             yg, mesh, f_axes[0] if len(f_axes) == 1 else f_axes,
             scatter_dimension=1, tiled=True)
@@ -248,35 +285,40 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
                                          tiled=True)
             w2s = collectives.all_gather(w2s, mesh, f_axes, axis=1,
                                          tiled=True)
-        ys_blk = []
-        for s in range(n_shards):
-            ys_blk.append(experts(bx2[s], w1s[s], w3s[s], w2s[s]))
+        ys_blk = [None] * n_shards
+        shards = hlo_cost.like_bodies(n_shards)
+        for s in shards:
+            ys_blk[s] = experts(bx2[s], w1s[s], w3s[s], w2s[s])
             bx2[s] = None
+        shards.fill(ys_blk)
 
     # gather expert outputs back to recv-slot layout (pure gather — the
     # pack's inverse; dropped slots read the sentinel zero row)
-    y_buf, dropped = [], []
-    for s in range(n_shards):
+    y_buf, dropped = [None] * n_shards, [None] * n_shards
+    shards = hlo_cost.like_bodies(n_shards)
+    for s in shards:
         cap_e = pack2[s].buffer[0].shape[1]
         y_unsort = unpack_gather(ys_blk[s].reshape(-1, d), pack2[s], cap_e)
-        dropped.append(pack1[s].dropped + pack2[s].dropped)
-        y_buf.append(y_unsort.reshape(m, -1, d))
+        dropped[s] = (pack1[s].dropped + pack2[s].dropped).float()
+        y_buf[s] = y_unsort.reshape(m, -1, d)
         ys_blk[s] = None
+    shards.fill(y_buf, dropped)
     y_back = collectives.all_to_all(y_buf, mesh, "model")  # [m, cap, d]
     del y_buf
-    ys = []
-    for s in range(n_shards):
+    ys = [None] * n_shards
+    shards = hlo_cost.like_bodies(n_shards)
+    for s in shards:
         cap = y_back[s].shape[1]
         y_per_choice = unpack_gather(y_back[s].reshape(-1, d), pack1[s],
                                      cap)
         tl = y_per_choice.shape[0] // k
         y2 = torch.sum(y_per_choice.reshape(tl, k, d) * gates[s][..., None],
                        dim=1)
-        ys.append(y2.reshape(xs[s].shape))
+        ys[s] = y2.reshape(xs[s].shape)
         y_back[s] = None
+    shards.fill(ys)
     all_axes = tuple(mesh.axis_names)
-    n_drop = collectives.psum([dr.float() for dr in dropped], mesh,
-                              all_axes)
+    n_drop = collectives.psum(dropped, mesh, all_axes)
     aux = collectives.pmean(aux, mesh, all_axes)
     y = collectives.unshard(ys, mesh, x_spec)
     return y, MoEStats(aux_loss=aux[0], dropped=n_drop[0])

@@ -128,9 +128,11 @@ def _chunked_scan(p: ParamsLike, xc: torch.Tensor, cfg: ModelConfig,
 
 
 def resolve_scan_impl(device) -> str:
-    """The scan's route on ``device``: the kernel on CUDA, the reference's
-    chunked scan on the CPU."""
-    return "kernel" if torch.device(device).type == "cuda" else "chunked"
+    """The scan's route on ``device``: the kernel on CUDA (and on meta,
+    where its work is counted), the reference's chunked scan on the
+    CPU."""
+    return "kernel" if torch.device(device).type in ("cuda", "meta") \
+        else "chunked"
 
 
 def ssm_scan(p: ParamsLike, xc: torch.Tensor, cfg: ModelConfig,

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import collectives
 from repro_torch.core.collectives import Mesh
+from repro_torch.launch import hlo_cost
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import ParamsLike
 from repro_torch.models.ssm import _ssm_coeffs, ssm_scan
@@ -89,10 +90,14 @@ def ssm_block_context_parallel(
     xs = collectives.shard(x, mesh, spec)
     n = mesh.size
 
+    # the shard bodies of each loop are alike: a work counter that counts
+    # loops once runs three (launch/hlo_cost.like_bodies)
     xi: List[Optional[torch.Tensor]] = [None] * n
     z: List[Optional[torch.Tensor]] = [None] * n
-    for s in range(n):
+    shards = hlo_cost.like_bodies(n)
+    for s in shards:
         xi[s], z[s] = torch.chunk(xs[s] @ p["in_proj"], 2, dim=-1)
+    shards.fill(xi, z)
     # conv halo: last (cw-1) tokens from the left neighbour (zeros at 0)
     if cw > 1:
         halo = collectives.ppermute([t[:, -(cw - 1):] for t in xi], mesh,
@@ -102,7 +107,8 @@ def ssm_block_context_parallel(
         halo = [t[:, :0] for t in xi]
     xc: List[Optional[torch.Tensor]] = [None] * n
     h_last, a_prod = [None] * n, [None] * n
-    for s in range(n):
+    shards = hlo_cost.like_bodies(n)
+    for s in shards:
         bl, sl, _ = xi[s].shape
         xin = torch.cat([halo[s].to(xi[s].dtype), xi[s]], dim=1)
         conv = sum(xin[:, i:i + sl] * p["conv_w"][i] for i in range(cw))
@@ -113,16 +119,26 @@ def ssm_block_context_parallel(
             (bl, xc[s].shape[-1], cfg.ssm_state), dtype=torch.float32,
             device=x.device))
         a_prod[s] = _local_decay_product(p, xc[s], cfg)
+    shards.fill(xc, h_last, a_prod)
     del halo
     # exchange: [n_seq, B, di, n] each (tiny)
     h_all = collectives.all_gather(h_last, mesh, seq_axis)
     a_all = collectives.all_gather(a_prod, mesh, seq_axis)
-    ys = []
-    for s in range(n):
-        h_in = _exclusive_prefix(h_all[s], a_all[s], idx[s])
+    # each shard's carried state; its work grows with its index on the
+    # sequence axis, so the shards alike are those of one index
+    h_in: List[Optional[torch.Tensor]] = [None] * n
+    for r in range(n_seq):
+        members = hlo_cost.like_bodies([s for s in range(n) if idx[s] == r])
+        for s in members:
+            h_in[s] = _exclusive_prefix(h_all[s], a_all[s], r)
+        members.fill(h_in)
+    ys: List[Optional[torch.Tensor]] = [None] * n
+    shards = hlo_cost.like_bodies(n)
+    for s in shards:
         # pass 2: the scan again from the carried state
-        y, _ = ssm_scan(p, xc[s], cfg, h0=h_in)
-        xc[s] = None
-        ys.append((y * F.silu(z[s])) @ p["out_proj"])
+        y, _ = ssm_scan(p, xc[s], cfg, h0=h_in[s])
+        xc[s] = h_in[s] = None
+        ys[s] = (y * F.silu(z[s])) @ p["out_proj"]
         z[s] = None
+    shards.fill(ys)
     return collectives.unshard(ys, mesh, spec)

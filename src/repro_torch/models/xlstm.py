@@ -12,7 +12,9 @@ A prefill evaluates it chunkwise: the stabilized parallel form within a
 chunk and the small (C, n, m) carry across chunks, where the reference's
 ``lax.scan`` becomes a Python loop over chunks.  sLSTM heads keep the
 true sequential recurrence over S (recurrent weights R_*), one step a
-position.  Neither runs a kernel: the reference has none for them.
+position.  Under a work counter that counts loops once, each loop runs
+three of its bodies, counted for all (``launch/hlo_cost.like_bodies``).
+Neither runs a kernel: the reference has none for them.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import hlo_cost
 from repro_torch.models.common import ModelConfig, Params, trunc_normal
 from repro_torch.models.layers import ParamsLike
 
@@ -134,13 +137,14 @@ def mlstm_block(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
         q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
         logi = F.pad(logi, (0, pad), value=-1e30)
         logf = F.pad(logf, (0, pad))
-    ys = []
+    ys = [None] * ((s + pad) // chunk)
     carry = st
-    for c0 in range(0, s + pad, chunk):
-        sl = slice(c0, c0 + chunk)
-        y, carry = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
-                                logf[..., sl], logi[..., sl], carry)
-        ys.append(y)
+    chunks = hlo_cost.like_bodies(len(ys))  # all, or three (hlo_cost)
+    for i in chunks:
+        sl = slice(i * chunk, (i + 1) * chunk)
+        ys[i], carry = _mlstm_chunk(q[:, :, sl], k[:, :, sl], v[:, :, sl],
+                                    logf[..., sl], logi[..., sl], carry)
+    chunks.fill(ys)
     y = torch.cat(ys, dim=2)[:, :, :s]
     y = y.transpose(1, 2).to(x.dtype)                     # [B,S,H,hd]
     out = torch.einsum("bshk,hkd->bsd", y, p["wo"])
@@ -206,8 +210,9 @@ def slstm_block(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
     rz, ri, rf, ro = (p[n].to(f32) for n in ("rz", "ri", "rf", "ro"))
     f_bias = p["f_bias"]
     c, n, h, m = st
-    hs = []
-    for t in range(s):
+    hs = [None] * s
+    steps = hlo_cost.like_bodies(s)     # all s, or three (hlo_cost)
+    for t in steps:
         z = torch.tanh(zx[t] + torch.einsum("bhk,hkl->bhl", h, rz))
         logi = ix[t] + torch.einsum("bhk,hkl->bhl", h, ri)
         logf = F.logsigmoid(fx[t] + torch.einsum("bhk,hkl->bhl", h, rf)
@@ -220,7 +225,8 @@ def slstm_block(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
         n = f_p * n + i_p
         h = o * c / torch.clamp(n, min=1e-6)
         m = m_new
-        hs.append(h)
+        hs[t] = h
+    steps.fill(hs)
     y = torch.stack(hs, dim=1).to(x.dtype)                # [B,S,H,hd]
     out = torch.einsum("bshk,hkd->bsd", y, p["wout"])
     final = SLSTMState(c=c, n=n, h=h, m=m)

@@ -142,8 +142,8 @@ def execute(ds: ShardedDataset, plan: Plan, *,
                          stage_offset=stage_offset + i, phases=phases)
         return ds
     prog = planner_lib.compile_plan(plan, ds, cache, phases=phases)
-    with timed("dispatch", phases, stages=len(plan.stages)):
-        outs = prog(ds.records, ds.counts)
+    with timed("dispatch", phases, stages=len(plan.stages)) as sp:
+        outs = prog(ds.records, ds.counts, span=sp)
     if prog.num_counters:
         out_records, out_counts, counter_vec = outs
     else:

@@ -12,7 +12,8 @@ cluster's reach of ids over at most ``CLUSTER_GROUPS`` groups, ``tiled``
 otherwise, from n and the group count alone) and the top-k's (``select``
 for k <= 32, ``tree`` otherwise, from k alone).  A CPU call moves no
 launch counter; the wrappers' argument checks raise before any route is
-taken.  The kernels themselves run only on the card
+taken, and a device other than cpu, cuda and meta (the dry run's, which
+has a route of its own: ``tests/test_torch_hlo_cost.py``) raises.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 import pytest
 import torch
@@ -32,6 +33,21 @@ from repro_torch.kernels.topk_reduce.ref import topk_ref
 
 BF16, F32 = torch.bfloat16, torch.float32
 CUDA = torch.device("cuda")   # a device name only: no card is touched
+
+
+class Foreign(torch.Tensor):
+    """A tensor's shape, strides and dtype on a device the wrappers do
+    not take (``xpu``); any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, t):
+        return torch.Tensor._make_wrapper_subclass(
+            cls, t.shape, strides=t.stride(), dtype=t.dtype,
+            device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} on a foreign device")
 
 FLASH_ROUTES = [
     # dtype, head dim, device, route
@@ -104,9 +120,9 @@ def test_flash_wrapper_rejects_mixed_and_foreign_devices():
     q, k, v = _qkv(F32)
     with pytest.raises(ValueError):
         fmod.flash_attention_kernel(q, k.to("meta"), v, group=2)
-    with pytest.raises(ValueError):          # neither cpu nor cuda
-        fmod.flash_attention_kernel(q.to("meta"), k.to("meta"),
-                                    v.to("meta"), group=2)
+    with pytest.raises(ValueError):          # not cpu, cuda or meta
+        fmod.flash_attention_kernel(Foreign(q), Foreign(k), Foreign(v),
+                                    group=2)
 
 
 RMS_PATHS = [
@@ -218,8 +234,8 @@ def test_ssm_wrapper_rejects_foreign_devices():
     args = _ssm_args()
     with pytest.raises(ValueError, match="several devices"):
         smod.ssm_scan_kernel(args[0].to("meta"), *args[1:])
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        smod.ssm_scan_kernel(*(a.to("meta") for a in args))
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        smod.ssm_scan_kernel(*(Foreign(a) for a in args))
 
 
 SEGMENT_ROUTES = [
@@ -272,11 +288,11 @@ def test_segment_reset_launches_zeroes_every_route():
 
 
 def test_segment_wrapper_rejects_foreign_devices_before_a_route():
-    keys = torch.zeros(4, dtype=torch.int32, device="meta")
-    vals = torch.zeros((4, 1), dtype=torch.int32, device="meta")
-    valid = torch.ones(4, dtype=torch.bool, device="meta")
+    keys = Foreign(torch.zeros(4, dtype=torch.int32))
+    vals = Foreign(torch.zeros((4, 1), dtype=torch.int32))
+    valid = Foreign(torch.ones(4, dtype=torch.bool))
     before = (kmod.LAUNCHES, dict(kmod.LAUNCHES_BY_ROUTE))
-    with pytest.raises(ValueError, match="cpu or cuda"):
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
         kmod.segment_sum(keys, vals, 3, valid)
     with pytest.raises(ValueError, match="several devices"):
         kmod.segment_sum(torch.zeros(4, dtype=torch.int32), vals, 3, valid)
@@ -330,9 +346,9 @@ def test_dispatch_reset_launches_zeroes_every_route():
 
 def test_dispatch_wrapper_rejects_foreign_devices_before_a_route():
     before = (dmod.LAUNCHES, dict(dmod.LAUNCHES_BY_ROUTE))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        dmod.moe_dispatch_kernel(torch.zeros(4, dtype=torch.int32,
-                                             device="meta"), 3)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        dmod.moe_dispatch_kernel(Foreign(torch.zeros(4, dtype=torch.int32)),
+                                 3)
     assert (dmod.LAUNCHES, dmod.LAUNCHES_BY_ROUTE) == before
 
 
@@ -376,6 +392,6 @@ def test_topk_reset_launches_zeroes_every_route():
 
 def test_topk_wrapper_rejects_foreign_devices_before_a_route():
     before = (tmod.LAUNCHES, dict(tmod.LAUNCHES_BY_ROUTE))
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        tmod.topk_reduce_kernel(torch.zeros(40, device="meta"), 3, 40)
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        tmod.topk_reduce_kernel(Foreign(torch.zeros(40)), 3, 40)
     assert (tmod.LAUNCHES, tmod.LAUNCHES_BY_ROUTE) == before
