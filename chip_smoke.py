@@ -1305,8 +1305,8 @@ def runtime_slice(genome: dict, tmp: str) -> None:
             k: snap[k] for k in ("mat_cache.device.hits",
                                  "mat_cache.host.hits",
                                  "mat_cache.device.evictions",
-                                 "waves.completed", "executor.actions",
-                                 "executor.submitted")}}), flush=True)
+                                 "waves.completed",
+                                 "executor.actions")}}), flush=True)
 
 
 # ---------------------------------------------------------------------------

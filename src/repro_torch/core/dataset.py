@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.container import Partition
+from repro_torch.obs import TRACER, span
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -44,6 +45,10 @@ class ShardedDataset:
     #: Lineage fingerprint (repro_torch.runtime.lineage.Lineage) naming
     #: how this dataset was produced; None = unknown provenance.
     lineage: Any = None
+    #: ``ActionReport.action_id`` of the action that last returned this
+    #: dataset (None before any): the ``gather`` span's argument, so an
+    #: action's spans and its gather share one id.
+    action_id: Optional[int] = None
 
     @property
     def device(self) -> torch.device:
@@ -65,7 +70,7 @@ class ShardedDataset:
                      ) -> "ShardedDataset":
         # records changed by an unknown transformation -> provenance lost
         return dataclasses.replace(
-            self, records=records, lineage=None,
+            self, records=records, lineage=None, action_id=None,
             counts=self.counts if counts is None else counts)
 
     def shard(self, s: int) -> Partition:
@@ -208,22 +213,30 @@ def from_shard_arrays(shard_records: Iterable[Any],
                           counts=counts, num_shards=n)
 
 
+def _host_bytes(out: Any) -> int:
+    return sum(a.nbytes for a in tree.leaves(out))
+
+
 def collect_shard(ds: ShardedDataset, shard: int = 0) -> Any:
     """One shard's valid records as numpy (``MaRe.collect(shard=...)``):
     slices the shard's block on the device and transfers only its valid
-    rows."""
+    rows.  One ``gather`` span covers the count's read and the copy."""
     n = ds.num_shards
     if not 0 <= shard < n:
         raise ValueError(f"shard index {shard} out of range for "
                          f"{n}-shard dataset")
-    rows = int(ds.counts[shard])
+    with span("gather", action_id=ds.action_id, shard=shard) as sp:
+        rows = int(ds.counts[shard])
 
-    def one(leaf):
-        cap = leaf.shape[0] // n
-        lo = shard * cap
-        return leaf[lo:lo + min(cap, rows)].cpu().numpy()
+        def one(leaf):
+            cap = leaf.shape[0] // n
+            lo = shard * cap
+            return leaf[lo:lo + min(cap, rows)].cpu().numpy()
 
-    return tree.tree_map(one, ds.records)
+        out = tree.tree_map(one, ds.records)
+        if TRACER.enabled:
+            sp.set(rows=min(rows, ds.capacity), bytes=_host_bytes(out))
+    return out
 
 
 def collect_first_shard(ds: ShardedDataset) -> Any:
@@ -232,13 +245,19 @@ def collect_first_shard(ds: ShardedDataset) -> Any:
 
 
 def collect(ds: ShardedDataset) -> Any:
-    """Gather every shard's valid records to host numpy (RDD.collect)."""
-    counts = ds.counts.cpu().numpy()
-    cap = ds.capacity
+    """Gather every shard's valid records to host numpy (RDD.collect).
+    One ``gather`` span covers the counts' read, the concatenation and
+    the copy."""
+    with span("gather", action_id=ds.action_id) as sp:
+        counts = ds.counts.cpu().numpy()
+        cap = ds.capacity
 
-    def gather(leaf):
-        segs = [leaf[s * cap:s * cap + int(counts[s])]
-                for s in range(ds.num_shards)]
-        return torch.cat(segs, dim=0).cpu().numpy()
+        def gather(leaf):
+            segs = [leaf[s * cap:s * cap + int(counts[s])]
+                    for s in range(ds.num_shards)]
+            return torch.cat(segs, dim=0).cpu().numpy()
 
-    return tree.tree_map(gather, ds.records)
+        out = tree.tree_map(gather, ds.records)
+        if TRACER.enabled:
+            sp.set(rows=int(counts.sum()), bytes=_host_bytes(out))
+    return out

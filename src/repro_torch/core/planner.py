@@ -18,6 +18,11 @@ logical shards.
 
 This module is *lowering only*: dispatching a program, syncing its
 counters and recording diagnostics is :mod:`repro_torch.runtime.executor`.
+The lowered program spans each stage once over all shards (``map``,
+``keyed.combine``, ``keyed.merge``, ``tree_reduce``; the exchange spans
+itself in :func:`~repro_torch.core.shuffle.shuffle_partition`), inside the
+executor's ``dispatch`` span: with the tracer's profiler sink on, the
+device time of each stage shows under its own profiler range.
 With tracing on, the first dispatch of a new program runs under the work
 counter (:mod:`repro_torch.launch.hlo_cost`) and fills
 :attr:`CompiledProgram.cost` (the reference annotates its compile span so;
@@ -44,7 +49,7 @@ from repro_torch.core.tree_reduce import (keyed_combine_partition,
                                           keyed_merge_partition,
                                           tree_reduce_partition)
 from repro_torch.launch import hlo_cost
-from repro_torch.obs import METRICS, TRACER, timed
+from repro_torch.obs import METRICS, TRACER, span, timed
 
 Counters = List[List[torch.Tensor]]     # [shard][counter] int32 scalars
 
@@ -175,27 +180,30 @@ def _apply_keyed(stage: KeyedReduceStage, parts: List[Partition]
     num_keys = stage.num_keys
     salt = 1 if stage.combiner else max(1, int(stage.salt))
     sends, overflows = [], []
-    for part in parts:
-        keys = torch.as_tensor(stage.key_by(part.records)).to(torch.int32)
-        values = (stage.value_by(part.records) if stage.value_by is not None
-                  else part.records)
-        valid = part.mask()
-        if stage.combiner:
-            send, overflow = keyed_combine_partition(
-                keys, values, valid, num_keys, op=stage.op,
-                use_kernel=stage.use_kernel)
-        else:
-            in_range = (keys >= 0) & (keys < num_keys)
-            ok = valid & in_range
-            overflow = (valid & ~in_range).sum().to(torch.int32)
-            # compact surviving records to the front (count semantics)
-            order = stable_argsort_false_first(ok)
-            recs = (take_clip(keys, order),
-                    tree.tree_map(lambda l: take_clip(l, order), values),
-                    take_clip(ok.to(torch.int32), order))
-            send = make_partition(recs, ok.sum().to(torch.int32))
-        sends.append(send)
-        overflows.append(overflow)
+    with span("keyed.combine", num_keys=num_keys,
+              rows=axis_size * parts[0].capacity):
+        for part in parts:
+            keys = torch.as_tensor(stage.key_by(part.records)
+                                   ).to(torch.int32)
+            values = (stage.value_by(part.records)
+                      if stage.value_by is not None else part.records)
+            valid = part.mask()
+            if stage.combiner:
+                send, overflow = keyed_combine_partition(
+                    keys, values, valid, num_keys, op=stage.op,
+                    use_kernel=stage.use_kernel)
+            else:
+                in_range = (keys >= 0) & (keys < num_keys)
+                ok = valid & in_range
+                overflow = (valid & ~in_range).sum().to(torch.int32)
+                # compact surviving records to the front (count semantics)
+                order = stable_argsort_false_first(ok)
+                recs = (take_clip(keys, order),
+                        tree.tree_map(lambda l: take_clip(l, order), values),
+                        take_clip(ok.to(torch.int32), order))
+                send = make_partition(recs, ok.sum().to(torch.int32))
+            sends.append(send)
+            overflows.append(overflow)
     if stage.combiner:
         default_cap = keyed_bucket_capacity(num_keys, axis_size)
     elif salt > 1:
@@ -216,9 +224,10 @@ def _apply_keyed(stage: KeyedReduceStage, parts: List[Partition]
     max_send = [r.send_counts.max().to(torch.int32) for r in res]
     dropped = [r.dropped for r in res]
     buffer_rows = axis_size * cap
-    merged = [keyed_merge_partition(r.part, num_keys, op=stage.op,
-                                    use_kernel=stage.use_kernel)
-              for r in res]
+    with span("keyed.merge", num_keys=num_keys, rows=axis_size * buffer_rows):
+        merged = [keyed_merge_partition(r.part, num_keys, op=stage.op,
+                                        use_kernel=stage.use_kernel)
+                  for r in res]
     outs = [m[0] for m in merged]
     merge_ovf = [m[1] for m in merged]
     if salt > 1:
@@ -233,9 +242,11 @@ def _apply_keyed(stage: KeyedReduceStage, parts: List[Partition]
                                         r.send_counts.max().to(torch.int32))
             dropped[s] = dropped[s] + r.dropped
         buffer_rows += axis_size * cap2
-        merged2 = [keyed_merge_partition(r.part, num_keys, op=stage.op,
-                                         use_kernel=stage.use_kernel)
-                   for r in res2]
+        with span("keyed.merge", num_keys=num_keys,
+                  rows=axis_size * axis_size * cap2):
+            merged2 = [keyed_merge_partition(r.part, num_keys, op=stage.op,
+                                             use_kernel=stage.use_kernel)
+                       for r in res2]
         outs = [m[0] for m in merged2]
         merge_ovf = [a + m[1] for a, m in zip(merge_ovf, merged2)]
     counters = [[(overflows[s] + merge_ovf[s]).to(torch.int32),
@@ -264,8 +275,10 @@ def _apply_stage(stage, parts: List[Partition], stage_idx: int = 0
     each shard's counters matching ``stage_counter_kinds(stage)``."""
     n = len(parts)
     if isinstance(stage, MapStage):
-        return [_apply_chain(stage.ops, p.records, p.count, stage_idx)
-                for p in parts], [[] for _ in parts]
+        with span("map", stage=stage.describe()):
+            out = [_apply_chain(stage.ops, p.records, p.count, stage_idx)
+                   for p in parts]
+        return out, [[] for _ in parts]
     if isinstance(stage, ShuffleStage):
         keys = []
         for p in parts:
@@ -282,7 +295,9 @@ def _apply_stage(stage, parts: List[Partition], stage_idx: int = 0
         for p in parts:
             _validate_mount(stage.op.input_mount, p.records, stage_idx,
                             stage.op.name, "input")
-        parts = tree_reduce_partition(parts, stage.op, depth=stage.depth)
+        with span("tree_reduce", image=stage.op.name, depth=stage.depth):
+            parts = tree_reduce_partition(parts, stage.op,
+                                          depth=stage.depth)
         for p in parts:
             _validate_mount(stage.op.output_mount, p.records, stage_idx,
                             stage.op.name, "output")

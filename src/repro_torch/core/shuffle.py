@@ -20,6 +20,7 @@ multiply is split so no intermediate leaves int64 range.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -29,6 +30,7 @@ from repro_torch.core import collectives, tree
 from repro_torch.core.collectives import SHARDS_AXIS, shards_mesh
 from repro_torch.core.container import Partition, make_partition
 from repro_torch.core.tensors import stable_argsort_false_first, take_clip
+from repro_torch.obs import TRACER, span
 
 _MASK32 = 0xFFFFFFFF
 
@@ -197,33 +199,42 @@ def shuffle_partition(parts: Sequence[Partition],
     part.capacity`` the shuffle is lossless.  ``dests[s]`` (int32, values
     in ``[0, n)``) overrides ``partitioner(keys) % n`` — the hook the
     salted skew path uses (:func:`salted_dest`).
+
+    The whole exchange is one ``exchange`` span (args: shards, capacity,
+    and with tracing on the send buffers' bytes, from the shapes).
     """
     n = len(parts)
     cap_in = parts[0].capacity
     capacity = capacity or cap_in
-    packs = []
-    for s, part in enumerate(parts):
-        dest = (dests[s] if dests is not None
-                else (partitioner(keys[s]) % n).to(torch.int32))
-        packs.append(_pack_by_dest(part.records, dest, part.mask(), n,
-                                   capacity))
-    recv = all_to_all([p.buffer for p in packs])
-    # recv_counts[d][s] = what source s sent to d
-    recv_counts = torch.stack([p.counts for p in packs]).t()
-    slots = torch.arange(capacity, device=recv_counts.device)
-    out = []
-    for d in range(n):
-        slot_valid = (slots[None, :] < recv_counts[d][:, None]).reshape(-1)
-        order = stable_argsort_false_first(slot_valid)
+    with span("exchange", shards=n, capacity=capacity) as sp:
+        if TRACER.enabled:
+            sp.set(buffer_bytes=n * n * capacity * sum(
+                leaf.element_size() * math.prod(leaf.shape[1:])
+                for leaf in tree.leaves(parts[0].records)))
+        packs = []
+        for s, part in enumerate(parts):
+            dest = (dests[s] if dests is not None
+                    else (partitioner(keys[s]) % n).to(torch.int32))
+            packs.append(_pack_by_dest(part.records, dest, part.mask(), n,
+                                       capacity))
+        recv = all_to_all([p.buffer for p in packs])
+        # recv_counts[d][s] = what source s sent to d
+        recv_counts = torch.stack([p.counts for p in packs]).t()
+        slots = torch.arange(capacity, device=recv_counts.device)
+        out = []
+        for d in range(n):
+            slot_valid = (slots[None, :] < recv_counts[d][:, None]
+                          ).reshape(-1)
+            order = stable_argsort_false_first(slot_valid)
 
-        def compact(leaf):
-            flat = leaf.reshape((n * capacity,) + tuple(leaf.shape[2:]))
-            return take_clip(flat, order)
+            def compact(leaf):
+                flat = leaf.reshape((n * capacity,) + tuple(leaf.shape[2:]))
+                return take_clip(flat, order)
 
-        part = make_partition(tree.tree_map(compact, recv[d]),
-                              recv_counts[d].sum().to(torch.int32))
-        out.append(ShuffleResult(part=part, dropped=packs[d].dropped,
-                                 send_counts=packs[d].counts))
+            part = make_partition(tree.tree_map(compact, recv[d]),
+                                  recv_counts[d].sum().to(torch.int32))
+            out.append(ShuffleResult(part=part, dropped=packs[d].dropped,
+                                     send_counts=packs[d].counts))
     return out
 
 

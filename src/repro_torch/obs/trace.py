@@ -1,13 +1,15 @@
-"""Thread-safe span tracing with a Chrome-trace/Perfetto JSON exporter.
+"""Thread-safe span tracing with two sinks: a bounded ring exported as
+Chrome-trace/Perfetto JSON, and the profiler's timeline.
 
 The runtime layers (ingest pool, planner, executor, materialization
-cache, wave loop) are permanently instrumented with :func:`span` /
-:func:`instant` calls against the process-wide :data:`TRACER`.  The
-tracer is **disabled by default**: until a ring sink is attached with
-:meth:`Tracer.start` (or the :func:`tracing` context manager), ``span``
-returns a shared null context manager and ``instant`` returns
-immediately — one attribute load and a branch, cheap enough to leave in
-every hot path (asserted < 5% of a small fused action in
+cache, wave loop) and the program's stages (map, exchange, keyed combine
+and merge, tree reduce, gather) are permanently instrumented with
+:func:`span` / :func:`instant` calls against the process-wide
+:data:`TRACER`.  The tracer is **disabled by default**: until a sink is
+attached with :meth:`Tracer.start` (or the :func:`tracing` context
+manager), ``span`` returns a shared null context manager and ``instant``
+returns immediately — one attribute load and a branch, cheap enough to
+leave in every hot path (asserted < 5% of a small fused action in
 ``tests/test_torch_obs.py``).
 
 When enabled, completed spans land in a bounded in-memory ring (oldest
@@ -18,6 +20,25 @@ JSON-serializable ``args``.  Nesting is by containment on a thread —
 Perfetto and ``chrome://tracing`` both render stacked slices without
 explicit parent links.  Export with :meth:`Tracer.export` (or
 ``MaRe.trace_to``) and load the file straight into https://ui.perfetto.dev.
+
+The ring times the host: a span around a kernel launch ends when the
+launch is queued.  The **profiler sink** (``tracing(profiler=True)``)
+puts the device time down to layers: every span also opens a
+``torch.profiler`` range named :data:`PREFIX` + its name (``mare.map``,
+``mare.exchange``, ...), with the span's numeric arguments known at
+entry as the range's inputs (shown with ``record_shapes=True``).  Inside
+a running ``torch.profiler`` session the ranges land on the profiler's
+own clock, on the host timeline and, as GPU user annotations, over the
+kernels launched inside them::
+
+    with torch.profiler.profile(activities=[...]) as prof:
+        with obs.tracing(profiler=True):
+            m.collect()
+    # prof.events(): "mare.dispatch" > "mare.map" | "mare.exchange" | ...
+
+Without a profiler session the ranges cost a little host time and
+record nothing.  Torch is imported only when the profiler sink is
+switched on, so this module stays importable without it.
 """
 from __future__ import annotations
 
@@ -27,8 +48,25 @@ import threading
 import time
 from collections import deque
 from contextlib import contextmanager
-from typing import Any, Deque, Dict, Iterator, List, Optional
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional
 
+#: Prefix of the profiler ranges the program's spans open, so a reader
+#: tells them from aten operations and from other ``record_function``
+#: ranges.
+PREFIX = "mare."
+
+#: This process's id, each event's ``pid``: read once, and again in a
+#: forked child, since ``os.getpid()`` is a system call, ~150 us a call
+#: where the operating system sandboxes system calls.
+_PID = os.getpid()
+
+
+def _reset_pid() -> None:
+    global _PID
+    _PID = os.getpid()
+
+
+os.register_at_fork(after_in_child=_reset_pid)
 
 class _NullSpan:
     """Shared no-op span: the disabled-tracing fast path."""
@@ -48,10 +86,31 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """One live span: records [enter, exit) and appends to the ring."""
+class _ProfilerSink:
+    """The profiler's record-function pair: a range opened at a span's
+    entry and closed at its exit, on the calling thread."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0")
+    __slots__ = ("enter", "exit")
+
+    def __init__(self) -> None:
+        import torch
+        self.enter: Callable[..., Any] = \
+            torch._C._autograd._record_function_with_args_enter
+        self.exit: Callable[[Any], None] = \
+            torch._C._autograd._record_function_with_args_exit
+
+    def open(self, name: str, args: Optional[Dict[str, Any]]) -> Any:
+        values = [v for v in args.values()
+                  if isinstance(v, (int, float))] if args else ()
+        return self.enter(PREFIX + name, *values)
+
+
+class _Span:
+    """One live span: records [enter, exit) and appends to the ring, and
+    with the profiler sink on holds a profiler range over the same
+    interval."""
+
+    __slots__ = ("_tracer", "name", "args", "_t0", "_sink", "_range")
 
     def __init__(self, tracer: "Tracer", name: str,
                  args: Optional[Dict[str, Any]]) -> None:
@@ -60,11 +119,16 @@ class _Span:
         self.args = args
 
     def __enter__(self) -> "_Span":
+        self._sink = sink = self._tracer._profiler
+        if sink is not None:
+            self._range = sink.open(self.name, self.args)
         self._t0 = time.monotonic()
         return self
 
     def __exit__(self, *exc) -> None:
         t1 = time.monotonic()
+        if self._sink is not None:
+            self._sink.exit(self._range)
         self._tracer._record(self.name, self._t0, t1, self.args)
 
     def set(self, **args: Any) -> None:
@@ -89,6 +153,8 @@ class Tracer:
         self._events: Deque[Dict[str, Any]] = deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._enabled = False
+        #: The profiler sink while it is attached, else None.
+        self._profiler: Optional[_ProfilerSink] = None
         self._epoch = time.monotonic()
         self.events_total = 0
 
@@ -98,20 +164,31 @@ class Tracer:
     def enabled(self) -> bool:
         return self._enabled
 
-    def start(self, clear: bool = True) -> "Tracer":
-        """Attach the ring sink: spans/instants record from now on."""
+    @property
+    def profiling(self) -> bool:
+        """Whether spans also open profiler ranges."""
+        return self._profiler is not None
+
+    def start(self, clear: bool = True, profiler: bool = False
+              ) -> "Tracer":
+        """Attach the ring sink: spans/instants record from now on.
+        ``profiler=True`` also attaches the profiler sink (module
+        docstring); ``False`` leaves it as it was."""
+        sink = _ProfilerSink() if profiler else self._profiler
         with self._lock:
             if clear:
                 self._events.clear()
                 self.events_total = 0
                 self._epoch = time.monotonic()
+            self._profiler = sink
             self._enabled = True
         return self
 
     def stop(self) -> "Tracer":
-        """Detach the sink: span()/instant() return to the no-op path
+        """Detach both sinks: span()/instant() return to the no-op path
         (already-recorded events stay in the ring for export)."""
         self._enabled = False
+        self._profiler = None
         return self
 
     def clear(self) -> None:
@@ -138,7 +215,7 @@ class Tracer:
             return
         ev = {"name": name, "ph": "i", "s": "t",
               "ts": (time.monotonic() - self._epoch) * 1e6,
-              "pid": os.getpid(), "tid": threading.get_ident()}
+              "pid": _PID, "tid": threading.get_ident()}
         if args:
             ev["args"] = args
         with self._lock:
@@ -150,7 +227,7 @@ class Tracer:
         ev = {"name": name, "ph": "X",
               "ts": (t0 - self._epoch) * 1e6,
               "dur": (t1 - t0) * 1e6,
-              "pid": os.getpid(), "tid": threading.get_ident()}
+              "pid": _PID, "tid": threading.get_ident()}
         if args:
             ev["args"] = args
         with self._lock:
@@ -198,23 +275,27 @@ def instant(name: str, **args: Any) -> None:
 
 
 @contextmanager
-def tracing(tracer: Optional[Tracer] = None,
-            clear: bool = True) -> Iterator[Tracer]:
+def tracing(tracer: Optional[Tracer] = None, clear: bool = True,
+            profiler: bool = False) -> Iterator[Tracer]:
     """Enable the (default) tracer for a block, restoring the previous
-    enabled state on exit — the test/benchmark spelling:
+    state of both sinks on exit — the test/benchmark spelling:
 
     .. code-block:: python
 
         with obs.tracing() as t:
             m.collect()
         t.export("trace.json")
+
+    ``profiler=True`` also opens a profiler range a span, for a
+    ``torch.profiler`` session around the block (module docstring).
     """
     t = tracer if tracer is not None else TRACER
-    was = t._enabled
-    t.start(clear=clear)
+    was, sink = t._enabled, t._profiler
+    t.start(clear=clear, profiler=profiler)
     try:
         yield t
     finally:
+        t._profiler = sink
         t._enabled = was
 
 

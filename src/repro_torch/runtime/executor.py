@@ -309,6 +309,7 @@ class Executor:
                 device=device)
             action_span.set(action_id=report.action_id,
                             cached_stages=cached_stages)
+            ds.action_id = report.action_id
             METRICS.counter("executor.actions").inc()
             for phase, s in phases.items():
                 METRICS.histogram(f"phase.{phase}").observe(s)
@@ -365,7 +366,6 @@ class Executor:
         handle.submitted_at = time.monotonic()
         self._queue.put((handle, fn))
         METRICS.gauge("executor.queue_depth").set(self._queue.qsize())
-        METRICS.counter("executor.submitted").inc()
         return handle
 
     def submit_action(self, ds: ShardedDataset, plan: Plan, *,

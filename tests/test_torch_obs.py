@@ -9,10 +9,17 @@ arguments, snapshots, rendered text) is compared.  One difference is
 settled: the reference splits a program's first build into
 ``plan.lower`` and ``plan.compile`` (XLA's AOT lowering and compile);
 the port runs its lowered program eagerly, so its build is the one
-``plan.build`` span and those two names never appear.
+``plan.build`` span and those two names never appear.  The other way
+round, the port spans its program's stages and the gather, which run
+inside one compiled XLA program in the reference, where no host span
+can sit.  The port's profiler sink (``tracing(profiler=True)``) is its
+own and is tested on the port alone.
 """
 import json
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -41,6 +48,10 @@ PKGS = {
 #: The reference's span names that the port's eager lowering has no
 #: counterpart for (module docstring).
 REFERENCE_ONLY = {"plan.lower", "plan.compile"}
+#: The port's spans inside its program and around the gather, which the
+#: reference's compiled program has no host span for (module docstring).
+PORT_ONLY = {"map", "exchange", "keyed.combine", "keyed.merge",
+             "tree_reduce", "gather"}
 
 
 def both(case):
@@ -234,7 +245,8 @@ def test_traced_action_exports_nested_spans_and_phases(tmp_path):
             "ingest.device_put", "action", "plan.typecheck", "plan.build",
             "dispatch", "counter_sync", "cache_lookup",
             "device_wait"} <= port[0]
-    assert port[0] == ref[0] - REFERENCE_ONLY
+    assert {"exchange", "gather"} <= port[0]
+    assert port[0] - PORT_ONLY == ref[0] - REFERENCE_ONLY
     assert port[1] == sorted(set(ref[1]) - REFERENCE_ONLY)
     assert {"plan.build", "dispatch", "device_wait"} <= set(port[1])
     ref_args, port_args = ref[2], port[2]
@@ -267,7 +279,8 @@ def test_mare_metrics_and_trace_to_surface(tmp_path):
         return names
     ref, port = both(case)
     assert "action" in port
-    assert port == sorted(set(ref) - REFERENCE_ONLY)
+    assert {"map", "gather"} <= set(port)
+    assert set(port) - PORT_ONLY == set(ref) - REFERENCE_ONLY
 
 
 # -- overhead bound -----------------------------------------------------------
@@ -288,7 +301,8 @@ def test_disabled_tracing_overhead_under_5pct_of_small_action(mod):
     """The instrumentation is always on; with no sink attached a span is
     one attribute load + branch.  Bound: crossing every site a warm fused
     action actually hits (action, cache_lookup, dispatch, device_wait,
-    counter_sync + headroom: 16 spans) must cost < 5% of that action.
+    counter_sync, and in the port map and gather + headroom: 16 spans)
+    must cost < 5% of that action.
     Both sides are the best of repeated timings, so a busy machine
     (other test workers) does not decide the outcome."""
     pkg = PKGS[mod]
@@ -308,3 +322,190 @@ def test_disabled_tracing_overhead_under_5pct_of_small_action(mod):
                 pass
     per_span = _best_seconds(spans, reps=5) / n
     assert per_span * 16 < 0.05 * action_s, (per_span, action_s)
+
+
+# -- the profiler sink (the port's own) ---------------------------------------
+
+def _profiled(fn, tracing_kw=None):
+    """``fn()`` inside a CPU ``torch.profiler`` session, with the port's
+    tracer switched on as ``tracing_kw`` says (off when None); returns
+    the result, the profiler's ``mare.*`` host ranges in time order, and
+    the ring's events."""
+    from torch.profiler import ProfilerActivity, profile
+    ring = []
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as prof:
+        if tracing_kw is None:
+            out = fn()
+        else:
+            with TO.tracing(**tracing_kw) as t:
+                out = fn()
+            ring = t.events()
+    ranges = sorted((e for e in prof.events()
+                     if e.name.startswith(TO.PREFIX)),
+                    key=lambda e: e.time_range.start)
+    return out, ranges, ring
+
+
+def _within(outer, inner) -> bool:
+    return (outer.time_range.start <= inner.time_range.start
+            and inner.time_range.end <= outer.time_range.end)
+
+
+def _kmer_action(executor=None):
+    rng = np.random.default_rng(8)
+    data = rng.choice(np.frombuffer(b"ACGTNacgt", np.uint8),
+                      size=(300, 64)).astype(np.uint8)
+    lens = rng.integers(0, 65, 300).astype(np.int32)
+    m = (T.MaRe({"data": data, "len": lens}, num_shards=4, device="cpu",
+                plan_cache=T.PlanCache(),
+                executor=executor or _executor(PKGS[T]))
+         .map(image="kmer-stats", command="kmer-stats 5")
+         .reduce_by_key(lambda r: r[0], value_by=lambda r: (r[1],),
+                        op="sum"))
+    return m.collect(), m
+
+
+def test_profiler_sink_nests_the_kmer_actions_layers():
+    """A k-mer ``collect()`` under ``tracing(profiler=True)`` inside a
+    CPU profiler session: ``mare.action > mare.dispatch > mare.map |
+    mare.exchange | mare.keyed.combine | mare.keyed.merge`` as nested
+    host ranges in that order, then ``mare.gather`` after the action,
+    carrying the action's id as its first input and in the ring."""
+    ex = _executor(PKGS[T])
+    (keys, _, _), m = _kmer_action(ex)
+    _, ranges, ring = _profiled(lambda: _kmer_action(ex),
+                                {"profiler": True})
+    by = {}
+    for e in ranges:
+        by.setdefault(e.name[len(TO.PREFIX):], []).append(e)
+    (action,), (dispatch,), (gather,) = (by["action"], by["dispatch"],
+                                         by["gather"])
+    assert _within(action, dispatch)
+    layers = [e for e in ranges if e.name[len(TO.PREFIX):] in
+              ("map", "exchange", "keyed.combine", "keyed.merge")]
+    assert [e.name for e in layers] == [
+        "mare.map", "mare.keyed.combine", "mare.exchange",
+        "mare.keyed.merge"]
+    assert all(_within(dispatch, e) for e in layers)
+    assert gather.time_range.start >= action.time_range.end
+    action_id = m.report().action_id + 1      # the profiled action's
+    assert gather.concrete_inputs[0] == action_id
+    ring_ids = {e["name"]: e["args"].get("action_id") for e in ring
+                if e["name"] in ("action", "gather")}
+    assert ring_ids == {"action": action_id, "gather": action_id}
+    ring_gather = next(e for e in ring if e["name"] == "gather")["args"]
+    assert ring_gather["rows"] == len(keys)
+    assert ring_gather["bytes"] > 0
+    # each range's ring event carries the same name without the prefix
+    assert {e.name[len(TO.PREFIX):] for e in ranges} \
+        == {e["name"] for e in ring}
+
+
+def test_profiler_sink_shows_the_listing3_tree_reduce():
+    """A Listing-3-style pipeline (map -> repartition_by -> map ->
+    reduce(toolbox/concat, depth=2) -> collect(shard=0)) shows one
+    ``mare.exchange`` and one ``mare.tree_reduce`` inside the dispatch,
+    with the image and depth in the ring."""
+    data = np.arange(64, dtype=np.int32)
+
+    def action():
+        return (T.MaRe((data,), num_shards=8, device="cpu",
+                       plan_cache=T.PlanCache(),
+                       executor=_executor(PKGS[T]))
+                .map(op=_ident_op(PKGS[T]))
+                .repartition_by(lambda r: r[0] % 3)
+                .map(op=_ident_op(PKGS[T], "obs/id2"))
+                .reduce(image="toolbox/concat", depth=2)
+                .collect(shard=0))
+
+    (got,), ranges, ring = _profiled(action, {"profiler": True})
+    assert sorted(got.tolist()) == data.tolist()
+    names = [e.name for e in ranges]
+    assert names.count("mare.exchange") == 1
+    assert names.count("mare.tree_reduce") == 1
+    assert names.count("mare.map") == 2
+    (dispatch,) = [e for e in ranges if e.name == "mare.dispatch"]
+    (tree,) = [e for e in ranges if e.name == "mare.tree_reduce"]
+    assert _within(dispatch, tree)
+    args = next(e for e in ring if e["name"] == "tree_reduce")["args"]
+    assert args == {"image": "toolbox/concat:latest", "depth": 2}
+
+
+@pytest.mark.parametrize("ring", [False, True],
+                         ids=["tracer_off", "ring_only"])
+def test_no_profiler_range_without_the_profiler_sink(ring):
+    """With the tracer off, or with the ring alone, the program opens no
+    profiler range and the answer is the same; with the tracer off
+    ``span()`` is still the shared null object."""
+    (keys, _, _), _ = _kmer_action()
+    (again, _, _), ranges, events = _profiled(
+        lambda: _kmer_action()[0], {} if ring else None)
+    np.testing.assert_array_equal(again, keys)
+    assert ranges == []
+    assert bool(events) == ring
+    assert not TO.TRACER.enabled and not TO.TRACER.profiling
+    assert TO.span("map") is TO.span("gather")
+    assert type(TO.span("exchange")).__name__ == "_NullSpan"
+
+
+def test_tracing_restores_both_sinks():
+    with TO.tracing(profiler=True):
+        assert TO.TRACER.enabled and TO.TRACER.profiling
+        with TO.tracing():                  # the ring alone keeps the sink
+            assert TO.TRACER.profiling
+        assert TO.TRACER.profiling
+    assert not TO.TRACER.enabled and not TO.TRACER.profiling
+    t = TO.Tracer().start(profiler=True)
+    assert t.stop().profiling is False
+
+
+def test_trace_module_imports_without_torch():
+    """``obs.trace`` needs torch only for the profiler sink: loaded in a
+    process where ``import torch`` fails, the ring records and
+    ``start(profiler=True)`` raises ImportError."""
+    path = Path(TO.__file__).with_name("trace.py")
+    code = f"""
+import importlib.util, sys
+sys.modules["torch"] = None
+spec = importlib.util.spec_from_file_location("trace_alone", {str(path)!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+t = mod.Tracer().start()
+with t.span("x", n=1):
+    pass
+assert [e["name"] for e in t.events()] == ["x"]
+try:
+    t.start(profiler=True)
+except ImportError:
+    print("ok")
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60)
+    assert out.stdout.strip() == "ok", out.stderr
+
+
+def test_events_carry_the_recording_process_id():
+    """The ring reads the process id once, and again in a forked child:
+    an event recorded in the child carries the child's id."""
+    path = Path(TO.__file__).with_name("trace.py")
+    code = f"""
+import importlib.util, os
+spec = importlib.util.spec_from_file_location("trace_alone", {str(path)!r})
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+t = mod.Tracer().start()
+t.instant("parent")
+assert t.events()[0]["pid"] == os.getpid()
+r, w = os.pipe()
+child = os.fork()
+if child == 0:
+    t.instant("child")
+    os.write(w, str(t.events()[-1]["pid"] == os.getpid()).encode())
+    os._exit(0)
+os.waitpid(child, 0)
+print(os.read(r, 16).decode())
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=60)
+    assert out.stdout.strip() == "True", out.stderr
