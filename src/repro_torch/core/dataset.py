@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.core.container import Partition
-from repro_torch.obs import TRACER, span
+from repro_torch.obs import METRICS, TRACER, span
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -213,30 +213,68 @@ def from_shard_arrays(shard_records: Iterable[Any],
                           counts=counts, num_shards=n)
 
 
-def _host_bytes(out: Any) -> int:
-    return sum(a.nbytes for a in tree.leaves(out))
+#: A leaf whose answer is smaller than this many bytes has its spans
+#: concatenated on the device and copied once: each copy has a fixed host
+#: cost, which a copy a span pays a shard at a time.  From this size up
+#: the copies a span take no longer (the crossover on an H100, PERF.md),
+#: and spare the device a buffer the size of the answer.
+CAT_BELOW_BYTES = 16 << 20
+
+
+def _to_host(ds: ShardedDataset, spans: Sequence[tuple], sp: Any) -> Any:
+    """The rows ``[lo, lo + n)`` of every ``(lo, n)`` in ``spans``, in
+    order, as one fresh host array a leaf, recorded on the ``gather``
+    span ``sp``.  Each span is copied straight to its offset in the
+    answer's own host tensor (a leaf under ``CAT_BELOW_BYTES``: the spans
+    concatenated on the device, then copied once).  On a CUDA dataset
+    that tensor is pinned (PyTorch's caching host allocator), the copies
+    are asynchronous and one event after the last is waited for.  The
+    arrays keep their tensors: a kept answer keeps its pinned block, a
+    dropped one returns it to the allocator's cache, and no two answers
+    share memory."""
+    pinned = ds.device.type == "cuda"
+    rows = sum(n for _, n in spans)
+
+    def one(leaf):
+        out = torch.empty((rows,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+                          pin_memory=pinned)
+        segs = [leaf[lo:lo + n] for lo, n in spans if n > 0]
+        if len(segs) > 1 and out.nbytes < CAT_BELOW_BYTES:
+            segs = [torch.cat(segs)]
+        at = 0
+        for seg in segs:
+            out[at:at + seg.shape[0]].copy_(seg, non_blocking=pinned)
+            at += seg.shape[0]
+        return out
+
+    outs = tree.tree_map(one, ds.records)
+    if pinned:
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(ds.device))
+        done.synchronize()
+    out = tree.tree_map(lambda t: t.numpy(), outs)
+    nbytes = sum(a.nbytes for a in tree.leaves(out))
+    METRICS.counter("gather.pinned_bytes" if pinned
+                    else "gather.pageable_bytes").inc(nbytes)
+    if TRACER.enabled:
+        sp.set(rows=rows, bytes=nbytes, pinned=pinned)
+    return out
 
 
 def collect_shard(ds: ShardedDataset, shard: int = 0) -> Any:
-    """One shard's valid records as numpy (``MaRe.collect(shard=...)``):
-    slices the shard's block on the device and transfers only its valid
-    rows.  One ``gather`` span covers the count's read and the copy."""
+    """One shard's valid records as host numpy (``MaRe.collect(shard=...)``):
+    only its valid rows leave the device, into arrays the answer owns; on
+    a CUDA dataset they are views over pinned host memory
+    (:func:`_to_host`).  One ``gather`` span covers the count's read and
+    the copy."""
     n = ds.num_shards
     if not 0 <= shard < n:
         raise ValueError(f"shard index {shard} out of range for "
                          f"{n}-shard dataset")
     with span("gather", action_id=ds.action_id, shard=shard) as sp:
-        rows = int(ds.counts[shard])
-
-        def one(leaf):
-            cap = leaf.shape[0] // n
-            lo = shard * cap
-            return leaf[lo:lo + min(cap, rows)].cpu().numpy()
-
-        out = tree.tree_map(one, ds.records)
-        if TRACER.enabled:
-            sp.set(rows=min(rows, ds.capacity), bytes=_host_bytes(out))
-    return out
+        cap = ds.capacity
+        rows = min(cap, int(ds.counts[shard]))
+        return _to_host(ds, [(shard * cap, rows)], sp)
 
 
 def collect_first_shard(ds: ShardedDataset) -> Any:
@@ -245,19 +283,16 @@ def collect_first_shard(ds: ShardedDataset) -> Any:
 
 
 def collect(ds: ShardedDataset) -> Any:
-    """Gather every shard's valid records to host numpy (RDD.collect).
-    One ``gather`` span covers the counts' read, the concatenation and
-    the copy."""
+    """Gather every shard's valid records to host numpy (RDD.collect), in
+    shard order, each shard's rows copied straight to their offset in
+    arrays the answer owns.  On a CUDA dataset the arrays are views over
+    pinned host memory from PyTorch's caching host allocator
+    (:func:`_to_host`): an answer that is kept keeps its pinned block, and
+    the allocator's pool grows to the largest set of answers held at once
+    (each leaf rounded up to a power of two) and is kept until the process
+    ends.  One ``gather`` span covers the counts' read and the copy."""
     with span("gather", action_id=ds.action_id) as sp:
         counts = ds.counts.cpu().numpy()
         cap = ds.capacity
-
-        def gather(leaf):
-            segs = [leaf[s * cap:s * cap + int(counts[s])]
-                    for s in range(ds.num_shards)]
-            return torch.cat(segs, dim=0).cpu().numpy()
-
-        out = tree.tree_map(gather, ds.records)
-        if TRACER.enabled:
-            sp.set(rows=int(counts.sum()), bytes=_host_bytes(out))
-    return out
+        spans = [(s * cap, min(cap, int(c))) for s, c in enumerate(counts)]
+        return _to_host(ds, spans, sp)

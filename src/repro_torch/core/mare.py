@@ -415,7 +415,12 @@ class MaRe:
 
         ``shard=None`` gathers every shard's valid records; ``shard=i``
         ships only shard ``i``'s valid rows (the right call for reduced,
-        replicated results).
+        replicated results).  On a CUDA dataset the arrays are views over
+        pinned host memory from PyTorch's caching host allocator, into
+        which each shard's valid rows are copied straight from the device:
+        an answer that is kept keeps its pinned block, a dropped one
+        returns it to the allocator's cache, which is kept until the
+        process ends.
 
         ``asynchronous=False`` (default) blocks and returns host arrays.
         ``asynchronous=True`` dispatches on the executor's action thread

@@ -2,7 +2,8 @@
 ``cuda`` — a persisted prefix spilled to the host tier and restored to
 its own device, async actions in FIFO order equal to synchronous ones,
 an action's device wait that does not wait for another thread's stream,
-and the wave runner's memory bound.
+the wave runner's memory bound, and the result gather into pinned host
+memory that the answer owns, bit-equal to the old device-cat path.
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -21,11 +22,14 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import chip_smoke as cs
-from repro_torch.core import MaRe, PlanCache, from_host
+from repro_torch.core import MaRe, PlanCache, collect, collect_shard, \
+    from_host, from_numpy, tree
+from repro_torch.core import dataset as ds_lib
 from repro_torch.io import WaveRunner, fasta_source, plan_waves
 from repro_torch.io.ingest import ingest
 from repro_torch.io.splits import assign_splits
 from repro_torch.io.waves import RESIDENT_WAVES
+from repro_torch.obs import METRICS
 from repro_torch.runtime import Executor, MaterializationCache, \
     estimate_nbytes
 
@@ -226,3 +230,118 @@ def test_wave_memory_bound(cuda):
         bound = one_wave_peak + (RESIDENT_WAVES - 1) * wave_nbytes \
             + wave_nbytes // 2
         assert wave_peak < bound, (wave_peak, one_wave_peak, wave_nbytes)
+
+
+# -- the result gather: pinned host memory the answer owns --------------------
+
+def _old_gather(ds, shard=None):
+    """The gather as it was before the answer owned pinned memory: the
+    shards' valid slices concatenated on the card, then copied to
+    pageable host memory."""
+    counts = ds.counts.cpu().numpy()
+    cap = ds.capacity
+    shards = range(ds.num_shards) if shard is None else [shard]
+
+    def one(leaf):
+        return torch.cat([leaf[s * cap:s * cap + int(counts[s])]
+                          for s in shards]).cpu().numpy()
+
+    return tree.tree_map(one, ds.records)
+
+
+def _kmer_like_table(cuda):
+    """An 8-shard table shaped like the k-mer answer (int32 keys,
+    occurrences and counts) over uneven valid counts: an empty shard, a
+    full one, a shard of one row; ~1.2M rows a leaf."""
+    cap = 1 << 18
+    counts = np.array([cap // 2, 0, cap, 1, cap - 7, 3 * cap // 4, cap // 3,
+                       cap], np.int32)
+    rng = np.random.default_rng(5)
+    recs = tuple(rng.integers(-2**31, 2**31, 8 * cap).astype(np.int32)
+                 for _ in range(3))
+    return from_numpy((recs[0], (recs[1],), recs[2]), counts, 8,
+                      device=cuda)
+
+
+def _same(a, b):
+    fa, fb = tree.leaves(a), tree.leaves(b)
+    assert len(fa) == len(fb)
+    for x, y in zip(fa, fb):
+        assert x.dtype == y.dtype and x.shape == y.shape
+        assert x.tobytes() == y.tobytes()
+
+
+@pytest.fixture(params=["per_slice", "concatenated"])
+def copies(request, monkeypatch):
+    """Both ways a leaf's valid slices reach the host: a copy a slice, or
+    concatenated on the card first (``CAT_BELOW_BYTES``)."""
+    monkeypatch.setattr(ds_lib, "CAT_BELOW_BYTES",
+                        0 if request.param == "per_slice" else 1 << 62)
+
+
+def test_gather_pinned_bit_equal_to_old_path(cuda, copies):
+    """``collect`` and ``collect_shard`` on the card equal the old
+    device-cat + pageable path bit for bit, for a k-mer-like 8-shard
+    table (every shard, the empty one included), leaves with trailing
+    dimensions and four dtypes; every non-empty leaf is pinned host
+    memory, C-contiguous and writable; ``gather.pinned_bytes`` counts the
+    answer's bytes and ``gather.pageable_bytes`` nothing."""
+    ds = _kmer_like_table(cuda)
+    rng = np.random.default_rng(6)
+    cap = 1 << 10
+    mixed = from_numpy(
+        {"f": rng.standard_normal((4 * cap, 3, 2)).astype(np.float32),
+         "i": rng.integers(-2**40, 2**40, (4 * cap, 2)),
+         "b": rng.random(4 * cap) < 0.5},
+        np.array([0, cap, 1, 17], np.int32), 4, device=cuda)
+    for d in (ds, mixed):
+        cases = [(None, collect(d))] + [
+            (s, collect_shard(d, s)) for s in range(d.num_shards)]
+        for shard, got in cases:
+            _same(got, _old_gather(d, shard))
+            for a in tree.leaves(got):
+                assert a.flags.c_contiguous and a.flags.writeable
+                if a.size:
+                    assert torch.from_numpy(a).is_pinned()
+    pinned = METRICS.counter("gather.pinned_bytes").value
+    pageable = METRICS.counter("gather.pageable_bytes").value
+    out = collect(ds)
+    assert METRICS.counter("gather.pinned_bytes").value - pinned == sum(
+        a.nbytes for a in tree.leaves(out))
+    assert METRICS.counter("gather.pageable_bytes").value == pageable
+
+
+def test_gather_kept_answer_survives_later_gathers(cuda, copies):
+    """An answer kept while 20 more gathers run (each dropped, so their
+    pinned blocks go back to the cache and are handed out again) keeps
+    its values; no two answers share memory."""
+    ds = _kmer_like_table(cuda)
+    kept = collect(ds)
+    want = [a.copy() for a in tree.leaves(kept)]
+    for i in range(20):
+        other = collect(ds) if i % 2 else collect_shard(ds, 2)
+        for a in tree.leaves(other):
+            assert not any(np.shares_memory(a, k)
+                           for k in tree.leaves(kept))
+            a[...] = -1
+        del other
+    for a, w in zip(tree.leaves(kept), want):
+        assert a.tobytes() == w.tobytes()
+
+
+def test_gather_async_equals_sync_pinned(cuda):
+    """A keyed action's ``collect(asynchronous=True).result()`` and its
+    ``collect(shard=0, ...)`` equal the synchronous answers and the old
+    path on its dataset, in pinned memory."""
+    keys, vals = _keys_vals(7, 1 << 20, 1 << 14)
+    ex = _executor()
+    q = _keyed((keys, vals), 8, cuda, ex).reduce_by_key(
+        _key_first, value_by=_val_second, op="sum", num_keys=1 << 14)
+    old = _old_gather(q.dataset)
+    sync = q.collect()
+    got = q.collect(asynchronous=True).result(timeout=120)
+    _same(sync, old)
+    _same(got, old)
+    assert all(torch.from_numpy(a).is_pinned() for a in tree.leaves(got))
+    _same(q.collect(shard=0, asynchronous=True).result(timeout=120),
+          _old_gather(q.dataset, 0))
