@@ -204,6 +204,29 @@ seed):
     kernel, and teacher-forced decode against the forward pass, each on an
     f32 copy of the weights and in bf16 (see ``SSM_ROUTE_TOL_FRAC``).
 
+Slice 4b, the selective scan's dt route (the published Mamba-1 mixer's:
+dt a channel, B and C given), then one stage of AI21-Jamba2-Mini at full
+width (one period of 8 layers: one GQA attention layer without
+positions, seven Mamba-1 layers, four 16-expert top-2 MoE layers, vocab
+65536, bf16, random weights from the seed; 13,295,237,088 parameters):
+
+14b. hold the dt route against its plain version on the card at Jamba's
+    prefill (u and dt [1, 65536, 8192] bf16, the plain version in blocks
+    of steps chained through h) and decode-step shapes, at the chunk's
+    edges and off the state sizes, each asserted on its route and as no
+    launch of the fused route, within ``SSM_TOL_FRAC``; plant a fault
+    (the carries between chunks dropped) that the same limit rejects;
+    time both routes by CUDA-graph replay and back to back beside the
+    bound, the MUFU floor and the plain version;
+15b. the stage's prefill at batch 4, prompt 2048, then 31 greedy decode
+    steps, every launch counter read around each: per prefill one flash
+    launch, 4 dispatch launches and 7 dt-route launches, all chunked;
+    per decode step 4 dispatch and 7 dt-route launches, all step;
+    teacher-forced decode and the kept logits against the forward pass;
+    then the benchmark cell's request twice (``serve.greedy_request``:
+    65,536 prompt tokens, 16 decode steps): 7 chunked and 112 step
+    dt-route launches, 68 dispatch and 1 flash launch each.
+
 Slice 7, training at the full width and depth of Llama-3.2-1B (16
 layers, d_model 2048, 32/8 heads, head dim 64, vocab 128256, bf16 params,
 AdamW with f32 moments, remat on), through the flash-attention backward
@@ -331,13 +354,14 @@ held to real steps:
     ``cost``, its counter's segment-sum / top-k reports as many as the
     launches, FLOPs and bytes above zero.
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 7, 9, 8, 10,
-11.
+Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 4b, 7, 9, 8,
+10, 11.
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
 dispatch launch off the cluster route, a top-k launch off the select
-route or an SSM backward launch off the scan route on theirs.  Slice 10 prints
+route, a dt-route launch off the path's expected routes or an SSM
+backward launch off the scan route on theirs.  Slice 10 prints
 a ``[mesh]`` JSON line, slice 11 a ``[dryrun]`` one.  The last lines are
 a JSON object describing the kernels (the backwards of flash attention and the selective scan
 among them; every kernel's
@@ -407,7 +431,7 @@ def reset_launches() -> None:
 
 #: Each main path's launch counts, read just after it ran with every
 #: counter set to 0 just before it; flash's (forward and backward), the
-#: SSM scan's (forward and backward), the segment sum's, the dispatch's
+#: SSM scan's (forward, its dt route and backward), the segment sum's, the dispatch's
 #: and the top-k's also by route, flash's forward and backward also by
 #: shape (see :func:`flash_shape`).
 PATH_LAUNCHES: dict = {}
@@ -416,6 +440,7 @@ FLASH_SHAPES: dict = {}
 FLASH_BWD_ROUTES: dict = {}
 FLASH_BWD_SHAPES: dict = {}
 SSM_ROUTES: dict = {}
+SSM_DT_ROUTES: dict = {}
 SSM_BWD_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
@@ -425,7 +450,8 @@ TOPK_ROUTES: dict = {}
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                   ssm_routes: Optional[dict] = None,
                   flash_shapes: Optional[dict] = None,
-                  bwd_shapes: Optional[dict] = None) -> dict:
+                  bwd_shapes: Optional[dict] = None,
+                  dt_routes: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
@@ -435,14 +461,19 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     every segment-sum launch took the ``binned`` route, every dispatch
     launch the ``cluster`` route and every top-k launch the ``select``
     route, unless the SSM scan's launches split by route as
-    ``ssm_routes`` says (none on any route when it is None), unless every
+    ``ssm_routes`` says (none on any route when it is None), unless the
+    scan's dt route (kernel ``ssm_scan_dt``, counted in the scan module's
+    ``DT_LAUNCHES``) split by route as ``dt_routes`` says (none when it is
+    None), unless every
     SSM backward launch took the ``scan`` route, and unless
     flash's launches split by shape as ``flash_shapes`` says and the flash
     backward's as ``bwd_shapes`` says, when they are given."""
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
+    got["ssm_scan_dt"] = mods["ssm_scan"].DT_LAUNCHES
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
+    ssm_dt = dict(mods["ssm_scan"].DT_LAUNCHES_BY_ROUTE)
     ssm_bwd = dict(mods["ssm_scan_bwd"].LAUNCHES_BY_ROUTE)
     seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
     disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
@@ -456,6 +487,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     FLASH_ROUTES[path] = routes
     FLASH_SHAPES[path] = shapes
     SSM_ROUTES[path] = ssm
+    SSM_DT_ROUTES[path] = ssm_dt
     SSM_BWD_ROUTES[path] = ssm_bwd
     SEGMENT_ROUTES[path] = seg
     DISPATCH_ROUTES[path] = disp
@@ -466,26 +498,29 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     want_bwd = {r: got["flash_attention_bwd"] * (r == flash_route)
                 for r in bwd}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
+    want_dt = {r: (dt_routes or {}).get(r, 0) for r in ssm_dt}
     want_ssm_bwd = {r: got["ssm_scan_bwd"] * (r == "scan") for r in ssm_bwd}
     want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
     want_disp = {r: got["moe_dispatch"] * (r == "cluster") for r in disp}
     want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
     if (got != want or routes != want_routes or bwd != want_bwd
-            or ssm != want_ssm or ssm_bwd != want_ssm_bwd
+            or ssm != want_ssm or ssm_dt != want_dt
+            or ssm_bwd != want_ssm_bwd
             or seg != want_seg or disp != want_disp
             or topk != want_topk
             or flash_shapes not in (None, shapes)
             or bwd_shapes not in (None, bwd_by_shape)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, flash backward by route {bwd}, "
-                             f"ssm_scan by route {ssm}, ssm_scan_bwd by "
+                             f"ssm_scan by route {ssm}, ssm_scan_dt by "
+                             f"route {ssm_dt}, ssm_scan_bwd by "
                              f"route {ssm_bwd}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
                              f"{topk}, flash by shape {shapes}, flash "
                              f"backward by shape {bwd_by_shape}; expected "
                              f"{want}, {want_routes}, {want_bwd}, "
-                             f"{want_ssm}, {want_ssm_bwd}, "
+                             f"{want_ssm}, {want_dt}, {want_ssm_bwd}, "
                              f"{want_seg}, {want_disp}, {want_topk}, "
                              f"{flash_shapes}, {bwd_shapes}")
     return got
@@ -2193,13 +2228,15 @@ def teacher_forced(run, forward_tokens: int = TEACHER_FORCED,
     """Teacher-forced decode equals the forward pass on the same tokens,
     to LOGIT_TOL_FRAC of the largest |logit|.  The forward pass takes the
     prompt and the first ``forward_tokens`` generated tokens; the first
-    TEACHER_FORCED of those are decoded.  ``launches`` (keywords of
+    TEACHER_FORCED of those are decoded.  The prefill's logits are held
+    to the forward's at the positions it keeps (the last ones).  ``launches`` (keywords of
     :func:`read_launches`) reads every launch counter around the forward
     pass."""
     import torch
     t0 = time.perf_counter()
     prompt = run.batch["tokens"].shape[1]
-    p = run.logits.shape[1] - prompt          # vlm's patch positions
+    # vlm's patch positions (none where the prefill keeps fewer logits)
+    p = max(run.logits.shape[1] - prompt, 0)
     forced = torch.from_numpy(run.generated[:, :forward_tokens]).to(
         run.batch["tokens"].device)
     toks = torch.cat([run.batch["tokens"], forced], dim=1)
@@ -2213,7 +2250,8 @@ def teacher_forced(run, forward_tokens: int = TEACHER_FORCED,
         lg, cache = run.model.prefill(
             run.params, {"tokens": toks[:, :prompt], **extra},
             p + prompt + TEACHER_FORCED)
-        errs = [max_abs_diff(full[:, :p + prompt], lg)]
+        errs = [max_abs_diff(full[:, p + prompt - lg.shape[1]:p + prompt],
+                             lg)]
         del lg
         for t in range(TEACHER_FORCED):
             lg, cache = run.model.decode_step(run.params, cache,
@@ -3696,6 +3734,346 @@ def teacher_forced_hybrid(run, m32, p32) -> None:
           f"rel_rms: decode={rms['decode']:.5f} forward="
           f"{rms['forward']:.5f} (tol +{LOGIT_TOL_FRAC}); bf16 decode vs "
           f"forward max_abs={bf16_diff} (frac {bf16_diff / scale:.4f})")
+
+
+# ---------------------------------------------------------------------------
+# slice 4b: the SSM scan's dt route, then one AI21-Jamba2-Mini pipeline
+# stage (one period: 8 layers) serving at full width
+# ---------------------------------------------------------------------------
+
+JAMBA_ARCH = "jamba2-mini"
+JAMBA_STAGE_LAYERS = 8           # one period: the benchmark's stage
+JAMBA_STAGE_PARAMS = 13_295_237_088
+JAMBA_PROMPT, JAMBA_GEN = 65536, 16      # the benchmark cell's request
+SSM_DT_REPLACES = ("none: the reference has no Jamba (a second route of "
+                   "src/repro/kernels/ssm_scan/kernel.py:72's kernel)")
+# the plain version of the dt route over the prefill's 65,536 steps in
+# blocks of this many, each from the last one's h (its coefficients for
+# all the steps at once would take 68 GB)
+SSM_DT_PLAIN_BLOCK = 4096
+# the planted fault: the plain version with the chunks' carries dropped
+# (each chunk of the kernel's CHUNK steps from a zero state), over this
+# many of the prefill's first steps; SSM_TOL_FRAC has to reject it
+SSM_DT_FAULT_STEPS = 4096
+
+
+def ssm_dt_inputs(dev, g, b, t, d, n, dtype, carried: bool):
+    """Inputs shaped like Jamba's mixer's: u a SiLU output; dt the
+    low-rank projection of a normed row (~N(0, 1), before ``dt_bias`` and
+    softplus); B and C RMS-normed rows (~N(0, 1)); ``dt_bias`` Mamba's
+    inverse softplus of a dt drawn log-uniform in [0.001, 0.1], so that a
+    state decays over tens to thousands of steps and reaches the next
+    chunks through the carries; a_log log(1..n); h0 zero (a prefill) or
+    carried (a decode step)."""
+    import math
+
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    step = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand(
+        (d,), device=dev, generator=g))
+    dt_bias = step + torch.log(-torch.expm1(-step))
+    a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                   dtype=torch.float32)).repeat(d, 1)
+    h0 = 0.5 * rn(b, d, n) if carried else torch.zeros((b, d, n),
+                                                       device=dev)
+    return (torch.nn.functional.silu(rn(b, t, d)).to(dtype),
+            rn(b, t, d).to(dtype), dt_bias, rn(b, t, n).to(dtype),
+            rn(b, t, n).to(dtype), a_log, h0)
+
+
+def ssm_dt_plain(u, dt, dt_bias, bm, cm, a_log, h0) -> tuple:
+    """The dt route's plain version (``ref.ssm_scan_dt_ref``) over blocks
+    of SSM_DT_PLAIN_BLOCK steps, each from the last one's final state:
+    the same recurrence, one step after another."""
+    import torch
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_dt_ref
+    ys, h = [], h0
+    for t0 in range(0, u.shape[1], SSM_DT_PLAIN_BLOCK):
+        sl = slice(t0, t0 + SSM_DT_PLAIN_BLOCK)
+        y, h = ssm_scan_dt_ref(u[:, sl], dt[:, sl], dt_bias, bm[:, sl],
+                               cm[:, sl], a_log, h)
+        ys.append(y)
+    return torch.cat(ys, dim=1), h
+
+
+def ssm_dt_checked(name, args) -> tuple:
+    """One dt-route call held to the plain version; raises unless it was
+    one launch on the route :func:`route` names for it, and none of the
+    fused route.  Returns (route, outputs, max abs error, its fraction of
+    the largest |value|, the plain version's wall ms)."""
+    import torch
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    u = args[0]
+    want_route = smod.route(u.shape[1], u.dtype, u.device)
+    before = dict(smod.DT_LAUNCHES_BY_ROUTE)
+    total, fused = smod.DT_LAUNCHES, smod.LAUNCHES
+    got = smod.ssm_scan_dt_kernel(*args)
+    torch.cuda.synchronize()
+    moved = {r: smod.DT_LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+    if smod.DT_LAUNCHES - total != 1 or smod.LAUNCHES != fused or \
+            moved != {r: int(r == want_route) for r in moved}:
+        raise AssertionError(f"ssm dt {name}: launches by route {moved}, "
+                             f"fused {smod.LAUNCHES - fused}, expected one "
+                             f"on {want_route}")
+    t0 = time.perf_counter()
+    want = ssm_dt_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, frac = ssm_compare(f"dt {name}", got, want)
+    return want_route, got, err, frac, plain_ms
+
+
+def ssm_dt_kernel_phase(dev, d: int, n: int) -> dict:
+    """The dt route vs its plain version at Jamba's prefill (1 x 65,536 x
+    d, bf16) and decode-step shapes, at the chunk's edges and off the
+    state sizes, each on the route it should take, within SSM_TOL_FRAC of
+    the largest |y| and |h|; a planted fault (the carries between chunks
+    dropped) that the same limit rejects; then both routes timed by graph
+    replay and back to back beside their bound, the MUFU floor and the
+    plain version."""
+    import torch
+    from repro_torch.kernels import work
+    from repro_torch.kernels.ssm_scan import kernel as smod
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_dt_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    L = smod.CHUNK
+    cases = [
+        # name, b, t, d, n, dtype, carried h0
+        ("prefill", 1, JAMBA_PROMPT, d, n, bf16, False),
+        ("decode", 1, 1, d, n, bf16, True),
+        ("T=1000 carried", 1, 1000, d, n, bf16, True),
+        (f"T=L={L}", 2, L, 300, n, f32, True),
+        (f"T=L+1={L + 1}", 2, L + 1, 300, n, f32, True),
+        ("n=5 d=1000 (not a multiple of the block)", 3, 300, 1000, 5, f32,
+         True),
+        ("n=5 decode", 3, 1, 1000, 5, f32, True),
+        ("n=32", 1, 260, 256, 32, bf16, True),
+        ("n=32 decode", 2, 1, 256, 32, bf16, True),
+        ("T=2", 1, 2, 64, 4, f32, True),
+    ]
+    g = torch.Generator(device=dev).manual_seed(53)
+    errs, fracs, keep, plain = {}, {}, {}, {}
+    for name, b, t, dd, nn, dt, carried in cases:
+        t0 = time.perf_counter()
+        args = ssm_dt_inputs(dev, g, b, t, dd, nn, dt, carried)
+        kind, got, errs[name], fracs[name], plain[name] = ssm_dt_checked(
+            name, args)
+        phase(f"ssm dt check {name}", t0,
+              f"u={tuple(args[0].shape)} {dt} n={nn} carried_h0={carried}"
+              f" route={kind} max_abs_err={errs[name]} frac_of_max="
+              f"{fracs[name]:.3e} tol_frac={SSM_TOL_FRAC} plain_ms="
+              f"{plain[name]:.1f}")
+        if name in ("prefill", "decode"):
+            keep[name] = (args, got[0])
+        del args, got
+    # the planted fault: every chunk from a zero state, the carries
+    # dropped, over the prefill's first steps
+    t0 = time.perf_counter()
+    args, y = keep["prefill"]
+    steps = SSM_DT_FAULT_STEPS
+    chunks = steps // L
+
+    def by_chunk(v):
+        return v[:, :steps].reshape(chunks, L, v.shape[2]).contiguous()
+
+    u, dtv, dt_bias, bm, cm, a_log, h0 = args
+    y_fault, _ = ssm_scan_dt_ref(by_chunk(u), by_chunk(dtv), dt_bias,
+                                 by_chunk(bm), by_chunk(cm), a_log,
+                                 torch.zeros((chunks, d, n), device=dev))
+    y_fault = y_fault.reshape(1, steps, d)
+    y_want, _ = ssm_dt_plain(u[:, :steps], dtv[:, :steps], dt_bias,
+                             bm[:, :steps], cm[:, :steps], a_log, h0)
+    scale = float(y_want.abs().max())
+    fault_frac = float((y_fault - y_want).abs().max()) / scale
+    own_frac = float((y[:, :steps] - y_want).abs().max()) / scale
+    del y_fault, y_want
+    if not fault_frac > SSM_TOL_FRAC:
+        raise AssertionError(f"ssm dt planted fault (carries dropped) reads "
+                             f"{fault_frac}, within SSM_TOL_FRAC")
+    phase("ssm dt planted fault", t0,
+          f"carries dropped over the first {steps} steps: frac_of_max="
+          f"{fault_frac:.3e} > tol_frac={SSM_TOL_FRAC} (the kernel there: "
+          f"{own_frac:.3e})")
+
+    t0 = time.perf_counter()
+    dec = keep["decode"][0]
+    ms = graph_ms(lambda: smod.ssm_scan_dt_kernel(*args), reps=10)
+    b2b = cuda_ms(lambda: smod.ssm_scan_dt_kernel(*args), reps=10)
+    ms_dec = graph_ms(lambda: smod.ssm_scan_dt_kernel(*dec))
+    b2b_dec = cuda_ms(lambda: smod.ssm_scan_dt_kernel(*dec))
+    plain_dec = cuda_ms(lambda: ssm_dt_plain(*dec))
+    bnd, by = work.ssm_dt(1, JAMBA_PROMPT, d, n, 2).bound()
+    bnd_dec, by_dec = work.ssm_dt(1, 1, d, n, 2).bound()
+    one_pass, floor = ssm_mufu_floor_ms(1, JAMBA_PROMPT, d, n, L)
+    phase("ssm dt timing", t0,
+          f"prefill u={tuple(args[0].shape)} bf16 chunked graph_ms={ms:.4f}"
+          f" back_to_back_ms={b2b:.4f} plain_ms={plain['prefill']:.1f} "
+          f"bound_ms={bnd:.4f} ({by}) mufu_floor_ms={floor:.4f} (one pass "
+          f"{one_pass:.4f}); decode step graph_ms={ms_dec:.6f} "
+          f"back_to_back_ms={b2b_dec:.5f} plain_ms={plain_dec:.4f} "
+          f"bound_ms={bnd_dec:.6f} ({by_dec}); library: none")
+    del keep
+    return {"name": "ssm_scan_dt", "route": "cuda", "source": SSM_SOURCE,
+            "replaces": SSM_DT_REPLACES, "launches": None,
+            "max_abs_err": max(errs.values()),
+            "max_err_frac_of_max": max(fracs.values()),
+            "planted_fault_frac_of_max": fault_frac, "ms": ms,
+            "timed": "CUDA graph replay", "back_to_back_ms": b2b,
+            "plain_ms": plain["prefill"], "bound_ms": bnd, "bound_by": by,
+            "mufu_floor_ms": floor, "library_ms": None,
+            "library": "none: no single PyTorch call computes a selective "
+                       "scan",
+            "decode_ms": ms_dec, "decode_timed": "CUDA graph replay",
+            "decode_back_to_back_ms": b2b_dec, "decode_plain_ms": plain_dec,
+            "decode_bound_ms": bnd_dec}
+
+
+def jamba_counts(cfg) -> tuple:
+    """(attention layers, Mamba layers, MoE layers) of ``cfg``."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    return (sum(m == "attention" for m, _ in kinds),
+            sum(m == "mamba" for m, _ in kinds),
+            sum(f == "moe" for _, f in kinds))
+
+
+def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
+                prompt: int = PROMPT, gen: int = GEN,
+                request: tuple = (JAMBA_PROMPT, JAMBA_GEN),
+                device: str = "cuda") -> None:
+    """One Jamba pipeline stage (``cfg``: jamba2-mini cut to one period,
+    by default) through the serving entry points: a prefill of ``batch``
+    x ``prompt`` and ``gen`` - 1 greedy decode steps, every launch counter
+    read around each (flash once per attention layer in the prefill, the
+    dispatch once per MoE layer in both, the dt route once per Mamba
+    layer on ``chunked`` in the prefill and on ``step`` in each decode
+    step, nothing else); the teacher-forced check (the kept logits and
+    TEACHER_FORCED decode steps against the forward pass); then the
+    benchmark cell's request (``launch.serve.greedy_request``, batch 1,
+    ``request`` = (prompt, decode steps)) twice, its launches read, the
+    second one's phases printed."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    dev = torch.device(device)
+    if cfg is None:
+        cfg = get_config(JAMBA_ARCH).scaled(num_layers=JAMBA_STAGE_LAYERS)
+    attn, mamba, moe = jamba_counts(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    with torch.no_grad():
+        params = model.init(seed)
+    torch.cuda.synchronize()
+    count = sum(p.numel() for p in params.parameters())
+    if cfg.d_model == 4096 and count != JAMBA_STAGE_PARAMS:
+        raise AssertionError(f"{count} parameters, expected "
+                             f"{JAMBA_STAGE_PARAMS}")
+    phase("jamba stage weights", t0,
+          f"layers={cfg.num_layers} kinds="
+          f"{[cfg.layer_kind(i) for i in range(cfg.num_layers)]} "
+          f"params={count}")
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, prompt), device=dev,
+                           generator=g)
+    with torch.no_grad():
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      prompt + gen)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t1
+        read_launches(f"{JAMBA_ARCH} prefill", {
+            "flash_attention": attn, "moe_dispatch": moe,
+            "ssm_scan_dt": mamba}, dt_routes={"chunked": mamba})
+        reset_launches()
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        out = [tok]
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            lg, cache = model.decode_step(params, cache, tok)
+            tok = torch.argmax(lg, dim=-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        decode_s = (time.perf_counter() - t1) / max(gen - 1, 1)
+        read_launches(f"{JAMBA_ARCH} decode", {
+            "moe_dispatch": moe * (gen - 1),
+            "ssm_scan_dt": mamba * (gen - 1)},
+            dt_routes={"step": mamba * (gen - 1)})
+    run = serve.SmokeRun(model=model, params=params,
+                         batch={"tokens": tokens}, logits=logits, cache=None,
+                         generated=torch.stack(out, 1).cpu().numpy(),
+                         prefill_s=prefill_s, decode_s_per_token=decode_s)
+    del cache
+    phase("jamba stage serve", t0,
+          f"batch={batch} prompt={prompt} gen={gen} prefill_ms="
+          f"{prefill_s * 1e3:.3f} decode_ms_per_token={decode_s * 1e3:.3f}"
+          f" launches: prefill flash_attention={attn} moe_dispatch={moe} "
+          f"ssm_scan_dt chunked={mamba}; decode ssm_scan_dt step="
+          f"{mamba * (gen - 1)} moe_dispatch={moe * (gen - 1)}; generated "
+          f"{run.generated[:2].tolist()}")
+    want = (batch, cfg.logits_to_keep, cfg.vocab_size)
+    if logits.shape != want or not bool(torch.isfinite(logits).all()) or \
+            not ((run.generated >= 0)
+                 & (run.generated < cfg.vocab_size)).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             f"finite of shape {want}, or generated ids "
+                             f"outside the vocabulary")
+    teacher_forced(run, launches={
+        "path": f"{JAMBA_ARCH} forward",
+        "expect": {"flash_attention": attn, "moe_dispatch": moe,
+                   "ssm_scan_dt": mamba},
+        "dt_routes": {"chunked": mamba}})
+    del run, logits
+
+    req_prompt, req_gen = request
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in range(2):
+        t0 = time.perf_counter()
+        ids = torch.randint(0, cfg.vocab_size, (1, req_prompt), device=dev,
+                            generator=g)
+        reset_launches()
+        answer = serve.greedy_request(model, params, ids, req_gen)
+        read_launches(f"{JAMBA_ARCH} request", {
+            "flash_attention": attn, "moe_dispatch": moe * (req_gen + 1),
+            "ssm_scan_dt": mamba * (req_gen + 1)},
+            dt_routes={"chunked": mamba, "step": mamba * req_gen})
+        if not bool(torch.isfinite(answer.logits).all()) or tuple(
+                answer.ids.shape) != (1, req_gen + 1):
+            raise AssertionError(f"request: ids {tuple(answer.ids.shape)} "
+                                 f"or logits not finite")
+        ph = answer.report.phases
+        phase(f"jamba request {k}", t0,
+              f"prompt={req_prompt} decode_steps={req_gen} wall_ms="
+              f"{answer.report.wall_s * 1e3:.1f} prefill_ms="
+              f"{ph['prefill'] * 1e3:.1f} decode_ms_per_step="
+              f"{ph['decode'] * 1e3 / req_gen:.2f} peak_alloc_gb="
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} launches: "
+              f"ssm_scan_dt chunked={mamba} step={mamba * req_gen} "
+              f"moe_dispatch={moe * (req_gen + 1)} flash_attention={attn}")
+        del answer
+
+
+def jamba_slice(seed: int) -> dict:
+    """The dt route's checks and timings, then one Jamba stage serving at
+    full width; returns the dt route's JSON record."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(JAMBA_ARCH)
+    rec = ssm_dt_kernel_phase(torch.device("cuda"),
+                              cfg.d_model * cfg.ssm_expand, cfg.ssm_state)
+    torch.cuda.empty_cache()
+    jamba_stage(seed)
+    rec["launches"] = PATH_LAUNCHES[f"{JAMBA_ARCH} request"]["ssm_scan_dt"]
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -5854,6 +6232,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(hybrid_slice(args.seed))
     torch.cuda.empty_cache()
+    records.append(jamba_slice(args.seed))
+    torch.cuda.empty_cache()
     train_tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         records.append(train_slice(args.seed, train_tmp))
@@ -5876,6 +6256,7 @@ def main() -> int:
         by_route = {"flash_attention": FLASH_ROUTES,
                     "flash_attention_bwd": FLASH_BWD_ROUTES,
                     "ssm_scan": SSM_ROUTES,
+                    "ssm_scan_dt": SSM_DT_ROUTES,
                     "ssm_scan_bwd": SSM_BWD_ROUTES,
                     "segment_sum": SEGMENT_ROUTES,
                     "moe_dispatch": DISPATCH_ROUTES,

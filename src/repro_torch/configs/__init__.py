@@ -24,12 +24,21 @@ _ARCH_MODULES: Dict[str, str] = {
 
 ARCH_IDS: Tuple[str, ...] = tuple(_ARCH_MODULES)
 
+#: Configurations the port serves beside the ten assigned ones: not in
+#: ``ARCH_IDS`` (the assigned cells, each held to the reference), but
+#: found by :func:`get_config` and :func:`get_smoke_config`.
+_EXTRA_MODULES: Dict[str, str] = {
+    "jamba2-mini": "jamba2_mini",
+}
+EXTRA_ARCH_IDS: Tuple[str, ...] = tuple(_EXTRA_MODULES)
+
 
 def _module(arch: str):
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; have {list(ARCH_IDS)}")
-    return importlib.import_module(
-        f"repro_torch.configs.{_ARCH_MODULES[arch]}")
+    mods = {**_ARCH_MODULES, **_EXTRA_MODULES}
+    if arch not in mods:
+        raise KeyError(f"unknown arch {arch!r}; have "
+                       f"{list(ARCH_IDS) + list(EXTRA_ARCH_IDS)}")
+    return importlib.import_module(f"repro_torch.configs.{mods[arch]}")
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -62,6 +71,6 @@ def cells(include_skipped: bool = False
     return out
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "get_shape",
-           "cells", "shape_skip_reason", "SHAPES", "TRAIN_4K",
+__all__ = ["ARCH_IDS", "EXTRA_ARCH_IDS", "get_config", "get_smoke_config",
+           "get_shape", "cells", "shape_skip_reason", "SHAPES", "TRAIN_4K",
            "PREFILL_32K", "DECODE_32K", "LONG_500K", "ShapeConfig"]

@@ -929,6 +929,282 @@ int launch_step(const void* xc_, const void* x_proj, const float* dt_bias,
 #undef SSM_STEP
 }
 
+
+// ---------------------------------------------------------------------------
+// The dt route: dt a channel, B and C given (the published Mamba-1 mixer)
+// ---------------------------------------------------------------------------
+//
+// The published Mamba mixer (Jamba's) takes dt from a low-rank projection
+// after a norm, one a channel and step, and norms B and C before the scan,
+// so the projection the routes above fuse lies outside.  The caller gives
+//   u [b, T, d], dt [b, T, d] (before dt_bias and softplus), B and C
+//   [b, T, n], all of one type (float32 or bfloat16),
+// and the route computes, in float32 from h0,
+//   dt' = softplus(dt + dt_bias[d]);  a = exp(-exp(a_log[d,n]) * dt')
+//   h = a * h + (dt' * u) * B;        y = sum_n h * C
+// writing y [b, T, d] and the final h [b, d, n] as the routes above.
+//
+// Chunked (T > 1): the fused route's passes 2-4 with the projection pass
+// gone.  ssm_dt_chunk_end and ssm_dt_chunk_scan stage a chunk's B and C
+// rows from the inputs into shared memory (rows of 2 NS floats: B at [0,
+// n), C at [NS, NS + n), zeros past n, read as float4 broadcasts) and load
+// dt a channel-step as they load u, coalesced over the block's channels;
+// the carries are ssm_chunk_carry's, unchanged.  Step (T = 1):
+// ssm_dt_step, one thread a state (b, d, n), G lanes a channel (n rounded
+// up to a power of two), y summed over the lanes by shuffles; h0, h_out
+// and a_log are read and written coalesced.
+//
+// What bounds it: u and dt read twice (passes 2 and 4) and y written once
+// are ~6.4 GB at Jamba's 65,536 x 8,192 prefill (~1.9 ms at 3.35 TB/s);
+// the two passes' exp a state-step, ~17 G on the MUFU units (16 a clock
+// an SM), ~4.1 ms: the same MUFU floor as the fused route's.
+
+constexpr int DT_STEP_THREADS = 256;
+
+// Rows t in [0, len) of B and C ([len, n] each, of type T) into ps as rows
+// of 2 NS floats: B at [0, n), C at [NS, NS + n), zeros past n.
+template <typename T, int NS>
+__device__ __forceinline__ void stage_bc(float* ps, const T* __restrict__ bm,
+                                         const T* __restrict__ cm, int len,
+                                         int n) {
+  for (int i = threadIdx.x; i < len * NS; i += blockDim.x) {
+    const int t = i / NS, s = i - t * NS;
+    const bool in = s < n;
+    ps[t * 2 * NS + s] = in ? to_f(bm[(int64_t)t * n + s]) : 0.f;
+    ps[t * 2 * NS + NS + s] = in ? to_f(cm[(int64_t)t * n + s]) : 0.f;
+  }
+}
+
+// One step of a channel's states: dt from its own raw value, B and C from
+// the shared-memory row pr; returns dt and sets *y = sum_n h * C when Y.
+// Past n, A2, B and C are 0, so h stays 0 there.
+template <int NS, bool Y>
+__device__ __forceinline__ float dt_step(float (&h)[NS], const float (&A2)[NS],
+                                         const float* pr, float x, float dr,
+                                         float bias, float* y) {
+  const float dt = softplus(dr + bias);
+  const float dx = dt * x;
+  float acc = 0.f;
+#pragma unroll
+  for (int q = 0; q < NS / 4; ++q) {
+    const float4 b4 = *reinterpret_cast<const float4*>(pr + 4 * q);
+    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+    float cv[4] = {0.f, 0.f, 0.f, 0.f};
+    if (Y) {
+      const float4 c4 = *reinterpret_cast<const float4*>(pr + NS + 4 * q);
+      cv[0] = c4.x, cv[1] = c4.y, cv[2] = c4.z, cv[3] = c4.w;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int s = 4 * q + j;
+      h[s] = ex2(A2[s] * dt) * h[s] + dx * bv[j];
+      if (Y) acc = fmaf(h[s], cv[j], acc);
+    }
+  }
+  if (Y) *y = acc;
+  return dt;
+}
+
+// A chunk's steps [0, len) by one thread, u and dt loaded four steps at a
+// time.  Y: write y (pass 4); else only advance h (pass 2).
+template <typename T, int NS, bool Y>
+__device__ __forceinline__ float dt_walk(float (&h)[NS], const float (&A2)[NS],
+                                         const float* ps, const T* ub,
+                                         const T* db, float* yb, int len,
+                                         int d, float bias) {
+  constexpr int R = 2 * NS;
+  float sum_dt = 0.f;
+  int t = 0;
+  for (; t + 4 <= len; t += 4) {
+    float xv[4], dv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      xv[u] = to_f(ub[(int64_t)(t + u) * d]);
+      dv[u] = to_f(db[(int64_t)(t + u) * d]);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float yv;
+      sum_dt += dt_step<NS, Y>(h, A2, ps + (t + u) * R, xv[u], dv[u], bias,
+                               &yv);
+      if (Y) yb[(int64_t)(t + u) * d] = yv;
+    }
+  }
+  for (; t < len; ++t) {
+    float yv;
+    sum_dt += dt_step<NS, Y>(h, A2, ps + t * R, to_f(ub[(int64_t)t * d]),
+                             to_f(db[(int64_t)t * d]), bias, &yv);
+    if (Y) yb[(int64_t)t * d] = yv;
+  }
+  return sum_dt;
+}
+
+// Pass 2 of the dt route: block (d-tile, chunk c < nc - 1, b); h_end and
+// dt_sum as ssm_chunk_end's.
+template <typename T, int NS>
+__global__ void __launch_bounds__(CHUNK_THREADS)
+ssm_dt_chunk_end(const T* __restrict__ u, const T* __restrict__ dtr,
+                 const T* __restrict__ bm, const T* __restrict__ cm,
+                 const float* __restrict__ dt_bias,
+                 const float* __restrict__ a_log, float* __restrict__ h_end,
+                 float* __restrict__ dt_sum, int steps, int d, int n) {
+  __shared__ __align__(16) float ps[CHUNK * 2 * NS];
+  const int c = blockIdx.y, b = blockIdx.z, ncm = gridDim.y;
+  const int ch = blockIdx.x * CHUNK_THREADS + threadIdx.x;
+  const int64_t row0 = (int64_t)b * steps + (int64_t)c * CHUNK;
+  stage_bc<T, NS>(ps, bm + row0 * n, cm + row0 * n, CHUNK, n);
+  __syncthreads();
+  if (ch >= d) return;
+  float A2[NS], h[NS];
+  load_decay<NS>(a_log, ch, n, A2);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) h[s] = 0.f;
+  const float sum_dt = dt_walk<T, NS, false>(
+      h, A2, ps, u + row0 * d + ch, dtr + row0 * d + ch, nullptr, CHUNK, d,
+      dt_bias[ch]);
+  const int64_t at = (int64_t)b * ncm + c;
+  dt_sum[at * d + ch] = sum_dt;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    if (s < n) h_end[(at * n + s) * d + ch] = h[s];
+}
+
+// Pass 4 of the dt route: block (d-tile, chunk c < nc, b), as
+// ssm_chunk_scan.
+template <typename T, int NS>
+__global__ void __launch_bounds__(CHUNK_THREADS)
+ssm_dt_chunk_scan(const T* __restrict__ u, const T* __restrict__ dtr,
+                  const T* __restrict__ bm, const T* __restrict__ cm,
+                  const float* __restrict__ dt_bias,
+                  const float* __restrict__ a_log,
+                  const float* __restrict__ h0, const float* __restrict__ h_in,
+                  float* __restrict__ y, float* __restrict__ h_out, int steps,
+                  int d, int n) {
+  __shared__ __align__(16) float ps[CHUNK * 2 * NS];
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int t0 = c * CHUNK;
+  const int len = min(CHUNK, steps - t0);
+  const int ch = blockIdx.x * CHUNK_THREADS + threadIdx.x;
+  const int64_t row0 = (int64_t)b * steps + t0;
+  stage_bc<T, NS>(ps, bm + row0 * n, cm + row0 * n, len, n);
+  __syncthreads();
+  if (ch >= d) return;
+  float A2[NS], h[NS];
+  load_decay<NS>(a_log, ch, n, A2);
+  const int64_t state = ((int64_t)b * d + ch) * n;
+  const int64_t at = (int64_t)b * (nc - 1) + c - 1;
+#pragma unroll
+  for (int s = 0; s < NS; ++s)
+    h[s] = s >= n ? 0.f
+                  : c == 0 ? h0[state + s] : h_in[(at * n + s) * d + ch];
+  const int64_t off = row0 * d + ch;
+  dt_walk<T, NS, true>(h, A2, ps, u + off, dtr + off, y + off, len, d,
+                       dt_bias[ch]);
+  if (c == nc - 1) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      if (s < n) h_out[state + s] = h[s];
+  }
+}
+
+// The dt route's step: thread (channel, lane) of batch row b, G lanes a
+// channel; lanes past n add 0 to y and store nothing.
+template <typename T>
+__global__ void __launch_bounds__(DT_STEP_THREADS)
+ssm_dt_step(const T* __restrict__ u, const T* __restrict__ dtr,
+            const T* __restrict__ bm, const T* __restrict__ cm,
+            const float* __restrict__ dt_bias, const float* __restrict__ a_log,
+            const float* __restrict__ h0, float* __restrict__ y,
+            float* __restrict__ h_out, int d, int n, int G) {
+  const int lane = threadIdx.x % G;
+  const int ch = blockIdx.x * (DT_STEP_THREADS / G) + threadIdx.x / G;
+  const int b = blockIdx.y;
+  const bool active = ch < d && lane < n;
+  // idle lanes read valid addresses
+  const int c = min(ch, d - 1), s = min(lane, n - 1);
+  const int64_t at = (int64_t)b * d + c;
+  const float dt = softplus(to_f(dtr[at]) + dt_bias[c]);
+  const float dx = dt * to_f(u[at]);
+  const int64_t state = at * n + s;
+  const float A2 = -expf(a_log[(int64_t)c * n + s]) * LOG2E;
+  const float h =
+      ex2(A2 * dt) * h0[state] + dx * to_f(bm[(int64_t)b * n + s]);
+  float part = active ? h * to_f(cm[(int64_t)b * n + s]) : 0.f;
+  for (int off = G / 2; off > 0; off >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (active) h_out[state] = h;
+  if (lane == 0 && ch < d) y[(int64_t)b * d + ch] = part;
+}
+
+template <typename T, int NS>
+int launch_dt_passes(const T* u, const T* dtr, const T* bm, const T* cm,
+                     const float* dt_bias, const float* a_log,
+                     const float* h0, float* h_end, float* dt_sum, float* y,
+                     float* h_out, int b, int steps, int d, int n,
+                     cudaStream_t stream) {
+  const int nc = (steps + CHUNK - 1) / CHUNK;
+  const unsigned tiles = (unsigned)((d + CHUNK_THREADS - 1) / CHUNK_THREADS);
+  int err = 0;
+  if (nc > 1) {
+    ssm_dt_chunk_end<T, NS>
+        <<<dim3(tiles, (unsigned)(nc - 1), (unsigned)b), CHUNK_THREADS, 0,
+           stream>>>(u, dtr, bm, cm, dt_bias, a_log, h_end, dt_sum, steps, d,
+                     n);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    ssm_chunk_carry<<<dim3(tiles, (unsigned)n, (unsigned)b), CHUNK_THREADS,
+                      0, stream>>>(a_log, h0, h_end, dt_sum, d, n, nc - 1);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  ssm_dt_chunk_scan<T, NS>
+      <<<dim3(tiles, (unsigned)nc, (unsigned)b), CHUNK_THREADS, 0,
+         stream>>>(u, dtr, bm, cm, dt_bias, a_log, h0, h_end, y, h_out, steps,
+                   d, n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dt_chunked(const void* u_, const void* dt_, const void* bm_,
+                      const void* cm_, const float* dt_bias,
+                      const float* a_log, const float* h0, float* h_end,
+                      float* dt_sum, float* y, float* h_out, int b, int steps,
+                      int d, int n, cudaStream_t stream) {
+  if (b <= 0 || b > 65535 || steps <= 0 || d <= 0 || n <= 0 ||
+      n > MAX_STATE || (steps + CHUNK - 1) / CHUNK > 65535)
+    return (int)cudaErrorInvalidValue;
+  const T* u = static_cast<const T*>(u_);
+  const T* dtr = static_cast<const T*>(dt_);
+  const T* bm = static_cast<const T*>(bm_);
+  const T* cm = static_cast<const T*>(cm_);
+#define SSM_DT_PASSES(NS)                                                  \
+  launch_dt_passes<T, NS>(u, dtr, bm, cm, dt_bias, a_log, h0, h_end, dt_sum, \
+                          y, h_out, b, steps, d, n, stream)
+  if (n <= 4) return SSM_DT_PASSES(4);
+  if (n <= 8) return SSM_DT_PASSES(8);
+  if (n <= 16) return SSM_DT_PASSES(16);
+  return SSM_DT_PASSES(32);
+#undef SSM_DT_PASSES
+}
+
+template <typename T>
+int launch_dt_step(const void* u, const void* dt, const void* bm,
+                   const void* cm, const float* dt_bias, const float* a_log,
+                   const float* h0, float* y, float* h_out, int b, int d,
+                   int n, cudaStream_t stream) {
+  if (b <= 0 || b > 65535 || d <= 0 || n <= 0 || n > MAX_STATE)
+    return (int)cudaErrorInvalidValue;
+  int G = 1;
+  while (G < n) G *= 2;
+  const int per_block = DT_STEP_THREADS / G;
+  const dim3 grid((unsigned)((d + per_block - 1) / per_block), (unsigned)b);
+  ssm_dt_step<T><<<grid, DT_STEP_THREADS, 0, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(dt),
+      static_cast<const T*>(bm), static_cast<const T*>(cm), dt_bias, a_log,
+      h0, y, h_out, d, n, G);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // xc: [b, steps, d] contiguous; x_proj: [d, 2n+1] of xc's type; dt_bias:
@@ -989,3 +1265,38 @@ extern "C" int ssm_scan_serial_splits(int b, int steps, int d) {
   }
 SSM_SERIAL_ENTRY(ssm_scan_serial_f32, float)
 SSM_SERIAL_ENTRY(ssm_scan_serial_bf16, __nv_bfloat16)
+
+// The dt route.  u, dt: [b, steps, d]; B, C: [b, steps, n], all of one
+// type; dt_bias [d], a_log [d, n], h0 and h_out [b, d, n], y [b, steps,
+// d] float32.  Chunked scratch: h_end [b, nc-1, n, d] and dt_sum [b, nc-1,
+// d], nc = ceil(steps / 128).
+#define SSM_DT_CHUNKED_ENTRY(NAME, T)                                       \
+  extern "C" int NAME(const void* u, const void* dt, const void* bm,        \
+                      const void* cm, const void* dt_bias,                  \
+                      const void* a_log, const void* h0, void* h_end,       \
+                      void* dt_sum, void* y, void* h_out, int b, int steps, \
+                      int d, int n, void* stream) {                         \
+    return launch_dt_chunked<T>(                                            \
+        u, dt, bm, cm, static_cast<const float*>(dt_bias),                  \
+        static_cast<const float*>(a_log), static_cast<const float*>(h0),    \
+        static_cast<float*>(h_end), static_cast<float*>(dt_sum),            \
+        static_cast<float*>(y), static_cast<float*>(h_out), b, steps, d, n, \
+        static_cast<cudaStream_t>(stream));                                 \
+  }
+SSM_DT_CHUNKED_ENTRY(ssm_scan_dt_chunked_f32, float)
+SSM_DT_CHUNKED_ENTRY(ssm_scan_dt_chunked_bf16, __nv_bfloat16)
+
+// The dt route's step: steps = 1, one launch, no scratch.
+#define SSM_DT_STEP_ENTRY(NAME, T)                                         \
+  extern "C" int NAME(const void* u, const void* dt, const void* bm,       \
+                      const void* cm, const void* dt_bias,                 \
+                      const void* a_log, const void* h0, void* y,          \
+                      void* h_out, int b, int d, int n, void* stream) {    \
+    return launch_dt_step<T>(                                              \
+        u, dt, bm, cm, static_cast<const float*>(dt_bias),                 \
+        static_cast<const float*>(a_log), static_cast<const float*>(h0),   \
+        static_cast<float*>(y), static_cast<float*>(h_out), b, d, n,       \
+        static_cast<cudaStream_t>(stream));                                \
+  }
+SSM_DT_STEP_ENTRY(ssm_scan_dt_step_f32, float)
+SSM_DT_STEP_ENTRY(ssm_scan_dt_step_bf16, __nv_bfloat16)

@@ -38,13 +38,16 @@ import torch
 from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
 from repro_torch.kernels.common import cdiv
-from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.kernels.ssm_scan.ref import (ssm_scan_dt_ref,
+                                              ssm_scan_ref)
 from repro_torch.launch import hlo_cost
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _CHUNKED_ARGS = [_P] * 10 + [_I] * 4 + [_P]
 _STEP_ARGS = [_P] * 7 + [_I] * 3 + [_P]
 _SERIAL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_DT_CHUNKED_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_DT_STEP_ARGS = [_P] * 9 + [_I] * 3 + [_P]
 LIBRARY = KernelLibrary("ssm_scan", "ssm_scan.cu", {
     "ssm_scan_chunked_f32": _CHUNKED_ARGS,
     "ssm_scan_chunked_bf16": _CHUNKED_ARGS,
@@ -54,6 +57,11 @@ LIBRARY = KernelLibrary("ssm_scan", "ssm_scan.cu", {
     "ssm_scan_serial_f32": _SERIAL_ARGS,
     "ssm_scan_serial_bf16": _SERIAL_ARGS,
     "ssm_scan_serial_splits": [_I] * 3,
+    # the dt route: dt a channel, B and C given
+    "ssm_scan_dt_chunked_f32": _DT_CHUNKED_ARGS,
+    "ssm_scan_dt_chunked_bf16": _DT_CHUNKED_ARGS,
+    "ssm_scan_dt_step_f32": _DT_STEP_ARGS,
+    "ssm_scan_dt_step_bf16": _DT_STEP_ARGS,
 })
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 #: Largest state size the kernels take (their register arrays).
@@ -66,13 +74,18 @@ _INT_MAX = 2 ** 31 - 1
 #: Calls that launched since the last reset, in all and by route.
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE = {"chunked": 0, "step": 0}
+#: Calls of the dt route (:func:`ssm_scan_dt_kernel`) that launched, in
+#: all and by route; the counters above count the fused route alone.
+DT_LAUNCHES = 0
+DT_LAUNCHES_BY_ROUTE = {"chunked": 0, "step": 0}
 
 
 def reset_launches() -> None:
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, DT_LAUNCHES
+    LAUNCHES = DT_LAUNCHES = 0
     for name in LAUNCHES_BY_ROUTE:
         LAUNCHES_BY_ROUTE[name] = 0
+        DT_LAUNCHES_BY_ROUTE[name] = 0
 
 
 def route(t: int, dtype: torch.dtype, device, save: bool = False) -> str:
@@ -207,3 +220,105 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
     LAUNCHES_BY_ROUTE[kind] += 1
     hlo_cost.report_kernel("ssm_scan", cost)
     return (y, h, saved) if save else (y, h)
+
+
+# ---------------------------------------------------------------------------
+# The dt route: dt a channel, B and C given (the published Mamba-1 mixer)
+# ---------------------------------------------------------------------------
+
+def _check_dt(u, dt, dt_bias, bm, cm, a_log, h0) -> None:
+    if u.ndim != 3 or a_log.ndim != 2:
+        raise ValueError(f"ssm dt scan takes u [B, T, d] and a_log [d, n], "
+                         f"got {tuple(u.shape)} and {tuple(a_log.shape)}")
+    b, t, d = u.shape
+    n = a_log.shape[1]
+    want = {"dt": (b, t, d), "dt_bias": (d,), "B": (b, t, n),
+            "C": (b, t, n), "a_log": (d, n), "h0": (b, d, n)}
+    got = {"dt": dt, "dt_bias": dt_bias, "B": bm, "C": cm, "a_log": a_log,
+           "h0": h0}
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise ValueError(f"ssm dt scan: {name} is "
+                             f"{tuple(got[name].shape)}, expected {shape}")
+    if t < 1 or n < 1:
+        raise ValueError(f"ssm dt scan takes T >= 1 and n >= 1, got T={t}, "
+                         f"n={n}")
+    if len({u.device, *(v.device for v in got.values())}) != 1:
+        raise ValueError("ssm dt scan inputs on several devices")
+    if u.device.type == "cpu":
+        return
+    if u.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssm dt scan runs on cpu, cuda or meta, got "
+                         f"{u.device}")
+    if u.dtype not in _SUFFIX or any(v.dtype != u.dtype
+                                     for v in (dt, bm, cm)):
+        raise TypeError(f"ssm dt scan kernel takes float32 or bfloat16 u, "
+                        f"dt, B and C of one dtype, got {u.dtype}, "
+                        f"{dt.dtype}, {bm.dtype}, {cm.dtype}")
+    if any(v.dtype != torch.float32 for v in (dt_bias, a_log, h0)):
+        raise TypeError("ssm dt scan kernel takes float32 dt_bias, a_log, "
+                        "h0")
+    if n > MAX_STATE:
+        raise ValueError(f"ssm dt scan kernel takes n <= {MAX_STATE}, "
+                         f"got {n}")
+    if b * t * d > _INT_MAX or b > 65535:
+        raise ValueError("ssm dt scan kernel: sizes past its grid")
+    if not all(v.is_contiguous() for v in (u, *got.values())):
+        raise ValueError("ssm dt scan kernel takes contiguous tensors")
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in (u, *got.values())):
+        raise RuntimeError("the ssm dt scan has no backward: call it where "
+                           "no gradient is taken")
+
+
+def ssm_scan_dt_kernel(u: torch.Tensor, dt: torch.Tensor,
+                       dt_bias: torch.Tensor, bm: torch.Tensor,
+                       cm: torch.Tensor, a_log: torch.Tensor,
+                       h0: torch.Tensor) -> tuple:
+    """The dt route: u [B, T, d]; dt [B, T, d] (before ``dt_bias`` and
+    softplus); ``bm``, ``cm`` [B, T, n] (u's dtype on CUDA); dt_bias [d],
+    a_log [d, n], h0 [B, d, n] float32 -> (y [B, T, d] f32, h_final
+    [B, d, n] f32), without d_skip.  :func:`route` picks as for the fused
+    route (``"step"`` at T = 1, ``"chunked"`` above it, ``"plain"`` on the
+    CPU: :func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_dt_ref`;
+    ``"meta"``).  One launch a call on CUDA, counted in
+    ``DT_LAUNCHES`` / ``DT_LAUNCHES_BY_ROUTE``; its work
+    (:func:`repro_torch.kernels.work.ssm_dt`) goes to the active work
+    counter."""
+    global DT_LAUNCHES
+    _check_dt(u, dt, dt_bias, bm, cm, a_log, h0)
+    b, t, d = u.shape
+    n = a_log.shape[1]
+    kind = route(t, u.dtype, u.device)
+    if kind == "plain":
+        return ssm_scan_dt_ref(u, dt, dt_bias, bm, cm, a_log, h0)
+    dev = u.device
+    y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    h = torch.empty((b, d, n), dtype=torch.float32, device=dev)
+    cost = partial(work.ssm_dt, b, t, d, n, u.element_size())
+    if kind == "meta":
+        hlo_cost.report_kernel("ssm_scan", cost)
+        return y, h
+    lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    suffix = _SUFFIX[u.dtype]
+    ptrs = (u.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+            dt_bias.data_ptr(), a_log.data_ptr(), h0.data_ptr())
+    with torch.cuda.device(dev):
+        if kind == "step":
+            err = getattr(lib, f"ssm_scan_dt_step_{suffix}")(
+                *ptrs, y.data_ptr(), h.data_ptr(), b, d, n, stream)
+        else:
+            ends = cdiv(t, CHUNK) - 1
+            sizes = (b * ends * n * d, b * ends * d)
+            scratch = torch.empty(max(1, sum(sizes)), dtype=torch.float32,
+                                  device=dev)
+            h_end, dt_sum = torch.split(scratch[:sum(sizes)], sizes)
+            err = getattr(lib, f"ssm_scan_dt_chunked_{suffix}")(
+                *ptrs, h_end.data_ptr(), dt_sum.data_ptr(), y.data_ptr(),
+                h.data_ptr(), b, t, d, n, stream)
+    check_launch(f"ssm_scan dt ({kind})", err)
+    DT_LAUNCHES += 1
+    DT_LAUNCHES_BY_ROUTE[kind] += 1
+    hlo_cost.report_kernel("ssm_scan", cost)
+    return y, h

@@ -17,7 +17,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels.ssm_scan.backward import ssm_scan_bwd_kernel
-from repro_torch.kernels.ssm_scan.kernel import ssm_scan_kernel
+from repro_torch.kernels.ssm_scan.kernel import (ssm_scan_dt_kernel,
+                                                 ssm_scan_kernel)
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
 
@@ -70,4 +71,26 @@ def ssm_scan_fused(xc: torch.Tensor, x_proj: torch.Tensor,
     return ssm_scan_kernel(*args)
 
 
-__all__ = ["SSMScan", "ssm_scan_fused", "ssm_scan_ref"]
+def ssm_scan_dt(u: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
+                bm: torch.Tensor, cm: torch.Tensor, a_log: torch.Tensor,
+                h0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The published Mamba-1 scan with its coefficients given: u, dt [B,
+    T, d] (dt before ``dt_bias`` and softplus), bm, cm [B, T, n] -> (y [B,
+    T, d] f32, h_final [B, d, n] f32), without d_skip; ``h0`` defaults to
+    zeros.  dt, B and C take u's dtype (exact where they are wider only
+    if they hold u's values); the kernel's dt route on CUDA, its plain
+    version on the CPU.  Serving only: no gradient flows through the
+    kernel."""
+    b, _, d = u.shape
+    n = a_log.shape[1]
+    if h0 is None:
+        h0 = torch.zeros((b, d, n), dtype=torch.float32, device=u.device)
+    return ssm_scan_dt_kernel(
+        u.contiguous(), dt.to(u.dtype).contiguous(),
+        dt_bias.float().contiguous(), bm.to(u.dtype).contiguous(),
+        cm.to(u.dtype).contiguous(), a_log.float().contiguous(),
+        h0.float().contiguous())
+
+
+__all__ = ["SSMScan", "ssm_scan_dt", "ssm_scan_fused", "ssm_scan_ref"]

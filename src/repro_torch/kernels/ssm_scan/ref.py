@@ -36,6 +36,29 @@ def ssm_scan_ref(xc: torch.Tensor, x_proj: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def ssm_scan_dt_ref(u: torch.Tensor, dt: torch.Tensor,
+                    dt_bias: torch.Tensor, bm: torch.Tensor,
+                    cm: torch.Tensor, a_log: torch.Tensor,
+                    h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential reference of the dt route: the CUDA kernel's plain
+    version.
+
+    u: [B, T, d] post-conv activations; dt: [B, T, d] before ``dt_bias``
+    and softplus; bm, cm: [B, T, n]; dt_bias: [d]; a_log: [d, n]; h0:
+    [B, d, n].  Returns (y [B, T, d] f32, h_final [B, d, n] f32), without
+    d_skip."""
+    dtp = softplus(dt.float() + dt_bias.float())            # [B, T, d]
+    a = torch.exp(-torch.exp(a_log.float()) * dtp[..., None])
+    bx = (dtp * u.float())[..., None] * bm.float()[:, :, None, :]
+    cc = cm.float()
+    h = h0.float()
+    ys = []
+    for t in range(u.shape[1]):
+        h = a[:, t] * h + bx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, cc[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
 def ssm_scan_bwd_ref(xc: torch.Tensor, x_proj: torch.Tensor,
                      dt_bias: torch.Tensor, a_log: torch.Tensor,
                      h0: torch.Tensor, dy: torch.Tensor, dh: torch.Tensor
@@ -283,3 +306,37 @@ def ssm_scan_chunked_ref(xc: torch.Tensor, x_proj: torch.Tensor,
             "bldn,bdn,bln->bld", decay, h_in, cc[:, t0:t1]))
         h_in = decay[:, -1] * h_in + h                      # (b)
     return torch.cat(ys, dim=1), h_in
+
+
+def ssm_scan_dt_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
+                            dt_bias: torch.Tensor, bm: torch.Tensor,
+                            cm: torch.Tensor, a_log: torch.Tensor,
+                            h0: torch.Tensor, chunk: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA dt route's chunked passes in tensor code (tests only; same
+    arguments and results as :func:`ssm_scan_dt_ref`): (a) every chunk
+    but the last scanned from h = 0 for its end state and its sum of dt
+    (``ssm_dt_chunk_end``); (b) the carries ``h_in[c+1] = exp(-A * sum
+    dt[c]) * h_in[c] + h_end[c]`` from ``h0`` (``ssm_chunk_carry``); (c)
+    each chunk re-run from ``h_in[c]``, writing y (``ssm_dt_chunk_scan``)."""
+    steps = u.shape[1]
+    dtp = softplus(dt.float() + dt_bias.float())            # [B, T, d]
+    A = torch.exp(a_log.float())                            # [d, n]
+    a = torch.exp(-A * dtp[..., None])                      # [B, T, d, n]
+    bx = (dtp * u.float())[..., None] * bm.float()[:, :, None, :]
+    cc = cm.float()
+    starts = list(range(0, steps, chunk))
+    h_in = [h0.float()]
+    for t0 in starts[:-1]:                                  # (a) and (b)
+        h = torch.zeros_like(h_in[0])
+        for t in range(t0, t0 + chunk):
+            h = a[:, t] * h + bx[:, t]
+        total = dtp[:, t0:t0 + chunk].sum(dim=1)            # [B, d]
+        h_in.append(torch.exp(-A * total[..., None]) * h_in[-1] + h)
+    ys = []
+    for c, t0 in enumerate(starts):                         # (c)
+        h = h_in[c]
+        for t in range(t0, min(steps, t0 + chunk)):
+            h = a[:, t] * h + bx[:, t]
+            ys.append(torch.einsum("bdn,bn->bd", h, cc[:, t]))
+    return torch.stack(ys, dim=1), h

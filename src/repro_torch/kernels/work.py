@@ -120,6 +120,18 @@ def ssm(b: int, t: int, d: int, n: int, itemsize: int,
     return Work(ops, nbytes, F32_FLOP_PER_S)
 
 
+def ssm_dt(b: int, t: int, d: int, n: int, itemsize: int) -> Work:
+    """The selective scan's dt route over u [b, t, d] with dt a channel
+    and step and B, C [b, t, n] given: u, dt, B and C read once (their
+    type), dt_bias, a_log and h0 once, y and h written once (float32); the
+    operations at the CUDA cores' float32 peak: 5 a channel and step
+    (softplus's add, exp, log1p, max, dt * u) and 7 a state and step (as
+    :func:`ssm`)."""
+    nbytes = (itemsize * (2 * b * t * d + 2 * b * t * n)
+              + 4 * (d + d * n + b * d * n) + 4 * (b * t * d + b * d * n))
+    return Work(5 * b * t * d + 7 * b * t * d * n, nbytes, F32_FLOP_PER_S)
+
+
 def ssm_bwd(b: int, t: int, d: int, n: int, itemsize: int) -> Work:
     """The scan's gradient: xc, x_proj, dt_bias, a_log, h0, dy, dh and the
     forward's saved projection rows and chunk-entering states read once,

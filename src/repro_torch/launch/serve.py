@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import sys
 import threading
 import time
@@ -34,6 +35,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import obs
+
 
 @dataclasses.dataclass
 class SmokeRun:
@@ -116,6 +120,69 @@ def report_lines(args: argparse.Namespace, run: SmokeRun) -> list:
             f"decode:  {run.decode_s_per_token*1e3:.2f} ms/token "
             f"(batch {args.batch})",
             f"generated: {run.generated[:2].tolist()}"]
+
+
+# -- one greedy request -------------------------------------------------------
+
+@dataclasses.dataclass
+class LMRequest:
+    """One greedy request's answer, on the device, and its report."""
+    ids: torch.Tensor           # [B, gen + 1]: the prefill's token, then
+    #                             one a decode step
+    logits: torch.Tensor        # [B, gen + 1, V] float32: the last prompt
+    #                             position's, then each decode step's
+    report: Any                 # runtime.reports.ActionReport
+
+
+_REQUEST_IDS = itertools.count()
+
+
+def greedy_request(model: Any, params: Any, tokens: torch.Tensor, gen: int,
+                   max_len: Optional[int] = None) -> LMRequest:
+    """Prefill ``tokens`` [B, S] and greedy-decode ``gen`` steps through
+    the cache, keeping every step's logits in float32 on the device.
+
+    The report's phases: ``dispatch`` (host time to enqueue the request,
+    the host reads inside it included: the MoE's expert sizes, the wait
+    for the prefill) and ``device_wait`` (waiting for the last decode
+    step's last launch) split its ``wall_s``, as the executor's do an
+    action's; ``prefill`` (the prefill, up to its last launch's end) and
+    ``decode`` (the ``gen`` decode steps' enqueue) split it the other
+    way.  At the end the copies an expert-parallel MoE dropped reach the
+    ``moe.dropped`` counter (``moe.flush_dropped``)."""
+    from repro_torch.models.moe import flush_dropped
+    from repro_torch.runtime.executor import _device_wait
+    from repro_torch.runtime.reports import ActionReport
+
+    dev = tokens.device
+    b, s = tokens.shape
+    phases: Dict[str, float] = {}
+    t0 = time.monotonic()
+    with torch.no_grad():
+        with obs.timed("dispatch", phases):
+            logits, cache = model.prefill(params, {"tokens": tokens},
+                                          max_len or s + gen)
+            rows = [logits[:, -1].float()]
+            ids = [torch.argmax(rows[-1], dim=-1)]
+            _device_wait(dev)
+            t1 = time.monotonic()
+            for _ in range(gen):
+                lg, cache = model.decode_step(params, cache, ids[-1])
+                rows.append(lg.float())
+                ids.append(torch.argmax(rows[-1], dim=-1))
+            t2 = time.monotonic()
+        with obs.timed("device_wait", phases):
+            _device_wait(dev)
+    flush_dropped()
+    phases["prefill"] = t1 - t0
+    phases["decode"] = t2 - t1
+    report = ActionReport(
+        action_id=next(_REQUEST_IDS),
+        plan=f"lm.prefill({b}x{s}) -> lm.decode_step x{gen}",
+        total_stages=1 + gen, wall_s=time.monotonic() - t0, phases=phases,
+        device=str(dev))
+    return LMRequest(ids=torch.stack(ids, dim=1),
+                     logits=torch.stack(rows, dim=1), report=report)
 
 
 # -- the query-service loop ---------------------------------------------------

@@ -135,10 +135,11 @@ def resolve_impl(cfg: ModelConfig, seq: int, device) -> str:
 def self_attention(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
                    cfg: ModelConfig, window: Optional[int] = None,
                    impl: Optional[str] = None, return_kv: bool = False):
-    """Causal self-attention over x: [B, S, d]."""
+    """Causal self-attention over x: [B, S, d]; RoPE unless
+    ``cfg.use_rope`` is False."""
     b, s, d = x.shape
     impl = impl or resolve_impl(cfg, s, x.device)
-    q, k, v = _project_qkv(p, x, positions, cfg)
+    q, k, v = _project_qkv(p, x, positions, cfg, rope=cfg.use_rope)
     qt = q.transpose(1, 2)
     kt = k.transpose(1, 2)
     vt = v.transpose(1, 2)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, ClassVar, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -18,6 +18,7 @@ from repro_torch.launch import hlo_cost
 class ModelConfig:
     name: str
     family: str                 # dense | moe | hybrid | ssm | audio | vlm
+    #                             | jamba
     num_layers: int
     d_model: int
     num_heads: int
@@ -58,6 +59,13 @@ class ModelConfig:
     moe_mode: str = "weight_gather"   # weight_gather | token_gather
     ssm_cp: bool = False              # context-parallel SSM (seq sharded)
 
+    # What every family but jamba keeps fixed (class attributes, not
+    # fields: the ten assigned configs stay the reference's field for
+    # field); JambaConfig makes them fields.
+    use_rope: ClassVar[bool] = True           # RoPE in every attention
+    moe_renormalize: ClassVar[bool] = True    # top-k gates over their sum
+    logits_to_keep: ClassVar[int] = 0         # a prefill's logits: all
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
@@ -82,6 +90,35 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced config of the same family (per-arch smoke tests)."""
         return dataclasses.replace(self, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class JambaConfig(ModelConfig):
+    """The jamba family (AI21's Jamba): the published Mamba-1 mixer, each
+    layer's kinds from a period and an offset, attention without RoPE,
+    top-k gates kept as the softmax gives them, and a prefill that keeps
+    the last ``logits_to_keep`` positions' logits (0: all)."""
+    ssm_dt_rank: int = 0                  # dt's low rank
+    ssm_conv_bias: bool = True
+    attn_layer_period: int = 1            # attention where i % period ==
+    attn_layer_offset: int = 0            # offset, Mamba elsewhere
+    expert_layer_period: int = 1          # MoE where i % period == offset,
+    expert_layer_offset: int = 0          # a dense MLP elsewhere
+    use_rope: bool = False
+    moe_renormalize: bool = False
+    logits_to_keep: int = 1
+
+    def layer_kind(self, i: int) -> Tuple[str, str]:
+        """Layer ``i``'s kinds, (``"attention"`` or ``"mamba"``, ``"mlp"``
+        or ``"moe"``): attention where ``i % attn_layer_period ==
+        attn_layer_offset``, the MoE where ``i % expert_layer_period ==
+        expert_layer_offset``, as the published ``modeling_jamba.py``
+        derives them."""
+        mixer = "attention" if i % self.attn_layer_period \
+            == self.attn_layer_offset else "mamba"
+        ffn = "moe" if i % self.expert_layer_period \
+            == self.expert_layer_offset else "mlp"
+        return mixer, ffn
 
 
 def lift_axes(axes: dict, prefix: Tuple[str, ...]) -> dict:
@@ -148,11 +185,17 @@ def active_param_count(cfg: ModelConfig) -> int:
         return total
     expert_p = 3 * cfg.d_model * cfg.moe_d_ff
     inactive = (cfg.num_experts - cfg.experts_per_token) * expert_p
-    return total - cfg.num_layers * inactive
+    moe_layers = cfg.num_layers
+    if cfg.family == "jamba":
+        moe_layers = sum(cfg.layer_kind(i)[1] == "moe"
+                         for i in range(cfg.num_layers))
+    return total - moe_layers * inactive
 
 
 def param_count_analytic(cfg: ModelConfig) -> int:
     """Closed-form parameter count (embedding + per-layer weights)."""
+    if cfg.family == "jamba":
+        return _jamba_param_count(cfg)
     d, hd = cfg.d_model, cfg.hd
     attn = d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd \
         + cfg.num_heads * hd * d
@@ -173,6 +216,27 @@ def param_count_analytic(cfg: ModelConfig) -> int:
         enc = cfg.encoder_layers * (4 * d * d + 2 * d * cfg.d_ff + 2 * d)
         per_layer += 2 * d * d + d * cfg.num_kv_heads * hd * 2  # cross-attn
     return embed + cfg.num_layers * per_layer + enc + d
+
+
+def _jamba_param_count(cfg: ModelConfig) -> int:
+    """The jamba family's count: each layer's mixer (attention or the
+    published Mamba mixer) and feed-forward (dense MLP or MoE) by the
+    layer-kind keys, two norms a layer, the untied embedding and head, and
+    the final norm."""
+    d, hd, n, r = cfg.d_model, cfg.hd, cfg.ssm_state, cfg.ssm_dt_rank
+    di = d * cfg.ssm_expand
+    attn = d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
+    mamba = (d * 2 * di + cfg.ssm_conv * di + di * cfg.ssm_conv_bias
+             + di * (r + 2 * n) + r + 2 * n + r * di + di + di * n + di
+             + di * d)
+    mlp = 3 * d * cfg.d_ff
+    moe = cfg.num_experts * 3 * d * cfg.moe_d_ff + d * cfg.num_experts
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    for i in range(cfg.num_layers):
+        mixer, ffn = cfg.layer_kind(i)
+        total += 2 * d + (attn if mixer == "attention" else mamba) \
+            + (moe if ffn == "moe" else mlp)
+    return total
 
 
 class MetaDraws:

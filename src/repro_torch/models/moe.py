@@ -34,7 +34,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import List, NamedTuple, Optional, Tuple
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +46,7 @@ from repro_torch.kernels.moe_dispatch.ops import moe_dispatch
 from repro_torch.launch import hlo_cost
 from repro_torch.models.common import ModelConfig, Params, trunc_normal
 from repro_torch.models.layers import ParamsLike
+from repro_torch.obs import METRICS, span
 from repro_torch.sharding import P, active
 
 
@@ -72,6 +74,8 @@ class MoEStats(NamedTuple):
 def _route(p: ParamsLike, x2d: torch.Tensor, cfg: ModelConfig):
     """x2d: [T, d] -> (top-k idx [T, k], gates [T, k], aux_loss).
 
+    The gates are the top k softmax weights, divided by their sum where
+    ``cfg.moe_renormalize`` (else kept as they are, as Jamba's router).
     The top k come from a stable descending sort of each row, so ties go
     to the lower expert as in ``lax.top_k`` (``torch.topk`` does not
     promise that on CUDA)."""
@@ -80,7 +84,9 @@ def _route(p: ParamsLike, x2d: torch.Tensor, cfg: ModelConfig):
     k = cfg.experts_per_token
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top.values[:, :k], top.indices[:, :k]
-    gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True), min=1e-9)
+    if cfg.moe_renormalize:
+        gates = gates / torch.clamp(torch.sum(gates, -1, keepdim=True),
+                                    min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * P_e
     E = cfg.num_experts
     # one-hot by a compare, which every device runs alike (F.one_hot
@@ -98,6 +104,10 @@ def _expert_mlp(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
     ``ragged_dot``): one matmul per non-empty expert on its contiguous
     rows; rows past the groups' total are 0.
 
+    Where no gradient is taken the intermediates go to buffers of all
+    ``n`` rows (:func:`_expert_mlp_buffered`).  Each expert's rows are
+    added to the ``moe.expert_tokens.<e>`` counter.
+
     The slice bounds come to the host: one device-to-host copy of
     ``group_sizes`` (a stream sync) per call, i.e. per layer.  On the
     meta device the sizes have no values: the rows split evenly over the
@@ -108,19 +118,55 @@ def _expert_mlp(w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
     with hlo_cost.counted_as(*expert_work(n, xs.shape[1], w1.shape[2],
                                           e_all, xs.element_size())):
         ys = torch.empty_like(xs)
-        off = 0
         if xs.device.type == "meta":
             sizes = [n // e_all + (e < n % e_all) for e in range(e_all)]
         else:
             sizes = group_sizes.tolist()
-        for e, c in enumerate(sizes):
-            if c:
-                x = xs[off:off + c]
-                h = F.silu(x @ w1[e]) * (x @ w3[e])
-                ys[off:off + c] = h @ w2[e]
-            off += c
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (xs, w1, w3, w2)):
+            off = 0
+            for e, c in enumerate(sizes):
+                if c:
+                    x = xs[off:off + c]
+                    h = F.silu(x @ w1[e]) * (x @ w3[e])
+                    ys[off:off + c] = h @ w2[e]
+                off += c
+        else:
+            off = _expert_mlp_buffered(w1, w3, w2, xs, sizes, ys)
         ys[off:] = 0
+        if xs.device.type != "meta":
+            for e, c in enumerate(sizes):
+                METRICS.counter(f"moe.expert_tokens.{e}").inc(c)
     return ys
+
+
+def _expert_mlp_buffered(w1: torch.Tensor, w3: torch.Tensor,
+                         w2: torch.Tensor, xs: torch.Tensor, sizes: list,
+                         ys: torch.Tensor) -> int:
+    """:func:`_expert_mlp`'s products where no gradient is taken: every
+    expert writes its rows' intermediates into two buffers of all ``n``
+    rows (``out=``), SiLU and the gate's multiply run once over them, and
+    the down products write into ``ys``; so the bytes allocated depend on
+    ``n`` alone, never on how the router split the rows.  The same
+    products and elementwise operations as the loop under autograd, so
+    the same values.  Returns the rows the groups hold."""
+    n, f = xs.shape[0], w1.shape[2]
+    h1 = torch.empty((n, f), dtype=xs.dtype, device=xs.device)
+    h3 = torch.empty((n, f), dtype=xs.dtype, device=xs.device)
+    off = 0
+    for e, c in enumerate(sizes):
+        if c:
+            torch.matmul(xs[off:off + c], w1[e], out=h1[off:off + c])
+            torch.matmul(xs[off:off + c], w3[e], out=h3[off:off + c])
+        off += c
+    F.silu(h1[:off], inplace=True).mul_(h3[:off])
+    del h3
+    off = 0
+    for e, c in enumerate(sizes):
+        if c:
+            torch.matmul(h1[off:off + c], w2[e], out=ys[off:off + c])
+        off += c
+    return off
 
 
 def expert_work(n: int, d: int, f: int, experts: int,
@@ -144,6 +190,9 @@ def moe_ffn_dense(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig
     x2 = x.reshape(-1, d)
     t = x2.shape[0]
     idx, gates, aux = _route(p, x2, cfg)
+    routes = _ROUTES.get()
+    if routes is not None:
+        routes.append(idx)
     k, E = cfg.experts_per_token, cfg.num_experts
     flat_e = idx.reshape(-1)                                 # [T*k]
     positions, counts = moe_dispatch(flat_e, E)              # the kernel
@@ -326,6 +375,50 @@ def moe_ffn_sharded(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
 
 _SINK: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_moe_stats", default=None)
+_ROUTES: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_moe_routes", default=None)
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Yields a list to which every dense-path MoE call inside appends
+    its routing, the top-k expert ids ``[tokens, k]`` on the device, in
+    call order: what a checker needs to hold a reference to the same
+    choices where two experts' scores tie within rounding."""
+    sink: List[torch.Tensor] = []
+    tok = _ROUTES.set(sink)
+    try:
+        yield sink
+    finally:
+        _ROUTES.reset(tok)
+
+
+#: The expert-parallel path's dropped copies not yet read to the host:
+#: one float32 scalar a device, added to there (no host read a layer).
+_PENDING_DROPS: Dict[torch.device, torch.Tensor] = {}
+_DROPS_LOCK = threading.Lock()
+
+
+def _add_dropped(n: torch.Tensor) -> None:
+    with hlo_cost.uncounted(), _DROPS_LOCK:   # for the counter alone
+        n = n.detach().float()
+        held = _PENDING_DROPS.get(n.device)
+        _PENDING_DROPS[n.device] = n if held is None else held + n
+
+
+def flush_dropped() -> int:
+    """Adds the copies the expert-parallel path dropped since the last
+    flush to the ``moe.dropped`` counter, one host read a device that ran
+    that path (none where only the dense path ran), and returns the
+    counter's value.  ``launch.serve.greedy_request`` calls it at the end
+    of every request."""
+    with _DROPS_LOCK:
+        held = list(_PENDING_DROPS.values())
+        _PENDING_DROPS.clear()
+    counter = METRICS.counter("moe.dropped")
+    for n in held:
+        counter.inc(int(n.item()))
+    return counter.value
 
 
 @contextlib.contextmanager
@@ -344,13 +437,19 @@ def moe_ffn(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
             mode: Optional[str] = None) -> Tuple[torch.Tensor, MoEStats]:
     """The MoE FFN: the expert-parallel path under an active mesh whose
     ``model`` axis has more than one shard and divides the experts, else
-    the dense path."""
+    the dense path; under an ``lm.moe`` span.  The copies the
+    expert-parallel path loses to capacity are added up on the device and
+    reach the ``moe.dropped`` counter at :func:`flush_dropped`; the dense
+    path drops none and adds nothing."""
     _, mesh = active()
-    if mesh is not None and mesh.shape.get("model", 1) > 1 and \
-            cfg.num_experts % mesh.shape["model"] == 0:
-        y, stats = moe_ffn_sharded(p, x, cfg, mode=mode or cfg.moe_mode)
-    else:
-        y, stats = moe_ffn_dense(p, x, cfg)
+    with span("lm.moe", tokens=x.shape[0] * x.shape[1]):
+        if mesh is not None and mesh.shape.get("model", 1) > 1 and \
+                cfg.num_experts % mesh.shape["model"] == 0:
+            y, stats = moe_ffn_sharded(p, x, cfg, mode=mode or cfg.moe_mode)
+            if x.device.type != "meta":
+                _add_dropped(stats.dropped)
+        else:
+            y, stats = moe_ffn_dense(p, x, cfg)
     sink = _SINK.get()
     if sink is not None:
         sink.append(stats)

@@ -16,18 +16,26 @@ activations' device unless a caller names one:
   the state carried from chunk to chunk.
 
 Decode keeps (conv window, h state) per layer: constant per step.
+
+:func:`mamba_mixer` is the published Mamba-1 mixer (Jamba's
+``JambaMambaMixer``) beside hymba's block: a conv bias, dt from a
+low-rank projection, RMSNorms on dt, B and C, and a scan whose
+coefficients come from outside it: the kernel's dt route
+(:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_dt`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ssm_scan.ops import ssm_scan_fused
+from repro_torch.kernels.ssm_scan.ops import ssm_scan_dt, ssm_scan_fused
 from repro_torch.kernels.ssm_scan.ref import softplus
 from repro_torch.models.common import ModelConfig, Params, trunc_normal
-from repro_torch.models.layers import ParamsLike
+from repro_torch.models.layers import (ParamsLike, apply_rmsnorm,
+                                       init_rmsnorm)
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig,
@@ -184,5 +192,111 @@ def ssm_block(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
     new_state = None
     if state is not None:
         tail = xin[:, xin.shape[1] - (cw - 1):]
+        new_state = SSMState(conv=tail.to(cfg.param_dtype), h=h_final)
+    return out, new_state
+
+
+# ---------------------------------------------------------------------------
+# The published Mamba-1 mixer (Jamba)
+# ---------------------------------------------------------------------------
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The published mixer's parameters: ``in_proj`` [d, 2 di] and
+    ``out_proj`` [di, d] without bias; the depthwise conv ``conv_w``
+    [conv, di] and its bias ``conv_b``; ``x_proj`` [di, r + 2n] to (dt, B,
+    C); the norms ``dt_norm`` [r], ``b_norm``, ``c_norm`` [n]; ``dt_proj``
+    [r, di] and its bias ``dt_bias`` [di] (added inside the scan, before
+    softplus); ``a_log`` [di, n] = log(1 .. n) and ``d_skip`` ones, as
+    Mamba initialises them.  ``dt_bias`` is softplus's inverse of dt drawn
+    log-uniform in [0.001, 0.1], Mamba's initialisation."""
+    d, n, r = cfg.d_model, cfg.ssm_state, cfg.ssm_dt_rank
+    di = d * max(cfg.ssm_expand, 1)
+    dt = cfg.param_dtype
+    dev = gen.device
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)
+    if dev.type == "meta":
+        dt_bias = torch.empty((di,), dtype=torch.float32, device=dev)
+    else:
+        u = torch.rand((di,), generator=gen, device=dev)
+        step = torch.exp(u * (math.log(0.1) - math.log(0.001))
+                         + math.log(0.001)).clamp(min=1e-4)
+        dt_bias = step + torch.log(-torch.expm1(-step))
+    p = dict(in_proj=trunc_normal(gen, (d, 2 * di), dt),
+             conv_w=trunc_normal(gen, (cfg.ssm_conv, di), dt))
+    if cfg.ssm_conv_bias:
+        p["conv_b"] = torch.zeros((di,), dtype=dt, device=dev)
+    p.update(x_proj=trunc_normal(gen, (di, r + 2 * n), dt),
+             dt_norm=init_rmsnorm(r, dt, dev),
+             b_norm=init_rmsnorm(n, dt, dev),
+             c_norm=init_rmsnorm(n, dt, dev),
+             dt_proj=trunc_normal(gen, (r, di), dt),
+             dt_bias=dt_bias,
+             a_log=torch.log(a).repeat(di, 1),
+             d_skip=torch.ones((di,), dtype=torch.float32, device=dev),
+             out_proj=trunc_normal(gen, (di, d), dt))
+    return Params(**p)
+
+
+def mamba_logical_axes(cfg: ModelConfig) -> dict:
+    axes = {"in_proj": ("embed", "ff"), "conv_w": ("conv", "ff"),
+            "x_proj": ("ff", None), "dt_norm": {"scale": (None,)},
+            "b_norm": {"scale": ("state",)},
+            "c_norm": {"scale": ("state",)}, "dt_proj": (None, "ff"),
+            "dt_bias": ("ff",), "a_log": ("ff", "state"),
+            "d_skip": ("ff",), "out_proj": ("ff", "embed")}
+    if cfg.ssm_conv_bias:
+        axes["conv_b"] = ("ff",)
+    return axes
+
+
+def _causal_conv(p: ParamsLike, xi: torch.Tensor, cfg: ModelConfig,
+                 state: Optional[SSMState]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The depthwise causal conv of the published mixer, with its bias,
+    then SiLU: (u [B, S, di] in xi's dtype, the window ``xin`` whose last
+    ``conv - 1`` rows the state keeps).  Products and sums in float32,
+    one accumulator."""
+    s, cw = xi.shape[1], cfg.ssm_conv
+    if state is not None:
+        xin = torch.cat([state.conv.to(xi.dtype), xi], dim=1)
+    else:
+        xin = F.pad(xi, (0, 0, cw - 1, 0))
+    w = p["conv_w"].float()
+    acc = xin[:, 0:s] * w[0]
+    for i in range(1, cw):
+        acc.addcmul_(xin[:, i:i + s], w[i])
+    if cfg.ssm_conv_bias:
+        acc.add_(p["conv_b"].float())
+    return F.silu(acc, inplace=True).to(xi.dtype), xin
+
+
+def mamba_mixer(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[SSMState] = None
+                ) -> Tuple[torch.Tensor, Optional[SSMState]]:
+    """The published Mamba-1 mixer over x [B, S, d] (the block's normed
+    input): ``[u, z] = in_proj(x)``; ``u = silu(conv(u) + conv_b)``; ``[dt,
+    B, C] = x_proj(u)`` each RMS-normed; ``dt = dt_proj(dt)``; the scan
+    with ``softplus(dt + dt_bias)`` a channel (the kernel's dt route on
+    CUDA, its plain version on the CPU), plus ``d_skip * u``; ``out =
+    out_proj(y * silu(z))``.  With ``state``, runs statefully (S may be 1)
+    and returns the updated (conv window, h)."""
+    n, r = cfg.ssm_state, cfg.ssm_dt_rank
+    xz = x @ p["in_proj"]                                 # [B, S, 2*di]
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    u, xin = _causal_conv(p, xi, cfg, state)
+    del xz, xi
+    dtr, bm, cm = torch.split(u @ p["x_proj"], [r, n, n], dim=-1)
+    dtr = apply_rmsnorm(p["dt_norm"], dtr, eps=cfg.norm_eps)
+    bm = apply_rmsnorm(p["b_norm"], bm, eps=cfg.norm_eps)
+    cm = apply_rmsnorm(p["c_norm"], cm, eps=cfg.norm_eps)
+    dt = dtr @ p["dt_proj"]                               # [B, S, di]
+    y, h_final = ssm_scan_dt(u, dt, p["dt_bias"], bm, cm, p["a_log"],
+                             state.h if state is not None else None)
+    del dt
+    y.addcmul_(u, p["d_skip"])
+    out = (y.to(u.dtype) * F.silu(z)) @ p["out_proj"]
+    new_state = None
+    if state is not None:
+        tail = xin[:, xin.shape[1] - (cfg.ssm_conv - 1):]
         new_state = SSMState(conv=tail.to(cfg.param_dtype), h=h_final)
     return out, new_state

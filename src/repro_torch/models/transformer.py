@@ -1,22 +1,30 @@
-"""Decoder LM assembly: the dense, MoE, hybrid, vlm and ssm families.
+"""Decoder LM assembly: the dense, MoE, hybrid, vlm, ssm and jamba families.
 
 The reference's ``models/transformer.py`` for ``family`` ``"dense"``,
 ``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``), ``"hybrid"``
 (hymba: attention and an SSM side by side in every block, sliding-window
-attention on all but the global layers), ``"vlm"`` (internvl2: the
-dense stack with ``patch_embeds`` projected by ``patch_proj`` and
-prepended to the text, positions running over both) and ``"ssm"``
-(xlstm: units of ``slstm_every - 1`` mLSTM blocks and one sLSTM block,
-``models/xlstm.py``).  Its ``lax.scan`` over stacked layer parameters
-becomes a Python loop over one module per layer (PyTorch runs eagerly:
-there is no graph whose size depth could grow), so ``scan_layers``
-selects nothing.  ``remat`` recomputes each layer (each xlstm unit) in
-the backward pass through ``torch.utils.checkpoint`` where gradients
-are taken, as the reference's ``jax.checkpoint``.  Under an active mesh
-(``sharding.use_rules``) a hybrid prefill with ``cfg.ssm_cp`` runs each
-layer's SSM block context-parallel (``models/ssm_cp.py``) and, as the
-reference's, returns zero SSM states.  The ``"audio"`` family is
-``models/encdec.py``.
+attention on all but the global layers), ``"vlm"`` (internvl2: the dense
+stack with ``patch_embeds`` projected by ``patch_proj`` and prepended to
+the text, positions running over both) and ``"ssm"`` (xlstm: units of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block,
+``models/xlstm.py``), and ``"jamba"`` (layers of two kinds: GQA
+attention without positions, or the published Mamba-1 mixer,
+``ssm.mamba_mixer``; and a dense MLP or an MoE feed-forward; each
+layer's kinds from the period and offset keys,
+:meth:`JambaConfig.layer_kind`). Its ``lax.scan`` over stacked layer
+parameters becomes a Python loop over one module per layer (PyTorch runs
+eagerly: there is no graph whose size depth could grow), so
+``scan_layers`` selects nothing. ``remat`` recomputes each layer (each
+xlstm unit) in the backward pass through ``torch.utils.checkpoint``
+where gradients are taken, as the reference's ``jax.checkpoint``. Under
+an active mesh (``sharding.use_rules``) a hybrid prefill with
+``cfg.ssm_cp`` runs each layer's SSM block context-parallel
+(``models/ssm_cp.py``) and, as the reference's, returns zero SSM states.
+The ``"audio"`` family is ``models/encdec.py``. A prefill and a decode
+step run under the spans ``lm.prefill`` and ``lm.decode_step`` and add
+their tokens to the ``lm.tokens_prefilled`` and ``lm.tokens_decoded``
+counters; a jamba layer's mixer runs under ``lm.attention`` or
+``lm.mamba`` (the MoE under ``lm.moe``, ``models/moe.py``).
 """
 from __future__ import annotations
 
@@ -39,10 +47,12 @@ from repro_torch.models.layers import (ParamsLike, apply_mlp, apply_norm,
                                        init_embedding, init_mlp, init_norm,
                                        mlp_logical_axes, unembed)
 from repro_torch.models.ssm_cp import ssm_block_context_parallel
+from repro_torch.obs import METRICS, span
 from repro_torch.sharding import active
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm",
+                   "jamba")
 BIG_WINDOW = 1 << 30   # "global attention" encoded as a huge window
 
 #: Where each family the port does not run yet is ported (ROADMAP.md):
@@ -65,12 +75,26 @@ def require_ported_family(cfg: ModelConfig) -> None:
 class Block(Params):
     """One decoder layer: ``norm1``, ``attn``, ``norm2``, and ``mlp``
     (dense) or ``moe`` (MoE); a hybrid layer adds ``ssm``, ``norm_a`` and
-    ``norm_s``."""
+    ``norm_s``; a jamba layer holds ``attn`` or ``mamba``, and ``mlp`` or
+    ``moe``, as :meth:`JambaConfig.layer_kind` says."""
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
+def init_block(gen: torch.Generator, cfg: ModelConfig, i: int = 0
+               ) -> Block:
+    """Layer ``i``'s parameters (``i`` picks a jamba layer's kinds)."""
     require_ported_family(cfg)
     dev = gen.device
+    if cfg.family == "jamba":
+        mixer, ffn = cfg.layer_kind(i)
+        p = dict(norm1=init_norm(cfg, device=dev),
+                 norm2=init_norm(cfg, device=dev))
+        if mixer == "attention":
+            p["attn"] = attn_lib.init_attention(gen, cfg)
+        else:
+            p["mamba"] = ssm_lib.init_mamba(gen, cfg)
+        p[ffn] = (moe_lib.init_moe(gen, cfg) if ffn == "moe"
+                  else init_mlp(gen, cfg))
+        return Block(**p)
     p = dict(norm1=init_norm(cfg, device=dev),
              norm2=init_norm(cfg, device=dev),
              attn=attn_lib.init_attention(gen, cfg))
@@ -86,11 +110,19 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Block:
     return Block(**p)
 
 
-def block_logical_axes(cfg: ModelConfig) -> dict:
+def block_logical_axes(cfg: ModelConfig, i: int = 0) -> dict:
     norm = {"scale": ("embed",)} if not cfg.use_layernorm else \
         {"scale": ("embed",), "bias": ("embed",)}
     p: dict = {"norm1": dict(norm), "norm2": dict(norm)}
-    if cfg.family in ("dense", "vlm", "audio"):
+    if cfg.family == "jamba":
+        mixer, ffn = cfg.layer_kind(i)
+        if mixer == "attention":
+            p["attn"] = attn_lib.attention_logical_axes(cfg)
+        else:
+            p["mamba"] = ssm_lib.mamba_logical_axes(cfg)
+        p[ffn] = (moe_lib.moe_logical_axes(cfg) if ffn == "moe"
+                  else mlp_logical_axes(cfg))
+    elif cfg.family in ("dense", "vlm", "audio"):
         p["attn"] = attn_lib.attention_logical_axes(cfg)
         p["mlp"] = mlp_logical_axes(cfg)
     elif cfg.family == "moe":
@@ -112,6 +144,56 @@ def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
         y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
         return y, stats.aux_loss
     return apply_mlp(p["mlp"], h, cfg), None
+
+
+def jamba_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig, i: int
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A jamba layer's feed-forward half: (y, MoE aux loss or None)."""
+    if cfg.layer_kind(i)[1] == "moe":
+        y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
+        return y, stats.aux_loss
+    return apply_mlp(p["mlp"], h, cfg), None
+
+
+def apply_jamba_block(p: ParamsLike, x: torch.Tensor,
+                      positions: torch.Tensor, cfg: ModelConfig, i: int,
+                      max_len: Optional[int] = None):
+    """Jamba layer ``i`` over a whole sequence, from zero states: ``x +
+    mixer(norm1(x))``, then ``+ ffn(norm2(x))``.  Returns (x', aux); with
+    ``max_len`` (a prefill), (x', aux, the layer's LayerCache): an
+    attention layer's K/V in a cache of ``max_len`` positions, a Mamba
+    layer's final (conv window, h).  A prefill takes no gradient and
+    drops its x for x', so there both residual adds write into ``x``:
+    the layer holds one residual stream, not two."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = apply_norm(cfg, p["norm1"], x)
+    cache = None
+    if cfg.layer_kind(i)[0] == "attention":
+        with span("lm.attention", layer=i):
+            if max_len is None:
+                a = attn_lib.self_attention(p["attn"], h, positions, cfg)
+            else:
+                a, (kt, vt) = attn_lib.self_attention(
+                    p["attn"], h, positions, cfg, return_kv=True)
+                cache = LayerCache("attention", kv=_fill_kv_cache(
+                    cfg, kt, vt, None, max_len, x.shape[1]))
+                del kt, vt
+    else:
+        state = None if max_len is None else ssm_lib.init_ssm_state(
+            cfg, x.shape[0], device=x.device)
+        with span("lm.mamba", layer=i):
+            a, st = ssm_lib.mamba_mixer(p["mamba"], h, cfg, state=state)
+        if max_len is not None:
+            cache = LayerCache("mamba", ssm=st)
+    del h
+    x = x + a if max_len is None else x.add_(a)
+    del a
+    y, moe_aux = jamba_ffn(p, apply_norm(cfg, p["norm2"], x), cfg, i)
+    if moe_aux is not None:
+        aux = aux + moe_aux
+    if max_len is None:
+        return x + y, aux
+    return x.add_(y), aux, cache
 
 
 def join_heads(cfg: ModelConfig, p: ParamsLike, x: torch.Tensor,
@@ -315,8 +397,8 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
     if cfg.family == "ssm":
         p["xlstm"] = init_xlstm_stack(gen, cfg)
     else:
-        p["blocks"] = nn.ModuleList(init_block(gen, cfg)
-                                    for _ in range(cfg.num_layers))
+        p["blocks"] = nn.ModuleList(init_block(gen, cfg, i)
+                                    for i in range(cfg.num_layers))
     if cfg.family == "vlm" and cfg.num_patches:
         p["patch_proj"] = trunc_normal(gen, (cfg.d_model, cfg.d_model),
                                        cfg.param_dtype)
@@ -335,6 +417,10 @@ def lm_logical_axes(cfg: ModelConfig) -> dict:
                else {"scale": ("embed",), "bias": ("embed",)}}
     if cfg.family == "ssm":
         p["xlstm"] = xlstm_stack_logical_axes(cfg)
+    elif cfg.family == "jamba":
+        # layers of several kinds: one tree a layer, not a stacked leaf
+        p["blocks"] = {str(i): block_logical_axes(cfg, i)
+                       for i in range(cfg.num_layers)}
     else:
         p["blocks"] = lift_axes(block_logical_axes(cfg), ("layers",))
     if cfg.family == "vlm" and cfg.num_patches:
@@ -386,7 +472,7 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     path).
     """
     require_ported_family(cfg)
-    if return_kv and cfg.family in ("hybrid", "ssm"):
+    if return_kv and cfg.family in ("hybrid", "ssm", "jamba"):
         raise ValueError("return_kv takes a uniform full-attention stack")
     x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
@@ -398,6 +484,13 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
+    if cfg.family == "jamba":
+        for i, bp in enumerate(params["blocks"]):
+            x, a = remat(cfg, functools.partial(
+                apply_jamba_block, bp, cfg=cfg, i=i), x, positions)
+            aux_total = aux_total + a
+        x = apply_norm(cfg, params["final_norm"], x)
+        return unembed(params["embed"], x, cfg), aux_total
     for i, bp in enumerate(params["blocks"]):
         out = remat(cfg, functools.partial(
             apply_block, bp, cfg=cfg, window=layer_window(cfg, i),
@@ -492,8 +585,9 @@ class LayerCache(NamedTuple):
     """One layer's decode state in a heterogeneous stack: a hybrid layer
     holds its attention cache (a ring buffer of ``window`` slots on a
     sliding-window layer) and its SSM state; an xlstm block its mLSTM or
-    sLSTM state."""
-    kind: str                                  # hybrid | mlstm | slstm
+    sLSTM state; a jamba layer its KV cache (``attention``) or its (conv
+    window, h) state (``mamba``)."""
+    kind: str          # hybrid | mlstm | slstm | attention | mamba
     kv: Optional[KVCache] = None
     ssm: Optional[ssm_lib.SSMState] = None
     mls: Optional[xlstm_lib.MLSTMState] = None
@@ -508,8 +602,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """A StackedKV for uniform stacks; for hybrid, one LayerCache per
     layer: sliding-window layers get ring buffers (O(window)), the SSM
     O(1) recurrent state; for ssm, one LayerCache per xlstm block with
-    its O(1) state."""
+    its O(1) state; for jamba, one a layer: a full KV cache on an
+    attention layer, the Mamba state on the others."""
     require_ported_family(cfg)
+    if cfg.family == "jamba":
+        return [LayerCache("attention", kv=init_kv_cache(
+                    cfg, batch, max_len, device=device))
+                if cfg.layer_kind(i)[0] == "attention" else
+                LayerCache("mamba", ssm=ssm_lib.init_ssm_state(
+                    cfg, batch, device=device))
+                for i in range(cfg.num_layers)]
     if cfg.family == "ssm":
         return [LayerCache("mlstm",
                            mls=xlstm_lib.init_mlstm_state(cfg, batch, device))
@@ -533,8 +635,18 @@ def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
 
     A StackedKV takes the uniform path; a list of LayerCache loops over
     layers: a hybrid layer attends to its cache and steps its SSM state
-    once, an xlstm block steps its state once."""
+    once, an xlstm block steps its state once, a jamba layer does
+    either."""
     require_ported_family(cfg)
+    METRICS.counter("lm.tokens_decoded").inc(tokens.shape[0])
+    with span("lm.decode_step", batch=tokens.shape[0]):
+        return _decode_step(params, caches, tokens, cfg)
+
+
+def _decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
+                 cfg: ModelConfig) -> Tuple[torch.Tensor, Caches]:
+    if cfg.family == "jamba":
+        return decode_step_jamba(params, caches, tokens, cfg)
     if isinstance(caches, StackedKV):
         return decode_step_scanned(params, caches, tokens, cfg)
     x = embed_tokens(params["embed"], tokens[:, None], cfg)
@@ -561,10 +673,23 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
             patch_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Caches]:
     """Run the full prompt, returning (logits [B, S, V], filled caches);
-    with ``patch_embeds`` ``max_len`` must count the patch positions too."""
+    with ``patch_embeds`` ``max_len`` must count the patch positions too.
+    Where ``cfg.logits_to_keep`` is k > 0 (the jamba family), the logits
+    of the last k positions alone, [B, k, V]."""
     require_ported_family(cfg)
+    METRICS.counter("lm.tokens_prefilled").inc(tokens.numel())
+    with span("lm.prefill", batch=tokens.shape[0], tokens=tokens.shape[1]):
+        return _prefill(params, tokens, cfg, max_len, patch_embeds)
+
+
+def _prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
+             max_len: Optional[int],
+             patch_embeds: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, Caches]:
     b, s = tokens.shape
     max_len = max_len or s
+    if cfg.family == "jamba":
+        return prefill_jamba(params, tokens, cfg, max_len)
     if cfg.family == "ssm":
         return prefill_ssm(params, tokens, cfg)
     if cfg.family != "hybrid":
@@ -627,3 +752,47 @@ def _fill_kv_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
         cache.v[:, :, :s] = vt
     cache.pos = s
     return cache
+
+
+def prefill_jamba(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
+                  max_len: int) -> Tuple[torch.Tensor, List[LayerCache]]:
+    """The jamba prefill: each layer over the prompt from zero states
+    (:func:`apply_jamba_block` keeping its cache); the logits of the last
+    ``cfg.logits_to_keep`` positions (all where it is 0)."""
+    b, s = tokens.shape
+    x = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    caches: List[LayerCache] = []
+    for i, bp in enumerate(params["blocks"]):
+        x, _, cache = apply_jamba_block(bp, x, positions, cfg, i,
+                                        max_len=max_len)
+        caches.append(cache)
+    if cfg.logits_to_keep:
+        x = x[:, -cfg.logits_to_keep:]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x, cfg), caches
+
+
+def decode_step_jamba(params: ParamsLike, caches: List[LayerCache],
+                      tokens: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, List[LayerCache]]:
+    """One token through every jamba layer: an attention layer attends to
+    its cache (no positions) and writes the token's K/V into it, a Mamba
+    layer steps its state once."""
+    x = embed_tokens(params["embed"], tokens[:, None], cfg)
+    new_caches: List[LayerCache] = []
+    for i, (bp, c) in enumerate(zip(params["blocks"], caches)):
+        h = apply_norm(cfg, bp["norm1"], x)
+        if c.kind == "attention":
+            with span("lm.attention", layer=i):
+                a, kv = attn_lib.decode_attention(bp["attn"], h, c.kv, cfg,
+                                                  rope=cfg.use_rope)
+            new_caches.append(LayerCache("attention", kv=kv))
+        else:
+            with span("lm.mamba", layer=i):
+                a, st = ssm_lib.mamba_mixer(bp["mamba"], h, cfg, state=c.ssm)
+            new_caches.append(LayerCache("mamba", ssm=st))
+        x = x + a
+        x = x + jamba_ffn(bp, apply_norm(cfg, bp["norm2"], x), cfg, i)[0]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return unembed(params["embed"], x, cfg)[:, 0], new_caches
