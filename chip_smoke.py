@@ -4,10 +4,10 @@
     python3 chip_smoke.py [--seed 0]
 
 Drives the slices of ``repro_torch`` through their public entry
-points.  First it builds the eight CUDA kernel libraries from
-``src/repro_torch/csrc`` (the six forward kernels and the backwards of
-flash attention and the selective scan; one ``nvcc`` each, started
-together).
+points.  First it builds the nine CUDA kernel libraries from
+``src/repro_torch/csrc`` (the six forward kernels, the exchange and the
+backwards of flash attention and the selective scan; one ``nvcc`` each,
+started together).
 
 Slice 1, the paper's pipeline, on a synthetic genome the size of GRCh38
 chr21 (46,709,983 bases, FASTA with 60-base lines, ~1% of bases in N
@@ -26,6 +26,13 @@ runs), split into 8 logical shards:
 4. on those real inputs, on a uniform stress merge and on one hot key,
    time the binned route and the atomic kernel it replaced in turns with
    CUDA events, beside the plain version, ``index_add_`` and the bound.
+
+Slice 1b, the exchange (right after slice 1, on the same genome): the
+exchange kernel on the k-mer action's own exchange inputs (8 sources of
+4**12 rows, 3 leaves) and on the SNP action's over 8,388,608 reads (24
+skewed keys), each captured around ``planner.shuffle_partition``: bit for
+bit against the plain version, then both timed in turns with CUDA
+events, the kernel's device time by kernel and its bound.
 
 Slice 5, the interactive and out-of-core runtime, on the same genome
 under an enabled tracer (it runs right after slice 1, which writes it):
@@ -173,7 +180,8 @@ reads x 16 float32 features (seed 3; ~6.7x coverage of chr21 at 150 bases
 a read) in 8 logical shards: ``map(tools/bwa, rounds=4) ->
 repartition_by(chromosome) -> map(tools/gatk) -> reduce(toolbox/concat,
 depth=2) -> collect(shard=0)``, a hash exchange of 24 heavily skewed
-chromosome keys over 8 shards, launching no kernel: the chromosomes,
+chromosome keys over 8 shards, launching the exchange kernel once (the
+``hash`` route) and no other kernel: the chromosomes,
 read ids and variant count against a numpy oracle of the same formulas
 over the whole library (a difference allowed only on reads within 1e-5
 of an integer feature sum or 1e-4 of a zero score), the scores within
@@ -354,8 +362,8 @@ held to real steps:
     ``cost``, its counter's segment-sum / top-k reports as many as the
     launches, FLOPs and bytes above zero.
 
-Slices run in the order 1, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 4b, 7, 9, 8,
-10, 11.
+Slices run in the order 1, 1b, 5, 6, 2, 2b, 2c, 3a, 3b, 3c, 4, 4b, 7, 9,
+8, 10, 11.
 Every phase prints its wall time; the first failure exits non-zero.  A
 served bf16 prefill whose flash launches leave the wgmma route fails, as
 does a segment-sum launch off the binned route on the k-mer path, a
@@ -425,7 +433,8 @@ def kernel_modules() -> dict:
 
 
 def reset_launches() -> None:
-    for mod in kernel_modules().values():
+    from repro_torch.kernels.exchange import kernel as xmod
+    for mod in [*kernel_modules().values(), xmod]:
         mod.reset_launches()
 
 
@@ -445,13 +454,15 @@ SSM_BWD_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
 TOPK_ROUTES: dict = {}
+EXCHANGE_ROUTES: dict = {}
 
 
 def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                   ssm_routes: Optional[dict] = None,
                   flash_shapes: Optional[dict] = None,
                   bwd_shapes: Optional[dict] = None,
-                  dt_routes: Optional[dict] = None) -> dict:
+                  dt_routes: Optional[dict] = None,
+                  exchanges: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
@@ -467,10 +478,15 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     None), unless every
     SSM backward launch took the ``scan`` route, and unless
     flash's launches split by shape as ``flash_shapes`` says and the flash
-    backward's as ``bwd_shapes`` says, when they are given."""
+    backward's as ``bwd_shapes`` says, and the exchange's (kernel
+    ``exchange``) by route as ``exchanges`` says, when they are given (the
+    exchange's launches are kept, not checked, without ``exchanges``)."""
+    from repro_torch.kernels.exchange import kernel as xmod
     mods = kernel_modules()
     got = {name: mod.LAUNCHES for name, mod in mods.items()}
     got["ssm_scan_dt"] = mods["ssm_scan"].DT_LAUNCHES
+    got["exchange"] = xmod.LAUNCHES
+    exch = dict(xmod.LAUNCHES_BY_ROUTE)
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
     ssm_dt = dict(mods["ssm_scan"].DT_LAUNCHES_BY_ROUTE)
@@ -492,7 +508,10 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     SEGMENT_ROUTES[path] = seg
     DISPATCH_ROUTES[path] = disp
     TOPK_ROUTES[path] = topk
+    EXCHANGE_ROUTES[path] = exch
     want = {name: expect.get(name, 0) for name in got}
+    want["exchange"] = (got["exchange"] if exchanges is None
+                        else sum(exchanges.values()))
     want_routes = {r: got["flash_attention"] * (r == flash_route)
                    for r in routes}
     want_bwd = {r: got["flash_attention_bwd"] * (r == flash_route)
@@ -508,6 +527,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
             or ssm_bwd != want_ssm_bwd
             or seg != want_seg or disp != want_disp
             or topk != want_topk
+            or exchanges not in (None, exch)
             or flash_shapes not in (None, shapes)
             or bwd_shapes not in (None, bwd_by_shape)):
         raise AssertionError(f"{path}: launches {got}, flash by route "
@@ -517,11 +537,12 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                              f"route {ssm_bwd}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
-                             f"{topk}, flash by shape {shapes}, flash "
-                             f"backward by shape {bwd_by_shape}; expected "
-                             f"{want}, {want_routes}, {want_bwd}, "
-                             f"{want_ssm}, {want_dt}, {want_ssm_bwd}, "
-                             f"{want_seg}, {want_disp}, {want_topk}, "
+                             f"{topk}, exchange by route {exch}, flash by "
+                             f"shape {shapes}, flash backward by shape "
+                             f"{bwd_by_shape}; expected {want}, "
+                             f"{want_routes}, {want_bwd}, {want_ssm}, "
+                             f"{want_dt}, {want_ssm_bwd}, {want_seg}, "
+                             f"{want_disp}, {want_topk}, {exchanges}, "
                              f"{flash_shapes}, {bwd_shapes}")
     return got
 
@@ -981,8 +1002,10 @@ def kmer_slice(tmp: str, seed: int) -> tuple:
         keys, (occ,), cnt = stats.collect()
     finally:
         ops.segment_sum = kmod.segment_sum
-    # one combine and one merge a shard
-    read_launches("kmer", {"segment_sum": 2 * NUM_SHARDS})
+    # one combine and one merge a shard; one exchange, keys hashed on the
+    # card
+    read_launches("kmer", {"segment_sum": 2 * NUM_SHARDS},
+                  exchanges={"hash": 1, "dests": 0})
     if calls != [1] * NUM_SHARDS + [2] * NUM_SHARDS:
         raise AssertionError(f"k-mer segment-sum calls by d: {calls}")
     report = stats.report()
@@ -1007,6 +1030,122 @@ def kmer_slice(tmp: str, seed: int) -> tuple:
     shapes = {"combine": real[1][0].shape[0], "merge": real[2][0].shape[0]}
     return record, {"fasta": fasta, "seq": seq, "table": want_table,
                     "shapes": shapes}
+
+
+# ---------------------------------------------------------------------------
+# slice 1b: the exchange at the k-mer and SNP actions' own inputs
+# ---------------------------------------------------------------------------
+
+SNP_CELL_READS = 8_388_608       # the snp.call cell's reads, 8 shards
+
+
+def captured_exchanges(action) -> list:
+    """The inputs of each ``shuffle_partition`` call ``action()`` makes:
+    (each source's leaves, counts, capacity, keys), in order; the calls
+    run as they would."""
+    from repro_torch.core import planner, tree
+    real, seen = planner.shuffle_partition, []
+
+    def keep(parts, keys, capacity=None, dests=None):
+        if dests is not None:
+            raise AssertionError("a salted exchange in a k-mer or SNP "
+                                 "action")
+        seen.append(([tree.leaves(p.records) for p in parts],
+                     [p.count for p in parts],
+                     capacity or parts[0].capacity, list(keys)))
+        return real(parts, keys, capacity=capacity)
+
+    planner.shuffle_partition = keep
+    try:
+        action()
+    finally:
+        planner.shuffle_partition = real
+    return seen
+
+
+def exchange_phase(name: str, inputs) -> dict:
+    """The exchange kernel on one captured exchange: bit for bit against
+    its plain version (one launch, the ``hash`` route), then both timed in
+    turns (CUDA events around back-to-back calls), the kernel's device
+    time by kernel, and the bound (``repro_torch.kernels.work.exchange``
+    at the inputs' valid rows, read once outside the timing)."""
+    import math
+    import torch
+    from repro_torch.core.shuffle import hash_keys
+    from repro_torch.kernels import work
+    from repro_torch.kernels.exchange import exchange, exchange_ref
+    from repro_torch.kernels.exchange import kernel as xmod
+    leaves, counts, cap, keys = inputs
+    n = len(leaves)
+    t0 = time.perf_counter()
+
+    def kernel():
+        return exchange(leaves, counts, cap, keys=keys)
+
+    def plain():
+        return exchange_ref(leaves, counts, cap,
+                            [hash_keys(k) % n for k in keys])
+
+    xmod.reset_launches()
+    got, want = kernel(), plain()
+    if xmod.LAUNCHES_BY_ROUTE != {"hash": 1, "dests": 0}:
+        raise AssertionError(f"exchange {name}: launches "
+                             f"{xmod.LAUNCHES_BY_ROUTE}")
+    fields = ("counts", "send_counts", "dropped")
+    compare(f"exchange {name}", [*got.leaves, *(getattr(got, f)
+                                                 for f in fields)],
+            [*want.leaves, *(getattr(want, f) for f in fields)])
+    valid = int(torch.stack(counts).sum())
+    received = got.counts.tolist()
+    del got, want
+    row_bytes = sum(x.element_size() * math.prod(x.shape[1:])
+                    for x in leaves[0])
+    bound = work.exchange(n, valid, keys[0].element_size(), row_bytes,
+                          cap).bound()[0]
+    (k_ms, p_ms), turns = in_turns(cuda_ms, [kernel, plain])
+    by_kernel = device_ms_by_kernel(kernel)
+    rec = {"shards": n, "rows": leaves[0][0].shape[0], "valid": valid,
+           "capacity": cap, "leaves": len(leaves[0]),
+           "row_bytes": row_bytes, "received": received, "ms": k_ms,
+           "plain_ms": p_ms, "bound_ms": bound, "turns": turns,
+           "by_kernel": by_kernel}
+    phase(f"exchange {name}", t0, json.dumps(rec))
+    return rec
+
+
+def exchange_slice(fasta: str, seed: int) -> dict:
+    """Slice 1b: the exchange of the k-mer action on the genome at
+    ``fasta`` (``kmer12.collect``'s: 8 sources of 4**12 rows, 3 leaves,
+    capacity ``keyed_bucket_capacity(4**12, 8)``) and of the SNP action
+    over the cell's 8,388,608 reads (``snp.call``'s: 24 skewed keys,
+    capacity 1,048,576), each on its action's own inputs; returns the
+    kernel's JSON record."""
+    import torch
+    from repro_torch.core import MaRe
+    from repro_torch.io import fasta_source
+    src = fasta_source(fasta)
+
+    def kmer():
+        (MaRe.from_source(src, num_shards=NUM_SHARDS)
+         .map(image="kmer-stats", command=f"kmer-stats {K}")
+         .reduce_by_key(lambda r: r[0], value_by=lambda r: (r[1],),
+                        op="sum")).dataset
+
+    (kmer_inputs,) = captured_exchanges(kmer)
+    rec = {"name": "exchange", "kmer12": exchange_phase("kmer12",
+                                                        kmer_inputs)}
+    del kmer_inputs
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    library = make_library(SNP_CELL_READS, seed)
+    ds = MaRe(library, num_shards=NUM_SHARDS, device="cuda").dataset
+    del library
+    phase("exchange SNP reads", t0, f"reads={SNP_CELL_READS}")
+    (snp_inputs,) = captured_exchanges(lambda: snp_calling(ds).dataset)
+    rec["snp"] = exchange_phase("snp", snp_inputs)
+    del snp_inputs, ds
+    torch.cuda.empty_cache()
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -3162,12 +3301,14 @@ def snp_slice(dev, n_reads: int = SNP_READS) -> None:
           f"cap={ds.capacity} features={FEATURES} seed={SNP_SEED} bytes="
           f"{library[0].nbytes + library[1].nbytes}")
 
-    # the main path, every launch counter read around it: no kernel
+    # the main path, every launch counter read around it: one exchange
+    # (keys hashed on the card), no other kernel
     t0 = time.perf_counter()
     reset_launches()
     chain = snp_calling(ds)
     chrom, score, read_id = chain.collect(shard=0)
-    launches = read_launches("snp calling", {})
+    launches = read_launches("snp calling", {},
+                             exchanges={"hash": 1, "dests": 0})
     report = chain.report()
     print(chain.describe(), flush=True)
     phase("SNP map(tools/bwa) -> repartition_by -> map(tools/gatk) -> "
@@ -6202,7 +6343,9 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
 
     t0 = time.perf_counter()
-    libs = [mod.LIBRARY for mod in kernel_modules().values()]
+    from repro_torch.kernels.exchange import kernel as xmod
+    libs = [mod.LIBRARY for mod in kernel_modules().values()] + [
+        xmod.LIBRARY]
     paths = build.build_all(libs, verbose=True)
     phase("build kernels", t0, " ".join(
         f"{lib.name}_nvcc_s={build.BUILD_SECONDS.get(lib.name, 0.0):.3f}"
@@ -6211,7 +6354,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         record, genome = kmer_slice(tmp, args.seed)
-        records = [record]
+        records = [record, exchange_slice(genome["fasta"], args.seed)]
         runtime_slice(genome, tmp)
         stream_service_slice(genome, tmp)
         del genome
@@ -6260,7 +6403,8 @@ def main() -> int:
                     "ssm_scan_bwd": SSM_BWD_ROUTES,
                     "segment_sum": SEGMENT_ROUTES,
                     "moe_dispatch": DISPATCH_ROUTES,
-                    "topk_reduce": TOPK_ROUTES}.get(rec["name"])
+                    "topk_reduce": TOPK_ROUTES,
+                    "exchange": EXCHANGE_ROUTES}.get(rec["name"])
         if by_route is not None:
             rec["launches_by_path"] = {
                 path: by_route[path] for path in rec["launches_by_path"]}

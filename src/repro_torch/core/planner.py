@@ -5,8 +5,8 @@ logical shards.
   function ``(records, counts) -> (records, counts[, counters])`` over the
   dataset's ``[num_shards * cap, ...]`` tensors.  Each stage runs the
   reference's per-shard code on every shard's partition, with the
-  exchanges (:func:`~repro_torch.core.shuffle.all_to_all`) and the reduce
-  tree between shards; map chains feed straight into their downstream
+  exchanges (:func:`~repro_torch.core.shuffle.shuffle_partition`) and the
+  reduce tree between shards; map chains feed straight into their downstream
   shuffle/reduce with no intermediate ``ShardedDataset``.
 * Stage counters (shuffle drops, key-table overflow, exchange volume) are
   packed into ONE int32 vector per action — ``[num_shards * C]``, shard

@@ -4,23 +4,23 @@ Paper semantics (§1.2.1/§1.2.2): a user ``keyBy`` function computes a key
 per record; ``repartition`` + ``HashPartitioner`` then guarantees records
 with equal keys land in the same partition.
 
-Port mapping: partitions are the logical shards of one device.  Each
-shard hashes its record keys and packs records into a ``[n, capacity,
-...]`` send buffer grouped by destination (:func:`_pack_by_dest`);
-:func:`all_to_all` then moves block ``[s][d]`` to ``[d][s]`` — the
-reference's ``lax.all_to_all`` as an exact index permutation over the
-shard dimension — and each destination compacts what it received.  Fixed
-capacity keeps every shard's buffers one shape; overflow is counted and
-surfaced, never silently ignored.
+Port mapping: partitions are the logical shards of one device.  The
+reference packs each shard's records into a ``[n, capacity, ...]`` send
+buffer grouped by destination, moves block ``[s][d]`` to ``[d][s]`` with
+``lax.all_to_all`` and compacts what each destination received.  The port
+computes the same partitions in one exchange
+(:func:`repro_torch.kernels.exchange.exchange`: on CUDA a kernel that
+hashes, counts and writes each shard's valid rows straight to their place
+in the receiving partitions).  Fixed capacity keeps every shard's buffers
+one shape; overflow is counted and surfaced, never silently ignored.
+:func:`_pack_by_dest` and :func:`unpack_gather`, a pack with its
+per-record inverse, serve the expert-parallel MoE.
 
-Hashes are 32-bit unsigned values.  Torch has no full uint32 arithmetic,
-so :func:`hash_keys` works in int64 and masks to the low 32 bits; every
-multiply is split so no intermediate leaves int64 range.
+Hashes are 32-bit unsigned values (:func:`hash_keys`, held in int64).
 """
 from __future__ import annotations
 
 import functools
-import math
 from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -29,29 +29,11 @@ import torch
 from repro_torch.core import collectives, tree
 from repro_torch.core.collectives import SHARDS_AXIS, shards_mesh
 from repro_torch.core.container import Partition, make_partition
-from repro_torch.core.tensors import stable_argsort_false_first, take_clip
-from repro_torch.obs import TRACER, span
-
-_MASK32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``(x * c) mod 2**32`` for int64 ``x`` in ``[0, 2**32)``: the
-    multiply is split into 16-bit halves of ``c`` so no product exceeds
-    2**48 (a plain int64 product with c >= 2**31 would overflow)."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _MASK32
-
-
-def hash_keys(keys: torch.Tensor) -> torch.Tensor:
-    """Deterministic 32-bit integer mix (splitmix32-style) — the
-    HashPartitioner.  Accepts any integer dtype; returns the reference's
-    uint32 hash values in an int64 tensor."""
-    x = keys.to(torch.int64) & _MASK32      # astype(uint32): wrap negatives
-    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul32(x ^ (x >> 15), 0x846CA68B)
-    return x ^ (x >> 16)
+from repro_torch.core.tensors import take_clip
+from repro_torch.kernels.exchange import exchange, hash_keys
+from repro_torch.kernels.exchange import route as exchange_route
+from repro_torch.kernels.exchange.ref import _MASK32
+from repro_torch.obs import span
 
 
 def keyed_bucket_capacities(num_keys: int, axis_size: int) -> np.ndarray:
@@ -191,51 +173,40 @@ def shuffle_partition(parts: Sequence[Partition],
                       = hash_keys,
                       dests: Optional[Sequence[torch.Tensor]] = None
                       ) -> List[ShuffleResult]:
-    """repartitionBy over all logical shards: pack -> exchange -> compact.
+    """repartitionBy over all logical shards: one exchange.
 
     ``parts[s]`` / ``keys[s]`` are shard ``s``'s partition and its int
     keys [capacity_in] (entries beyond the count are ignored).  Output
     partition capacity is ``n * capacity``.  With ``capacity ==
     part.capacity`` the shuffle is lossless.  ``dests[s]`` (int32, values
     in ``[0, n)``) overrides ``partitioner(keys) % n`` — the hook the
-    salted skew path uses (:func:`salted_dest`).
+    salted skew path uses (:func:`salted_dest`); a partitioner other than
+    :func:`hash_keys` is evaluated here into such destinations, while
+    ``hash_keys`` itself is computed by the exchange.
 
-    The whole exchange is one ``exchange`` span (args: shards, capacity,
-    and with tracing on the send buffers' bytes, from the shapes).
+    The whole exchange is one ``exchange`` span (args: shards, capacity
+    and the exchange's route: ``hash``, ``dests``, or ``plain`` off the
+    card).
     """
     n = len(parts)
     cap_in = parts[0].capacity
     capacity = capacity or cap_in
-    with span("exchange", shards=n, capacity=capacity) as sp:
-        if TRACER.enabled:
-            sp.set(buffer_bytes=n * n * capacity * sum(
-                leaf.element_size() * math.prod(leaf.shape[1:])
-                for leaf in tree.leaves(parts[0].records)))
-        packs = []
-        for s, part in enumerate(parts):
-            dest = (dests[s] if dests is not None
-                    else (partitioner(keys[s]) % n).to(torch.int32))
-            packs.append(_pack_by_dest(part.records, dest, part.mask(), n,
-                                       capacity))
-        recv = all_to_all([p.buffer for p in packs])
-        # recv_counts[d][s] = what source s sent to d
-        recv_counts = torch.stack([p.counts for p in packs]).t()
-        slots = torch.arange(capacity, device=recv_counts.device)
-        out = []
-        for d in range(n):
-            slot_valid = (slots[None, :] < recv_counts[d][:, None]
-                          ).reshape(-1)
-            order = stable_argsort_false_first(slot_valid)
-
-            def compact(leaf):
-                flat = leaf.reshape((n * capacity,) + tuple(leaf.shape[2:]))
-                return take_clip(flat, order)
-
-            part = make_partition(tree.tree_map(compact, recv[d]),
-                                  recv_counts[d].sum().to(torch.int32))
-            out.append(ShuffleResult(part=part, dropped=packs[d].dropped,
-                                     send_counts=packs[d].counts))
-    return out
+    hashed = dests is None and partitioner is hash_keys
+    flat = [tree.flatten(p.records) for p in parts]
+    route = exchange_route((keys if dests is None else dests)[0].device,
+                           hashed)
+    with span("exchange", shards=n, capacity=capacity, route=route):
+        if dests is None and not hashed:
+            dests = [(partitioner(k) % n).to(torch.int32) for k in keys]
+        ex = exchange([f[0] for f in flat], [p.count for p in parts],
+                      capacity, keys=keys if hashed else None, dests=dests)
+    treedef = flat[0][1]
+    return [ShuffleResult(
+        part=make_partition(tree.unflatten(treedef,
+                                           [leaf[d] for leaf in ex.leaves]),
+                            ex.counts[d]),
+        dropped=ex.dropped[d], send_counts=ex.send_counts[d])
+        for d in range(n)]
 
 
 def grouped_all_to_all(xs: Sequence[torch.Tensor],

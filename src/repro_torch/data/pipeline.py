@@ -198,7 +198,7 @@ def register_tokenizer_image():
     from repro_torch.core import tree
     from repro_torch.core.container import (DEFAULT_REGISTRY, Partition,
                                             container_op, make_partition)
-    from repro_torch.core.shuffle import _MASK32, _mul32
+    from repro_torch.kernels.exchange.ref import _MASK32, _mul32
     if "tools/tokenizer:latest" in DEFAULT_REGISTRY.images():
         return
 

@@ -177,7 +177,19 @@ def segment_sum(n: int, n_valid: int, d: int, num_keys: int) -> Work:
     return Work(n_valid * (d + 1), nbytes, F32_FLOP_PER_S)
 
 
+def exchange(n: int, valid_rows: int, key_bytes: int, row_bytes: int,
+             capacity: int) -> Work:
+    """n sources into n destinations of ``n * capacity`` rows: each valid
+    row's key (or destination) read twice (a count and a scatter) and its
+    ``row_bytes`` of leaves once; each destination's ``n * capacity`` rows
+    written once (the received rows and the zero tail); one destination a
+    valid row."""
+    nbytes = valid_rows * (2 * key_bytes + row_bytes) \
+        + n * n * capacity * row_bytes
+    return Work(valid_rows, nbytes, F32_FLOP_PER_S)
+
+
 __all__ = ["BF16_FLOP_PER_S", "F32_FLOP_PER_S", "HBM_BYTES_PER_S",
-           "LINK_BYTES_PER_S", "SSM_CHUNK", "Work", "dispatch", "flash",
-           "flash_bwd", "flash_pairs", "rmsnorm", "segment_sum", "ssm",
-           "ssm_bwd", "ssm_row_floats", "topk"]
+           "LINK_BYTES_PER_S", "SSM_CHUNK", "Work", "dispatch", "exchange",
+           "flash", "flash_bwd", "flash_pairs", "rmsnorm", "segment_sum",
+           "ssm", "ssm_bwd", "ssm_row_floats", "topk"]

@@ -354,3 +354,31 @@ def test_collective_gradient_reports_its_transpose():
 def test_scaled_counts_keep_integers():
     r = hlo_cost.analyze(lambda: np.int64(0))
     assert isinstance(r["flops"], int) and isinstance(r["bytes"], int)
+
+
+def test_exchange_meta_route():
+    """The meta call's outputs have the plain call's shapes and dtypes,
+    it launches nothing, and it reports the exchange's formula once (every
+    row taken as valid)."""
+    from repro_torch.kernels.exchange import kernel as xmod
+    keys = [torch.tensor([3, -1, 7, 7, 2], dtype=torch.int32),
+            torch.tensor([0, 1, 2, 3, 4], dtype=torch.int32)]
+    leaves = [[k, k.float()[:, None].repeat(1, 3)] for k in keys]
+    counts = [torch.tensor(5, dtype=torch.int32),
+              torch.tensor(2, dtype=torch.int32)]
+
+    def flat(e):
+        return (*e.leaves, e.counts, e.send_counts, e.dropped)
+
+    want = xmod.exchange(leaves, counts, 4, keys=keys)
+    before = xmod.LAUNCHES
+    assert xmod.route(META, True) == "meta"
+    with hlo_cost.Counter() as c:
+        got = xmod.exchange([[x.to(META) for x in s] for s in leaves],
+                            [n.to(META) for n in counts], 4,
+                            keys=[k.to(META) for k in keys])
+    assert xmod.LAUNCHES == before
+    _same_layout(flat(got), flat(want))
+    w = work.exchange(2, 10, 4, 16, 4)
+    assert c.kernels == {"exchange": {"calls": 1, "ops": w.ops,
+                                      "bytes": w.nbytes}}

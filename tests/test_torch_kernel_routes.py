@@ -7,9 +7,11 @@ selective scan's routes (``step`` for a decode step, T = 1; ``chunked``
 for T > 1; the plain version for a CPU tensor) and the segment sum's
 (``binned`` for one to three value columns over a key space it can
 tile, ``atomic`` otherwise, from the key space, the value columns and
-the record count alone), the MoE dispatch's (``cluster`` up to the
-cluster's reach of ids over at most ``CLUSTER_GROUPS`` groups, ``tiled``
-otherwise, from n and the group count alone) and the top-k's (``select``
+the record count alone), the exchange's (``hash`` for keys, ``dests``
+for given destinations, from the device alone), the MoE dispatch's
+(``cluster`` up to the cluster's reach of ids over at most
+``CLUSTER_GROUPS`` groups, ``tiled`` otherwise, from n and the group
+count alone) and the top-k's (``select``
 for k <= 32, ``tree`` otherwise, from k alone).  A CPU call moves no
 launch counter; the wrappers' argument checks raise before any route is
 taken, and a device other than cpu, cuda and meta (the dry run's, which
@@ -18,6 +20,8 @@ has a route of its own: ``tests/test_torch_hlo_cost.py``) raises.  The kernels t
 import pytest
 import torch
 
+from repro_torch.kernels.exchange import kernel as xmod
+from repro_torch.kernels.exchange.ref import exchange_ref, hash_keys
 from repro_torch.kernels.flash_attention import kernel as fmod
 from repro_torch.kernels.moe_dispatch import kernel as dmod
 from repro_torch.kernels.moe_dispatch.ref import dispatch_ref
@@ -395,3 +399,56 @@ def test_topk_wrapper_rejects_foreign_devices_before_a_route():
     with pytest.raises(ValueError, match="cpu, cuda or meta"):
         tmod.topk_reduce_kernel(Foreign(torch.zeros(40)), 3, 40)
     assert (tmod.LAUNCHES, tmod.LAUNCHES_BY_ROUTE) == before
+
+
+EXCHANGE_ROUTES = [
+    # device, keys hashed (else destinations given), route
+    (CUDA, True, "hash"),
+    (CUDA, False, "dests"),
+    ("cpu", True, "plain"),
+    (torch.device("cpu"), False, "plain"),
+]
+
+
+@pytest.mark.parametrize("device,hashed,want", EXCHANGE_ROUTES, ids=str)
+def test_exchange_route_is_a_function_of_device_and_keys(device, hashed,
+                                                         want):
+    assert xmod.route(device, hashed) == want
+
+
+@pytest.mark.parametrize("hashed", [True, False])
+def test_exchange_cpu_tensor_takes_plain_version_and_moves_no_counter(
+        hashed):
+    g = torch.Generator().manual_seed(6)
+    keys = [torch.randint(-50, 50, (300,), dtype=torch.int32, generator=g)
+            for _ in range(3)]
+    dests = [(k % 3).to(torch.int32) for k in keys]
+    leaves = [[k, k.to(torch.float64)] for k in keys]
+    counts = [torch.tensor(c, dtype=torch.int32) for c in (300, 120, 0)]
+    before = (xmod.LAUNCHES, dict(xmod.LAUNCHES_BY_ROUTE))
+    by = dict(keys=keys) if hashed else dict(dests=dests)
+    got = xmod.exchange(leaves, counts, 90, **by)
+    assert (xmod.LAUNCHES, xmod.LAUNCHES_BY_ROUTE) == before
+    want = exchange_ref(leaves, counts, 90, [hash_keys(k) % 3 for k in keys]
+                        if hashed else dests)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (*got.leaves, got.counts, got.send_counts, got.dropped),
+        (*want.leaves, want.counts, want.send_counts, want.dropped)))
+
+
+def test_exchange_reset_launches_zeroes_every_route():
+    xmod.LAUNCHES_BY_ROUTE["hash"] += 2
+    xmod.LAUNCHES_BY_ROUTE["dests"] += 1
+    xmod.LAUNCHES += 3
+    xmod.reset_launches()
+    assert xmod.LAUNCHES == 0
+    assert xmod.LAUNCHES_BY_ROUTE == {"hash": 0, "dests": 0}
+
+
+def test_exchange_wrapper_rejects_foreign_devices_before_a_route():
+    before = (xmod.LAUNCHES, dict(xmod.LAUNCHES_BY_ROUTE))
+    k = Foreign(torch.zeros(4, dtype=torch.int32))
+    c = Foreign(torch.zeros((), dtype=torch.int32))
+    with pytest.raises(ValueError, match="cpu, cuda or meta"):
+        xmod.exchange([[k]], [c], 4, keys=[k])
+    assert (xmod.LAUNCHES, xmod.LAUNCHES_BY_ROUTE) == before

@@ -1,11 +1,11 @@
-"""On the card: each CUDA kernel (segment sum, flash attention, RMSNorm,
-MoE dispatch, top-k, selective scan) against its plain version, the k-mer,
-virtual-screening and SNP-calling paths on ``cuda`` against the same
-paths on the CPU, the launches of the LM, vlm and encoder-decoder
-prefills (flash), the MoE layers (dispatch) and the hybrid layers
-(selective scan), and the mesh's paths (``chip_smoke``'s slice 10 at
-smoke widths: the context-parallel SSM prefill, the expert-parallel MoE
-prefill, the gradient syncs against the fused step).
+"""On the card: each CUDA kernel (segment sum, the exchange, flash
+attention, RMSNorm, MoE dispatch, top-k, selective scan) against its
+plain version, the k-mer, virtual-screening and SNP-calling paths on
+``cuda`` against the same paths on the CPU, the launches of the LM, vlm
+and encoder-decoder prefills (flash), the MoE layers (dispatch) and the
+hybrid layers (selective scan), and the mesh's paths (``chip_smoke``'s
+slice 10 at smoke widths: the context-parallel SSM prefill, the
+expert-parallel MoE prefill, the gradient syncs against the fused step).
 
 Every test here needs a CUDA device: it is marked ``gpu`` and skips
 without one.  This file imports no JAX, so it runs on a GPU machine that
@@ -13,6 +13,7 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 """
+import math
 import os
 import sys
 
@@ -191,6 +192,128 @@ def test_kmer_path_on_cuda_equals_cpu(cuda):
         for x, y in zip((a[0], a[1][0], a[2]), (b[0], b[1][0], b[2])):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the exchange: the kernel against its plain version, bit for bit
+# ---------------------------------------------------------------------------
+
+# name: (shards, rows a shard, valid share, capacity (None: lossless),
+# keys: "kmer" distinct ascending int32 keys of a 4**k key space of about
+# the rows, front-compacted (a combined k-mer table; capacity the key
+# space's largest hash bucket), "snp" 24 keys with a fifth on one, "int64"
+# wide keys,
+# "salted" given destinations; leaves: "3" three 4-byte leaves, "wide" a
+# pytree of mixed dtypes and widths)
+EXCHANGE_CASES = {
+    "kmer_scaled": (8, 1 << 18, 0.245, None, "kmer", "3"),
+    "snp_skew": (8, 100_000, 1.0, None, "snp", "3"),
+    "capacity_drops": (8, 50_000, 0.9, 3_000, "snp", "3"),
+    "int64_keys": (5, 12_345, 0.7, None, "int64", "wide"),
+    "salted_dests": (8, 40_000, 0.8, 9_000, "salted", "3"),
+    "one_shard": (1, 4097, 0.5, 1000, "kmer", "wide"),
+    "counts_zero": (4, 5000, 0.0, None, "snp", "3"),
+    "no_rows": (3, 0, 0.0, None, "snp", "wide"),
+    "tile_edges": (3, 3 * 4096 + 1, 1.0, None, "kmer", "3"),
+}
+
+
+def _exchange_case(name, dev):
+    from repro_torch.core.shuffle import (hash_keys, keyed_bucket_capacity,
+                                          salted_dest)
+    n, rows, share, capacity, keys_kind, leaves_kind = EXCHANGE_CASES[name]
+    rng = np.random.default_rng(sorted(EXCHANGE_CASES).index(name))
+    counts = [int(rows * share * rng.uniform(0.9, 1.0)) if share < 1
+              else rows for _ in range(n)]
+    if keys_kind == "kmer":
+        space = 4 ** max(1, math.ceil(math.log(max(rows, 2), 4)))
+        keys = []
+        for c in counts:
+            present = np.sort(rng.choice(space, c, replace=False))
+            keys.append(np.concatenate([present, np.setdiff1d(
+                np.arange(space), present)])[:rows].astype(np.int32))
+        capacity = capacity or keyed_bucket_capacity(space, n)
+    elif keys_kind == "snp":
+        keys = [np.where(rng.random(rows) < 0.2, 0,
+                         rng.integers(0, 24, rows)).astype(np.int32)
+                for _ in range(n)]
+    else:
+        keys = [rng.integers(-2 ** 40, 2 ** 40, rows) for _ in range(n)]
+    capacity = capacity or rows
+    keys = [torch.from_numpy(k).to(dev) for k in keys]
+    leaves = []
+    for k in keys:
+        if leaves_kind == "3":
+            leaves.append([k.to(torch.int32),
+                           torch.from_numpy(rng.normal(size=rows).astype(
+                               np.float32)).to(dev),
+                           torch.arange(rows, dtype=torch.int32, device=dev)])
+        else:
+            leaves.append([
+                torch.from_numpy(rng.integers(0, 255, (rows, 5)).astype(
+                    np.uint8)).to(dev),
+                torch.from_numpy(rng.integers(-9, 9, (rows, 3)).astype(
+                    np.int16)).to(dev),
+                torch.from_numpy(rng.normal(size=(rows, 2))).to(dev),
+                torch.from_numpy(rng.random(rows) < 0.5).to(dev),
+                k.to(torch.int64)])
+    cnts = [torch.tensor(c, dtype=torch.int32, device=dev) for c in counts]
+    if keys_kind == "salted":
+        dests = [salted_dest(k, n, 3) for k in keys]
+        return leaves, cnts, capacity, dict(dests=dests), dests
+    return (leaves, cnts, capacity, dict(keys=keys),
+            [hash_keys(k) % n for k in keys])
+
+
+@pytest.mark.parametrize("name", sorted(EXCHANGE_CASES))
+def test_exchange_kernel_matches_plain_version(cuda, name):
+    """Received rows and zero tails, counts, sends and drops, bit for bit,
+    in one launch on the case's route."""
+    from repro_torch.kernels.exchange import exchange, exchange_ref
+    from repro_torch.kernels.exchange import kernel as xmod
+    leaves, cnts, capacity, by, dests = _exchange_case(name, cuda)
+    xmod.reset_launches()
+    got = exchange(leaves, cnts, capacity, **by)
+    route = "dests" if "dests" in by else "hash"
+    assert xmod.LAUNCHES == 1 and xmod.LAUNCHES_BY_ROUTE[route] == 1
+    want = exchange_ref(leaves, cnts, capacity, dests)
+    torch.cuda.synchronize()
+    for g, w in zip(got.leaves, want.leaves):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    for field in ("counts", "send_counts", "dropped"):
+        assert torch.equal(getattr(got, field), getattr(want, field)), field
+    if name == "capacity_drops":
+        assert int(got.dropped.sum()) > 0
+
+
+def test_exchange_kernel_adds_no_synchronising_call(cuda):
+    from repro_torch.kernels.exchange import exchange
+    leaves, cnts, capacity, by, _ = _exchange_case("snp_skew", cuda)
+    exchange(leaves, cnts, capacity, **by)        # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exchange(leaves, cnts, capacity, **by)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.counts.is_cuda
+
+
+def test_exchange_kernel_raises_past_its_limits(cuda):
+    from repro_torch.kernels.exchange import exchange
+    from repro_torch.kernels.exchange import kernel as xmod
+    n = xmod.MAX_SHARDS + 1
+    k = torch.zeros(8, dtype=torch.int32, device=cuda)
+    c = torch.tensor(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        exchange([[k]] * n, [c] * n, 8, keys=[k] * n)
+    with pytest.raises(ValueError):
+        exchange([[k] * (xmod.MAX_LEAVES + 1)], [c], 8, keys=[k])
+    xmod.reset_launches()
+    exchange([[k]] * xmod.MAX_SHARDS, [c] * xmod.MAX_SHARDS, 8,
+             keys=[k] * xmod.MAX_SHARDS)
+    assert xmod.LAUNCHES == 1
 
 
 # ---------------------------------------------------------------------------
@@ -445,15 +568,20 @@ def test_snp_calling_on_cuda_equals_cpu(cuda):
     chromosomes and drop counter; the same variants in the same order but
     for reads whose score lies within 1e-5 of 0; each device's scores
     within 1e-5 of numpy's (the surrogate's float32 matmuls and sin in
-    three libraries, |score| < 20); no kernel launch."""
+    three libraries, |score| < 20); one exchange launch on the card (the
+    ``hash`` route), none on the CPU, and no other kernel launch."""
+    from repro_torch.kernels.exchange import kernel as xmod
     library = cs.make_library(50000, 4)
     o_chrom, o_score, _ = cs.snp_oracle(library[0])
     out = {}
     for dev in ("cpu", cuda):
         before = [m.LAUNCHES for m in cs.kernel_modules().values()]
+        xmod.reset_launches()
         chain = cs.snp_calling(library, 8, dev)
         chrom, score, ids = chain.collect(shard=0)
         assert [m.LAUNCHES for m in cs.kernel_modules().values()] == before
+        on_card = int(torch.device(dev).type == "cuda")
+        assert xmod.LAUNCHES_BY_ROUTE == {"hash": on_card, "dests": 0}
         assert chain.report().diagnostics == {"stage1.shuffle_dropped": 0}
         np.testing.assert_array_equal(chrom, o_chrom[ids], err_msg=str(dev))
         err = np.abs(score - o_score[ids])
