@@ -4,9 +4,10 @@
 init / loss / forward / prefill / decode_step / init_cache /
 logical_axes, the surface the trainer, the server and the tests use
 (``logical_axes()`` is the reference's tree of logical axis names, for
-``checkpoint.rescale``).  The port runs the dense,
-MoE, hybrid, vlm and ssm (xlstm) families (``models/transformer.py``)
-and the audio family (``models/encdec.py``).  A batch holds ``tokens``
+``checkpoint.rescale``); a family the port does not run raises here.
+The dense, MoE, hybrid, vlm, jamba and ssm (xlstm) families are
+``models/transformer.py``, the audio family ``models/encdec.py``.  A
+batch holds ``tokens``
 (and ``labels`` for the loss), and
 ``patch_embeds`` (vlm) or ``frames`` (audio) beside them.  Parameters
 live on ``device`` (``cuda`` unless the caller passes another; without a

@@ -87,6 +87,15 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    def layer_kind(self, i: int) -> Tuple[str, str]:
+        """Layer ``i``'s kinds, (mixer, feed-forward): ``"attention"``, or
+        ``"hybrid"`` in the hybrid family (attention and an SSM side by
+        side); ``"moe"`` in the moe family, else ``"mlp"``.  Every layer
+        alike (a :class:`JambaConfig`'s vary); the ssm family's xlstm
+        blocks are not such layers."""
+        return ("hybrid" if self.family == "hybrid" else "attention",
+                "moe" if self.family == "moe" else "mlp")
+
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced config of the same family (per-arch smoke tests)."""
         return dataclasses.replace(self, **overrides)
@@ -185,58 +194,44 @@ def active_param_count(cfg: ModelConfig) -> int:
         return total
     expert_p = 3 * cfg.d_model * cfg.moe_d_ff
     inactive = (cfg.num_experts - cfg.experts_per_token) * expert_p
-    moe_layers = cfg.num_layers
-    if cfg.family == "jamba":
-        moe_layers = sum(cfg.layer_kind(i)[1] == "moe"
-                         for i in range(cfg.num_layers))
+    moe_layers = sum(cfg.layer_kind(i)[1] == "moe"
+                     for i in range(cfg.num_layers))
     return total - moe_layers * inactive
 
 
 def param_count_analytic(cfg: ModelConfig) -> int:
-    """Closed-form parameter count (embedding + per-layer weights)."""
-    if cfg.family == "jamba":
-        return _jamba_param_count(cfg)
+    """Closed-form parameter count: the embedding (and an untied head)
+    and the final norm; each layer's two norms, mixer and feed-forward by
+    :meth:`ModelConfig.layer_kind` (a hybrid layer's SSM side uncounted,
+    as in the reference's formula); the ssm family's mLSTM blocks, and the
+    audio family's encoder and cross-attention, by the reference's
+    formulas."""
     d, hd = cfg.d_model, cfg.hd
-    attn = d * cfg.num_heads * hd + 2 * d * cfg.num_kv_heads * hd \
-        + cfg.num_heads * hd * d
-    if cfg.is_moe:
-        ffn = cfg.num_experts * 3 * d * cfg.moe_d_ff \
-            + d * cfg.num_experts          # router
-    elif cfg.family == "ssm":
-        ffn = 0
+    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    if cfg.family == "ssm":
         di = d * max(cfg.ssm_expand, 1)
         # mLSTM blocks: qkv + gates + out
-        attn = 3 * d * di + 2 * d + di * d
-    else:
-        ffn = 3 * d * cfg.d_ff
-    per_layer = attn + ffn + 2 * d
-    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
-    enc = 0
+        return total + cfg.num_layers * (3 * d * di + 2 * d + di * d + 2 * d)
     if cfg.encoder_layers:
-        enc = cfg.encoder_layers * (4 * d * d + 2 * d * cfg.d_ff + 2 * d)
-        per_layer += 2 * d * d + d * cfg.num_kv_heads * hd * 2  # cross-attn
-    return embed + cfg.num_layers * per_layer + enc + d
-
-
-def _jamba_param_count(cfg: ModelConfig) -> int:
-    """The jamba family's count: each layer's mixer (attention or the
-    published Mamba mixer) and feed-forward (dense MLP or MoE) by the
-    layer-kind keys, two norms a layer, the untied embedding and head, and
-    the final norm."""
-    d, hd, n, r = cfg.d_model, cfg.hd, cfg.ssm_state, cfg.ssm_dt_rank
-    di = d * cfg.ssm_expand
+        total += cfg.encoder_layers * (4 * d * d + 2 * d * cfg.d_ff + 2 * d) \
+            + cfg.num_layers * (2 * d * d + d * cfg.num_kv_heads * hd * 2)
     attn = d * cfg.num_heads * hd * 2 + 2 * d * cfg.num_kv_heads * hd
-    mamba = (d * 2 * di + cfg.ssm_conv * di + di * cfg.ssm_conv_bias
-             + di * (r + 2 * n) + r + 2 * n + r * di + di + di * n + di
-             + di * d)
-    mlp = 3 * d * cfg.d_ff
-    moe = cfg.num_experts * 3 * d * cfg.moe_d_ff + d * cfg.num_experts
-    total = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2) + d
+    ffn = {"mlp": 3 * d * cfg.d_ff,
+           "moe": cfg.num_experts * (3 * d * cfg.moe_d_ff + d)}
     for i in range(cfg.num_layers):
-        mixer, ffn = cfg.layer_kind(i)
-        total += 2 * d + (attn if mixer == "attention" else mamba) \
-            + (moe if ffn == "moe" else mlp)
+        mixer, kind = cfg.layer_kind(i)
+        total += 2 * d + ffn[kind] + (_mamba_param_count(cfg)
+                                      if mixer == "mamba" else attn)
     return total
+
+
+def _mamba_param_count(cfg: ModelConfig) -> int:
+    """The published Mamba mixer's parameters (``ssm.init_mamba``)."""
+    d, n, r = cfg.d_model, cfg.ssm_state, cfg.ssm_dt_rank
+    di = d * cfg.ssm_expand
+    return (d * 2 * di + cfg.ssm_conv * di + di * cfg.ssm_conv_bias
+            + di * (r + 2 * n) + r + 2 * n + r * di + di + di * n + di
+            + di * d)
 
 
 class MetaDraws:

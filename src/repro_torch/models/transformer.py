@@ -1,35 +1,34 @@
 """Decoder LM assembly: the dense, MoE, hybrid, vlm, ssm and jamba families.
 
-The reference's ``models/transformer.py`` for ``family`` ``"dense"``,
-``"moe"`` (whose blocks hold ``moe`` in place of ``mlp``), ``"hybrid"``
-(hymba: attention and an SSM side by side in every block, sliding-window
-attention on all but the global layers), ``"vlm"`` (internvl2: the dense
-stack with ``patch_embeds`` projected by ``patch_proj`` and prepended to
-the text, positions running over both) and ``"ssm"`` (xlstm: units of
-``slstm_every - 1`` mLSTM blocks and one sLSTM block,
-``models/xlstm.py``), and ``"jamba"`` (layers of two kinds: GQA
-attention without positions, or the published Mamba-1 mixer,
-``ssm.mamba_mixer``; and a dense MLP or an MoE feed-forward; each
-layer's kinds from the period and offset keys,
-:meth:`JambaConfig.layer_kind`). Its ``lax.scan`` over stacked layer
-parameters becomes a Python loop over one module per layer (PyTorch runs
-eagerly: there is no graph whose size depth could grow), so
+The reference's ``models/transformer.py``, built from layers, not
+families: :meth:`ModelConfig.layer_kind` names layer ``i``'s mixer
+(``"attention"``; ``"hybrid"``, hymba's attention and SSM side by side;
+``"mamba"``, the published Mamba-1 mixer) and feed-forward (``"mlp"`` or
+``"moe"``), and :data:`MIXERS` and :data:`FFNS` say how each kind is
+built, given logical axes and run: over a whole sequence, over a prompt
+keeping its decode state, or one decode step.  The family decides only
+the stack: the ssm family's xlstm units (``slstm_every - 1`` mLSTM blocks
+and one sLSTM block, ``models/xlstm.py``), and the cache container.  With
+``num_patches`` (vlm) ``patch_embeds`` are projected by ``patch_proj`` and
+prepended to the text, positions running over both.  The ``"audio"``
+family is ``models/encdec.py``.  The reference's ``lax.scan`` over
+stacked layer parameters becomes a Python loop over one module per layer
+(PyTorch runs eagerly: there is no graph whose size depth could grow), so
 ``scan_layers`` selects nothing. ``remat`` recomputes each layer (each
-xlstm unit) in the backward pass through ``torch.utils.checkpoint``
-where gradients are taken, as the reference's ``jax.checkpoint``. Under
-an active mesh (``sharding.use_rules``) a hybrid prefill with
-``cfg.ssm_cp`` runs each layer's SSM block context-parallel
-(``models/ssm_cp.py``) and, as the reference's, returns zero SSM states.
-The ``"audio"`` family is ``models/encdec.py``. A prefill and a decode
-step run under the spans ``lm.prefill`` and ``lm.decode_step`` and add
-their tokens to the ``lm.tokens_prefilled`` and ``lm.tokens_decoded``
-counters; a jamba layer's mixer runs under ``lm.attention`` or
-``lm.mamba`` (the MoE under ``lm.moe``, ``models/moe.py``).
+xlstm unit) in the backward pass through ``torch.utils.checkpoint`` where
+gradients are taken, as the reference's ``jax.checkpoint``. Under an
+active mesh (``sharding.use_rules``) a hybrid prefill with ``cfg.ssm_cp``
+runs each layer's SSM block context-parallel (``models/ssm_cp.py``) and,
+as the reference's, returns zero SSM states.  A prefill and a decode step
+run under the spans ``lm.prefill`` and ``lm.decode_step`` and add their
+tokens to the ``lm.tokens_prefilled`` and ``lm.tokens_decoded``
+counters; a layer's attention runs under ``lm.attention``, a Mamba mixer
+under ``lm.mamba`` (the MoE under ``lm.moe``, ``models/moe.py``).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -55,17 +54,267 @@ PORTED_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm",
                    "jamba")
 BIG_WINDOW = 1 << 30   # "global attention" encoded as a huge window
 
-#: Where each family the port does not run yet is ported (ROADMAP.md):
-#: none is left.
-PENDING_FAMILIES: Dict[str, str] = {}
-
 
 def require_ported_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the port runs the {', '.join(PORTED_FAMILIES)}"
-            f" families; {cfg.family!r} comes with "
-            f"{PENDING_FAMILIES.get(cfg.family, 'a later ROADMAP item')}")
+            f" families, not {cfg.family!r}")
+
+
+def _stacked_kv(cfg: ModelConfig) -> bool:
+    """Whether the stack's decode state is one :class:`StackedKV` (the
+    reference's layout): every layer full attention with no other state,
+    the dense, moe and vlm families."""
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
+    """Per-layer attention window; ``BIG_WINDOW`` marks a global layer.
+    None = uniform full attention."""
+    if cfg.window is None:
+        return None
+    w = [cfg.window] * cfg.num_layers
+    for g in cfg.global_layers:
+        w[g] = BIG_WINDOW
+    return w
+
+
+def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
+    """Layer ``i``'s window for the attention call: None for full
+    (global) attention."""
+    windows = layer_windows(cfg)
+    if windows is None or windows[i] >= BIG_WINDOW:
+        return None
+    return windows[i]
+
+
+class LayerCache(NamedTuple):
+    """One layer's decode state in a stack of per-layer caches: an
+    attention layer's KV cache (a ring buffer of ``window`` slots on a
+    sliding-window layer), a hybrid layer's KV cache and SSM state, a
+    Mamba layer's (conv window, h), an xlstm block's mLSTM or sLSTM
+    state."""
+    kind: str          # hybrid | mlstm | slstm | attention | mamba
+    kv: Optional[KVCache] = None
+    ssm: Optional[ssm_lib.SSMState] = None
+    mls: Optional[xlstm_lib.MLSTMState] = None
+    sls: Optional[xlstm_lib.SLSTMState] = None
+
+
+def _fill_kv_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
+                   window: Optional[int], max_len: int, s: int) -> KVCache:
+    """A layer's cache holding the prompt's K/V [B, KV, S, hd]: a window
+    keeps the last ``window`` positions in the ring layout (position p at
+    slot p % size), a global layer all ``max_len`` slots."""
+    cache = init_kv_cache(cfg, kt.shape[0], max_len, window=window,
+                          dtype=kt.dtype, device=kt.device)
+    if window:
+        size = cache.k.shape[2]
+        take = min(window, s)
+        slots = torch.arange(s - take, s, device=kt.device) % size
+        cache.k[:, :, slots] = kt[:, :, s - take:s]
+        cache.v[:, :, slots] = vt[:, :, s - take:s]
+    else:
+        cache.k[:, :, :s] = kt
+        cache.v[:, :, :s] = vt
+    cache.pos = s
+    return cache
+
+
+def _context_parallel_mesh(cfg: ModelConfig, s: int):
+    """The active mesh when a hybrid prefill of ``s`` positions takes the
+    context-parallel SSM block (``cfg.ssm_cp`` and a ``model`` axis of
+    more than one shard that divides ``s``), else None."""
+    _, mesh = active()
+    if cfg.ssm_cp and mesh is not None and \
+            mesh.shape.get("model", 1) > 1 and s % mesh.shape["model"] == 0:
+        return mesh
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Layer kinds: what a layer holds and how it runs
+# ---------------------------------------------------------------------------
+
+def _norm_axes(cfg: ModelConfig) -> dict:
+    return {"scale": ("embed",)} if not cfg.use_layernorm else \
+        {"scale": ("embed",), "bias": ("embed",)}
+
+
+def _attention(p: ParamsLike, h: torch.Tensor, positions: torch.Tensor,
+               cfg: ModelConfig, i: int, return_kv: bool = False):
+    with span("lm.attention", layer=i):
+        return attn_lib.self_attention(p["attn"], h, positions, cfg,
+                                       window=layer_window(cfg, i),
+                                       return_kv=return_kv)
+
+
+def _attention_prefill(p: ParamsLike, h: torch.Tensor,
+                       positions: torch.Tensor, cfg: ModelConfig, i: int,
+                       max_len: int) -> Tuple[torch.Tensor, LayerCache]:
+    w = layer_window(cfg, i)
+    with span("lm.attention", layer=i):
+        a, (kt, vt) = attn_lib.self_attention(p["attn"], h, positions, cfg,
+                                              window=w, return_kv=True)
+        cache = LayerCache("attention", kv=_fill_kv_cache(
+            cfg, kt, vt, w, max_len, h.shape[1]))
+        del kt, vt
+    return a, cache
+
+
+def _attention_decode(p: ParamsLike, h: torch.Tensor, c: LayerCache,
+                      cfg: ModelConfig, i: int
+                      ) -> Tuple[torch.Tensor, LayerCache]:
+    with span("lm.attention", layer=i):
+        a, kv = attn_lib.decode_attention(p["attn"], h, c.kv, cfg,
+                                          rope=cfg.use_rope)
+    return a, LayerCache("attention", kv=kv)
+
+
+def _attention_state(cfg: ModelConfig, i: int, batch: int, max_len: int,
+                     device) -> LayerCache:
+    return LayerCache("attention", kv=init_kv_cache(
+        cfg, batch, max_len, window=layer_window(cfg, i), device=device))
+
+
+def _hybrid_init(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    return dict(attn=attn_lib.init_attention(gen, cfg),
+                ssm=ssm_lib.init_ssm(gen, cfg),
+                norm_a=init_norm(cfg, device=gen.device),
+                norm_s=init_norm(cfg, device=gen.device))
+
+
+def _join(cfg: ModelConfig, p: ParamsLike, a: torch.Tensor,
+          s: torch.Tensor) -> torch.Tensor:
+    """A hybrid layer's residual update ``0.5 * (norm_a(a) + norm_s(s))``
+    over its attention output ``a`` and SSM output ``s``."""
+    return 0.5 * (apply_norm(cfg, p["norm_a"], a)
+                  + apply_norm(cfg, p["norm_s"], s))
+
+
+def _hybrid(p: ParamsLike, h: torch.Tensor, positions: torch.Tensor,
+            cfg: ModelConfig, i: int) -> torch.Tensor:
+    a = _attention(p, h, positions, cfg, i)
+    return _join(cfg, p, a, ssm_lib.ssm_block(p["ssm"], h, cfg)[0])
+
+
+def _hybrid_prefill(p: ParamsLike, h: torch.Tensor,
+                    positions: torch.Tensor, cfg: ModelConfig, i: int,
+                    max_len: int) -> Tuple[torch.Tensor, LayerCache]:
+    a, att = _attention_prefill(p, h, positions, cfg, i, max_len)
+    b = h.shape[0]
+    cp_mesh = _context_parallel_mesh(cfg, h.shape[1])
+    if cp_mesh is not None:
+        s = ssm_block_context_parallel(
+            p["ssm"], h, cfg, cp_mesh,
+            batch_axes=tuple(ax for ax in ("pod", "data")
+                             if ax in cp_mesh.shape))
+        st = ssm_lib.init_ssm_state(cfg, b, device=h.device)  # stateless
+    else:
+        s, st = ssm_lib.ssm_block(
+            p["ssm"], h, cfg,
+            state=ssm_lib.init_ssm_state(cfg, b, device=h.device))
+    return _join(cfg, p, a, s), LayerCache("hybrid", kv=att.kv, ssm=st)
+
+
+def _hybrid_decode(p: ParamsLike, h: torch.Tensor, c: LayerCache,
+                   cfg: ModelConfig, i: int
+                   ) -> Tuple[torch.Tensor, LayerCache]:
+    a, att = _attention_decode(p, h, c, cfg, i)
+    s, st = ssm_lib.ssm_block(p["ssm"], h, cfg, state=c.ssm)
+    return _join(cfg, p, a, s), LayerCache("hybrid", kv=att.kv, ssm=st)
+
+
+def _mamba(p: ParamsLike, h: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, i: int) -> torch.Tensor:
+    with span("lm.mamba", layer=i):
+        return ssm_lib.mamba_mixer(p["mamba"], h, cfg)[0]
+
+
+def _mamba_prefill(p: ParamsLike, h: torch.Tensor, positions: torch.Tensor,
+                   cfg: ModelConfig, i: int, max_len: int
+                   ) -> Tuple[torch.Tensor, LayerCache]:
+    c = LayerCache("mamba", ssm=ssm_lib.init_ssm_state(cfg, h.shape[0],
+                                                       device=h.device))
+    return _mamba_decode(p, h, c, cfg, i)
+
+
+def _mamba_decode(p: ParamsLike, h: torch.Tensor, c: LayerCache,
+                  cfg: ModelConfig, i: int
+                  ) -> Tuple[torch.Tensor, LayerCache]:
+    with span("lm.mamba", layer=i):
+        a, st = ssm_lib.mamba_mixer(p["mamba"], h, cfg, state=c.ssm)
+    return a, LayerCache("mamba", ssm=st)
+
+
+class Mixer(NamedTuple):
+    """How a mixer kind is built and run, for block ``p`` of layer ``i``
+    and its normed input ``h``:
+
+    - ``init(gen, cfg)``: the kind's parameter groups, by name;
+    - ``axes(cfg)``: their logical axes;
+    - ``run(p, h, positions, cfg, i)``: what the mixer adds to the
+      residual stream over a whole sequence, from zero states;
+    - ``prefill(p, h, positions, cfg, i, max_len)``: that, and the
+      layer's LayerCache of ``max_len`` positions;
+    - ``decode(p, h, c, cfg, i)``: that for one token against the
+      LayerCache ``c``, and ``c`` stepped once;
+    - ``state(cfg, i, batch, max_len, device)``: an empty LayerCache."""
+    init: Callable[..., dict]
+    axes: Callable[..., dict]
+    run: Callable[..., torch.Tensor]
+    prefill: Callable[..., Tuple[torch.Tensor, LayerCache]]
+    decode: Callable[..., Tuple[torch.Tensor, LayerCache]]
+    state: Callable[..., LayerCache]
+
+
+MIXERS: Dict[str, Mixer] = {
+    "attention": Mixer(
+        init=lambda gen, cfg: {"attn": attn_lib.init_attention(gen, cfg)},
+        axes=lambda cfg: {"attn": attn_lib.attention_logical_axes(cfg)},
+        run=_attention, prefill=_attention_prefill,
+        decode=_attention_decode, state=_attention_state),
+    "hybrid": Mixer(
+        init=_hybrid_init,
+        axes=lambda cfg: {"attn": attn_lib.attention_logical_axes(cfg),
+                          "ssm": ssm_lib.ssm_logical_axes(cfg),
+                          "norm_a": _norm_axes(cfg),
+                          "norm_s": _norm_axes(cfg)},
+        run=_hybrid, prefill=_hybrid_prefill, decode=_hybrid_decode,
+        state=lambda cfg, i, b, n, dev: LayerCache(
+            "hybrid", kv=_attention_state(cfg, i, b, n, dev).kv,
+            ssm=ssm_lib.init_ssm_state(cfg, b, device=dev))),
+    "mamba": Mixer(
+        init=lambda gen, cfg: {"mamba": ssm_lib.init_mamba(gen, cfg)},
+        axes=lambda cfg: {"mamba": ssm_lib.mamba_logical_axes(cfg)},
+        run=_mamba, prefill=_mamba_prefill, decode=_mamba_decode,
+        state=lambda cfg, i, b, n, dev: LayerCache(
+            "mamba", ssm=ssm_lib.init_ssm_state(cfg, b, device=dev))),
+}
+
+
+def _moe(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
+    return y, stats.aux_loss
+
+
+class Ffn(NamedTuple):
+    """How a feed-forward kind is built and run; its group in the block
+    is named by the kind: ``init(gen, cfg)``, ``axes(cfg)``, and ``apply(p,
+    h, cfg)``, (y, the MoE's aux loss or None)."""
+    init: Callable[..., Params]
+    axes: Callable[..., dict]
+    apply: Callable[..., Tuple[torch.Tensor, Optional[torch.Tensor]]]
+
+
+FFNS: Dict[str, Ffn] = {
+    "mlp": Ffn(init=init_mlp, axes=mlp_logical_axes,
+               apply=lambda p, h, cfg: (apply_mlp(p["mlp"], h, cfg), None)),
+    "moe": Ffn(init=moe_lib.init_moe, axes=moe_lib.moe_logical_axes,
+               apply=_moe),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -73,162 +322,80 @@ def require_ported_family(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(Params):
-    """One decoder layer: ``norm1``, ``attn``, ``norm2``, and ``mlp``
-    (dense) or ``moe`` (MoE); a hybrid layer adds ``ssm``, ``norm_a`` and
-    ``norm_s``; a jamba layer holds ``attn`` or ``mamba``, and ``mlp`` or
-    ``moe``, as :meth:`JambaConfig.layer_kind` says."""
+    """One decoder layer: ``norm1``, its mixer's groups (``attn``; ``attn``,
+    ``ssm``, ``norm_a`` and ``norm_s``; or ``mamba``), ``norm2``, and its
+    feed-forward, ``mlp`` or ``moe``, as :meth:`ModelConfig.layer_kind`
+    says."""
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, i: int = 0
-               ) -> Block:
-    """Layer ``i``'s parameters (``i`` picks a jamba layer's kinds)."""
-    require_ported_family(cfg)
-    dev = gen.device
-    if cfg.family == "jamba":
-        mixer, ffn = cfg.layer_kind(i)
-        p = dict(norm1=init_norm(cfg, device=dev),
-                 norm2=init_norm(cfg, device=dev))
-        if mixer == "attention":
-            p["attn"] = attn_lib.init_attention(gen, cfg)
-        else:
-            p["mamba"] = ssm_lib.init_mamba(gen, cfg)
-        p[ffn] = (moe_lib.init_moe(gen, cfg) if ffn == "moe"
-                  else init_mlp(gen, cfg))
-        return Block(**p)
-    p = dict(norm1=init_norm(cfg, device=dev),
-             norm2=init_norm(cfg, device=dev),
-             attn=attn_lib.init_attention(gen, cfg))
-    if cfg.family == "moe":
-        p["moe"] = moe_lib.init_moe(gen, cfg)
-    elif cfg.family == "hybrid":
-        p["ssm"] = ssm_lib.init_ssm(gen, cfg)
-        p["mlp"] = init_mlp(gen, cfg)
-        p["norm_a"] = init_norm(cfg, device=dev)
-        p["norm_s"] = init_norm(cfg, device=dev)
-    else:
-        p["mlp"] = init_mlp(gen, cfg)
-    return Block(**p)
+def init_block(gen: torch.Generator, cfg: ModelConfig, i: int) -> Block:
+    """Layer ``i``'s parameters."""
+    mixer, ffn = cfg.layer_kind(i)
+    return Block(norm1=init_norm(cfg, device=gen.device),
+                 norm2=init_norm(cfg, device=gen.device),
+                 **MIXERS[mixer].init(gen, cfg),
+                 **{ffn: FFNS[ffn].init(gen, cfg)})
 
 
 def block_logical_axes(cfg: ModelConfig, i: int = 0) -> dict:
-    norm = {"scale": ("embed",)} if not cfg.use_layernorm else \
-        {"scale": ("embed",), "bias": ("embed",)}
-    p: dict = {"norm1": dict(norm), "norm2": dict(norm)}
-    if cfg.family == "jamba":
-        mixer, ffn = cfg.layer_kind(i)
-        if mixer == "attention":
-            p["attn"] = attn_lib.attention_logical_axes(cfg)
-        else:
-            p["mamba"] = ssm_lib.mamba_logical_axes(cfg)
-        p[ffn] = (moe_lib.moe_logical_axes(cfg) if ffn == "moe"
-                  else mlp_logical_axes(cfg))
-    elif cfg.family in ("dense", "vlm", "audio"):
-        p["attn"] = attn_lib.attention_logical_axes(cfg)
-        p["mlp"] = mlp_logical_axes(cfg)
-    elif cfg.family == "moe":
-        p["attn"] = attn_lib.attention_logical_axes(cfg)
-        p["moe"] = moe_lib.moe_logical_axes(cfg)
-    elif cfg.family == "hybrid":
-        p["attn"] = attn_lib.attention_logical_axes(cfg)
-        p["ssm"] = ssm_lib.ssm_logical_axes(cfg)
-        p["mlp"] = mlp_logical_axes(cfg)
-        p["norm_a"] = dict(norm)
-        p["norm_s"] = dict(norm)
-    return p
-
-
-def apply_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The block's feed-forward half: (y, MoE aux loss or None)."""
-    if cfg.family == "moe":
-        y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
-        return y, stats.aux_loss
-    return apply_mlp(p["mlp"], h, cfg), None
-
-
-def jamba_ffn(p: ParamsLike, h: torch.Tensor, cfg: ModelConfig, i: int
-              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A jamba layer's feed-forward half: (y, MoE aux loss or None)."""
-    if cfg.layer_kind(i)[1] == "moe":
-        y, stats = moe_lib.moe_ffn(p["moe"], h, cfg)
-        return y, stats.aux_loss
-    return apply_mlp(p["mlp"], h, cfg), None
-
-
-def apply_jamba_block(p: ParamsLike, x: torch.Tensor,
-                      positions: torch.Tensor, cfg: ModelConfig, i: int,
-                      max_len: Optional[int] = None):
-    """Jamba layer ``i`` over a whole sequence, from zero states: ``x +
-    mixer(norm1(x))``, then ``+ ffn(norm2(x))``.  Returns (x', aux); with
-    ``max_len`` (a prefill), (x', aux, the layer's LayerCache): an
-    attention layer's K/V in a cache of ``max_len`` positions, a Mamba
-    layer's final (conv window, h).  A prefill takes no gradient and
-    drops its x for x', so there both residual adds write into ``x``:
-    the layer holds one residual stream, not two."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = apply_norm(cfg, p["norm1"], x)
-    cache = None
-    if cfg.layer_kind(i)[0] == "attention":
-        with span("lm.attention", layer=i):
-            if max_len is None:
-                a = attn_lib.self_attention(p["attn"], h, positions, cfg)
-            else:
-                a, (kt, vt) = attn_lib.self_attention(
-                    p["attn"], h, positions, cfg, return_kv=True)
-                cache = LayerCache("attention", kv=_fill_kv_cache(
-                    cfg, kt, vt, None, max_len, x.shape[1]))
-                del kt, vt
-    else:
-        state = None if max_len is None else ssm_lib.init_ssm_state(
-            cfg, x.shape[0], device=x.device)
-        with span("lm.mamba", layer=i):
-            a, st = ssm_lib.mamba_mixer(p["mamba"], h, cfg, state=state)
-        if max_len is not None:
-            cache = LayerCache("mamba", ssm=st)
-    del h
-    x = x + a if max_len is None else x.add_(a)
-    del a
-    y, moe_aux = jamba_ffn(p, apply_norm(cfg, p["norm2"], x), cfg, i)
-    if moe_aux is not None:
-        aux = aux + moe_aux
-    if max_len is None:
-        return x + y, aux
-    return x.add_(y), aux, cache
-
-
-def join_heads(cfg: ModelConfig, p: ParamsLike, x: torch.Tensor,
-               a: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """A hybrid block's residual: ``x + 0.5 * (norm_a(a) + norm_s(s))``
-    over its attention output ``a`` and SSM output ``s``."""
-    a = apply_norm(cfg, p["norm_a"], a)
-    s = apply_norm(cfg, p["norm_s"], s)
-    return x + 0.5 * (a + s)
+    mixer, ffn = cfg.layer_kind(i)
+    return {"norm1": _norm_axes(cfg), "norm2": _norm_axes(cfg),
+            **MIXERS[mixer].axes(cfg), ffn: FFNS[ffn].axes(cfg)}
 
 
 def apply_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
-                cfg: ModelConfig, window: Optional[int] = None,
-                return_kv: bool = False):
-    """Returns (x', aux_loss[, (kt, vt)]); aux is 0 for dense blocks."""
+                cfg: ModelConfig, i: int, return_kv: bool = False):
+    """Layer ``i`` over a whole sequence, from zero states: ``x +
+    mixer(norm1(x))``, then ``+ ffn(norm2(x))``.  Returns (x', aux[, (kt,
+    vt)]); aux is 0 without an MoE.  ``return_kv`` takes an attention
+    layer."""
+    mixer, ffn = cfg.layer_kind(i)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = apply_norm(cfg, p["norm1"], x)
-    a = attn_lib.self_attention(p["attn"], h, positions, cfg,
-                                window=window, return_kv=return_kv)
-    kv = None
     if return_kv:
-        a, kv = a
-    if cfg.family == "hybrid":
-        s, _ = ssm_lib.ssm_block(p["ssm"], h, cfg)
-        x = join_heads(cfg, p, x, a, s)
+        a, kv = _attention(p, h, positions, cfg, i, return_kv=True)
     else:
-        x = x + a
-    h = apply_norm(cfg, p["norm2"], x)
-    y, moe_aux = apply_ffn(p, h, cfg)
+        a = MIXERS[mixer].run(p, h, positions, cfg, i)
+    del h
+    x = x + a
+    del a
+    y, moe_aux = FFNS[ffn].apply(p, apply_norm(cfg, p["norm2"], x), cfg)
     if moe_aux is not None:
         aux = aux + moe_aux
     x = x + y
     if return_kv:
         return x, aux, kv
     return x, aux
+
+
+def prefill_block(p: ParamsLike, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig, i: int, max_len: int
+                  ) -> Tuple[torch.Tensor, LayerCache]:
+    """Layer ``i`` over the prompt from zero states, keeping its decode
+    state: (x', its LayerCache of ``max_len`` positions).  A prefill takes
+    no gradient and drops its x for x', so both residual adds write into
+    ``x``: the layer holds one residual stream, not two."""
+    mixer, ffn = cfg.layer_kind(i)
+    h = apply_norm(cfg, p["norm1"], x)
+    a, cache = MIXERS[mixer].prefill(p, h, positions, cfg, i, max_len)
+    del h
+    x.add_(a)
+    del a
+    y, _ = FFNS[ffn].apply(p, apply_norm(cfg, p["norm2"], x), cfg)
+    return x.add_(y), cache
+
+
+def decode_block(p: ParamsLike, x: torch.Tensor, c: LayerCache,
+                 cfg: ModelConfig, i: int
+                 ) -> Tuple[torch.Tensor, LayerCache]:
+    """One token x [B, 1, d] through layer ``i``, stepping its state
+    ``c`` once: (x', the layer's LayerCache')."""
+    mixer, ffn = cfg.layer_kind(i)
+    h = apply_norm(cfg, p["norm1"], x)
+    a, c = MIXERS[mixer].decode(p, h, c, cfg, i)
+    x = x + a
+    h = apply_norm(cfg, p["norm2"], x)
+    return x + FFNS[ffn].apply(p, h, cfg)[0], c
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +558,6 @@ class LM(Params):
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
-    require_ported_family(cfg)
     p = dict(embed=init_embedding(gen, cfg),
              final_norm=init_norm(cfg, device=gen.device))
     if cfg.family == "ssm":
@@ -399,7 +565,7 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig) -> LM:
     else:
         p["blocks"] = nn.ModuleList(init_block(gen, cfg, i)
                                     for i in range(cfg.num_layers))
-    if cfg.family == "vlm" and cfg.num_patches:
+    if cfg.num_patches:
         p["patch_proj"] = trunc_normal(gen, (cfg.d_model, cfg.d_model),
                                        cfg.param_dtype)
     return LM(**p)
@@ -410,42 +576,20 @@ def lm_logical_axes(cfg: ModelConfig) -> dict:
     dict by its pytree paths: a stacked ``[L, ...]`` leaf leads with
     ``"layers"`` (two for xlstm's ``[units, m_per, ...]`` mLSTM blocks),
     which the port's per-layer tensors drop
-    (``checkpoint/elastic.shardings_for_params``)."""
+    (``checkpoint/elastic.shardings_for_params``).  Layers of several
+    kinds have one tree a layer, not a stacked leaf."""
     p: dict = {"embed": embedding_logical_axes(cfg),
-               "final_norm": {"scale": ("embed",)}
-               if not cfg.use_layernorm
-               else {"scale": ("embed",), "bias": ("embed",)}}
+               "final_norm": _norm_axes(cfg)}
     if cfg.family == "ssm":
         p["xlstm"] = xlstm_stack_logical_axes(cfg)
-    elif cfg.family == "jamba":
-        # layers of several kinds: one tree a layer, not a stacked leaf
+    elif len({cfg.layer_kind(i) for i in range(cfg.num_layers)}) > 1:
         p["blocks"] = {str(i): block_logical_axes(cfg, i)
                        for i in range(cfg.num_layers)}
     else:
         p["blocks"] = lift_axes(block_logical_axes(cfg), ("layers",))
-    if cfg.family == "vlm" and cfg.num_patches:
+    if cfg.num_patches:
         p["patch_proj"] = ("embed", None)
     return p
-
-
-def layer_windows(cfg: ModelConfig) -> Optional[List[int]]:
-    """Per-layer attention window; ``BIG_WINDOW`` marks a global layer.
-    None = uniform full attention."""
-    if cfg.window is None:
-        return None
-    w = [cfg.window] * cfg.num_layers
-    for g in cfg.global_layers:
-        w[g] = BIG_WINDOW
-    return w
-
-
-def layer_window(cfg: ModelConfig, i: int) -> Optional[int]:
-    """Layer ``i``'s window for the attention call: None for full
-    (global) attention."""
-    windows = layer_windows(cfg)
-    if windows is None or windows[i] >= BIG_WINDOW:
-        return None
-    return windows[i]
 
 
 def embed_inputs(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
@@ -471,8 +615,7 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     the per-layer KV stacks [L, B, KV, S, hd] come back too (the prefill
     path).
     """
-    require_ported_family(cfg)
-    if return_kv and cfg.family in ("hybrid", "ssm", "jamba"):
+    if return_kv and not _stacked_kv(cfg):
         raise ValueError("return_kv takes a uniform full-attention stack")
     x = embed_inputs(params, tokens, cfg, patch_embeds)
     b, s, _ = x.shape
@@ -484,17 +627,10 @@ def forward(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    if cfg.family == "jamba":
-        for i, bp in enumerate(params["blocks"]):
-            x, a = remat(cfg, functools.partial(
-                apply_jamba_block, bp, cfg=cfg, i=i), x, positions)
-            aux_total = aux_total + a
-        x = apply_norm(cfg, params["final_norm"], x)
-        return unembed(params["embed"], x, cfg), aux_total
     for i, bp in enumerate(params["blocks"]):
         out = remat(cfg, functools.partial(
-            apply_block, bp, cfg=cfg, window=layer_window(cfg, i),
-            return_kv=return_kv), x, positions)
+            apply_block, bp, cfg=cfg, i=i, return_kv=return_kv),
+            x, positions)
         if return_kv:
             x, a, (kt, vt) = out
             ks.append(kt)
@@ -538,6 +674,13 @@ class StackedKV:
     def __init__(self, k: torch.Tensor, v: torch.Tensor, pos: int):
         self.k, self.v, self.pos = k, v, int(pos)
 
+    def layers(self) -> List[LayerCache]:
+        """Each layer's cache: a view of its slice, ``k[i]`` and
+        ``v[i]``."""
+        return [LayerCache("attention",
+                           kv=KVCache(k=self.k[i], v=self.v[i], pos=self.pos))
+                for i in range(self.k.shape[0])]
+
 
 def init_stacked_cache(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=None, device=None) -> StackedKV:
@@ -550,9 +693,10 @@ def init_stacked_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill_scanned(params: ParamsLike, tokens: torch.Tensor,
                     cfg: ModelConfig, max_len: int,
                     patch_embeds: Optional[torch.Tensor] = None):
-    """Prefill for uniform stacks (dense, MoE, vlm): logits [B, S, V] and
-    a StackedKV of ``max_len`` positions holding the prompt's K/V (S = P
-    + S_text with ``patch_embeds``; decode goes on from S)."""
+    """Prefill for uniform stacks (dense, MoE, vlm), the reference's: the
+    forward pass, logits [B, S, V], and a StackedKV of ``max_len``
+    positions holding the prompt's K/V (S = P + S_text with
+    ``patch_embeds``; decode goes on from S)."""
     logits, _, (kt, vt) = forward(params, tokens, cfg,
                                   patch_embeds=patch_embeds, return_kv=True)
     L, b, _, s, _ = kt.shape
@@ -564,54 +708,15 @@ def prefill_scanned(params: ParamsLike, tokens: torch.Tensor,
     return logits, cache
 
 
-def decode_step_scanned(params: ParamsLike, cache: StackedKV,
-                        tokens: torch.Tensor, cfg: ModelConfig):
-    """tokens [B] -> (logits [B, V], cache') with a loop over layers."""
-    x = embed_tokens(params["embed"], tokens[:, None], cfg)
-    pos = cache.pos
-    for i, bp in enumerate(params["blocks"]):
-        h = apply_norm(cfg, bp["norm1"], x)
-        a, _, _ = attn_lib.decode_attn_raw(bp["attn"], h, cache.k[i],
-                                           cache.v[i], pos, cfg)
-        x = x + a
-        h = apply_norm(cfg, bp["norm2"], x)
-        x = x + apply_ffn(bp, h, cfg)[0]
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x, cfg)
-    return logits[:, 0], StackedKV(k=cache.k, v=cache.v, pos=pos + 1)
-
-
-class LayerCache(NamedTuple):
-    """One layer's decode state in a heterogeneous stack: a hybrid layer
-    holds its attention cache (a ring buffer of ``window`` slots on a
-    sliding-window layer) and its SSM state; an xlstm block its mLSTM or
-    sLSTM state; a jamba layer its KV cache (``attention``) or its (conv
-    window, h) state (``mamba``)."""
-    kind: str          # hybrid | mlstm | slstm | attention | mamba
-    kv: Optional[KVCache] = None
-    ssm: Optional[ssm_lib.SSMState] = None
-    mls: Optional[xlstm_lib.MLSTMState] = None
-    sls: Optional[xlstm_lib.SLSTMState] = None
-
-
 Caches = Union[StackedKV, List[LayerCache]]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> Caches:
-    """A StackedKV for uniform stacks; for hybrid, one LayerCache per
-    layer: sliding-window layers get ring buffers (O(window)), the SSM
-    O(1) recurrent state; for ssm, one LayerCache per xlstm block with
-    its O(1) state; for jamba, one a layer: a full KV cache on an
-    attention layer, the Mamba state on the others."""
-    require_ported_family(cfg)
-    if cfg.family == "jamba":
-        return [LayerCache("attention", kv=init_kv_cache(
-                    cfg, batch, max_len, device=device))
-                if cfg.layer_kind(i)[0] == "attention" else
-                LayerCache("mamba", ssm=ssm_lib.init_ssm_state(
-                    cfg, batch, device=device))
-                for i in range(cfg.num_layers)]
+    """A StackedKV for uniform stacks; else one LayerCache a layer, its
+    mixer's state (a sliding-window layer's KV cache is a ring buffer,
+    O(window); an SSM's state O(1)); for ssm, one LayerCache per xlstm
+    block with its O(1) state."""
     if cfg.family == "ssm":
         return [LayerCache("mlstm",
                            mls=xlstm_lib.init_mlstm_state(cfg, batch, device))
@@ -619,13 +724,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 LayerCache("slstm",
                            sls=xlstm_lib.init_slstm_state(cfg, batch, device))
                 for kind in _xlstm_kinds(cfg)]
-    if cfg.family != "hybrid":
+    if _stacked_kv(cfg):
         return init_stacked_cache(cfg, batch, max_len, device=device)
-    return [LayerCache("hybrid",
-                       kv=init_kv_cache(cfg, batch, max_len,
-                                        window=layer_window(cfg, i),
-                                        device=device),
-                       ssm=ssm_lib.init_ssm_state(cfg, batch, device=device))
+    return [MIXERS[cfg.layer_kind(i)[0]].state(cfg, i, batch, max_len,
+                                                device)
             for i in range(cfg.num_layers)]
 
 
@@ -633,11 +735,8 @@ def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
                 cfg: ModelConfig) -> Tuple[torch.Tensor, Caches]:
     """tokens: [B] -> (logits [B, V], caches').
 
-    A StackedKV takes the uniform path; a list of LayerCache loops over
-    layers: a hybrid layer attends to its cache and steps its SSM state
-    once, an xlstm block steps its state once, a jamba layer does
-    either."""
-    require_ported_family(cfg)
+    Each layer steps its state once (:func:`decode_block`); a StackedKV's
+    layers write into their slices of it."""
     METRICS.counter("lm.tokens_decoded").inc(tokens.shape[0])
     with span("lm.decode_step", batch=tokens.shape[0]):
         return _decode_step(params, caches, tokens, cfg)
@@ -645,27 +744,20 @@ def decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
 
 def _decode_step(params: ParamsLike, caches: Caches, tokens: torch.Tensor,
                  cfg: ModelConfig) -> Tuple[torch.Tensor, Caches]:
-    if cfg.family == "jamba":
-        return decode_step_jamba(params, caches, tokens, cfg)
-    if isinstance(caches, StackedKV):
-        return decode_step_scanned(params, caches, tokens, cfg)
     x = embed_tokens(params["embed"], tokens[:, None], cfg)
     new_caches: List[LayerCache] = []
     if cfg.family == "ssm":
         x = _xlstm_decode(params["xlstm"], x, cfg, caches, new_caches)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return unembed(params["embed"], x, cfg)[:, 0], new_caches
-    for bp, c in zip(params["blocks"], caches):
-        h = apply_norm(cfg, bp["norm1"], x)
-        a, kv = attn_lib.decode_attention(bp["attn"], h, c.kv, cfg)
-        s, st = ssm_lib.ssm_block(bp["ssm"], h, cfg, state=c.ssm)
-        x = join_heads(cfg, bp, x, a, s)
-        new_caches.append(LayerCache("hybrid", kv=kv, ssm=st))
-        h = apply_norm(cfg, bp["norm2"], x)
-        x = x + apply_ffn(bp, h, cfg)[0]
+    else:
+        layers = caches.layers() if isinstance(caches, StackedKV) else caches
+        for i, (bp, c) in enumerate(zip(params["blocks"], layers)):
+            x, c = decode_block(bp, x, c, cfg, i)
+            new_caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = unembed(params["embed"], x, cfg)
-    return logits[:, 0], new_caches
+    logits = unembed(params["embed"], x, cfg)[:, 0]
+    if isinstance(caches, StackedKV):
+        return logits, StackedKV(k=caches.k, v=caches.v, pos=caches.pos + 1)
+    return logits, new_caches
 
 
 def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
@@ -676,7 +768,6 @@ def prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
     with ``patch_embeds`` ``max_len`` must count the patch positions too.
     Where ``cfg.logits_to_keep`` is k > 0 (the jamba family), the logits
     of the last k positions alone, [B, k, V]."""
-    require_ported_family(cfg)
     METRICS.counter("lm.tokens_prefilled").inc(tokens.numel())
     with span("lm.prefill", batch=tokens.shape[0], tokens=tokens.shape[1]):
         return _prefill(params, tokens, cfg, max_len, patch_embeds)
@@ -686,113 +777,20 @@ def _prefill(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
              max_len: Optional[int],
              patch_embeds: Optional[torch.Tensor]
              ) -> Tuple[torch.Tensor, Caches]:
-    b, s = tokens.shape
-    max_len = max_len or s
-    if cfg.family == "jamba":
-        return prefill_jamba(params, tokens, cfg, max_len)
+    max_len = max_len or tokens.shape[1]
     if cfg.family == "ssm":
         return prefill_ssm(params, tokens, cfg)
-    if cfg.family != "hybrid":
+    if _stacked_kv(cfg):
         return prefill_scanned(params, tokens, cfg, max_len,
                                patch_embeds=patch_embeds)
-    x = embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
-    cp_mesh = _context_parallel_mesh(cfg, s)
-    caches: List[LayerCache] = []
-    for i, bp in enumerate(params["blocks"]):
-        w = layer_window(cfg, i)
-        h = apply_norm(cfg, bp["norm1"], x)
-        a, (kt, vt) = attn_lib.self_attention(bp["attn"], h, positions, cfg,
-                                              window=w, return_kv=True)
-        if cp_mesh is not None:
-            s_out = ssm_block_context_parallel(
-                bp["ssm"], h, cfg, cp_mesh,
-                batch_axes=tuple(a for a in ("pod", "data")
-                                 if a in cp_mesh.shape))
-            st = ssm_lib.init_ssm_state(cfg, b, device=x.device)  # stateless
-        else:
-            s_out, st = ssm_lib.ssm_block(
-                bp["ssm"], h, cfg,
-                state=ssm_lib.init_ssm_state(cfg, b, device=x.device))
-        x = join_heads(cfg, bp, x, a, s_out)
-        caches.append(LayerCache("hybrid", kv=_fill_kv_cache(
-            cfg, kt, vt, w, max_len, s), ssm=st))
-        h = apply_norm(cfg, bp["norm2"], x)
-        x = x + apply_ffn(bp, h, cfg)[0]
-    x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(params["embed"], x, cfg), caches
-
-
-def _context_parallel_mesh(cfg: ModelConfig, s: int):
-    """The active mesh when a hybrid prefill of ``s`` positions takes the
-    context-parallel SSM block (``cfg.ssm_cp`` and a ``model`` axis of
-    more than one shard that divides ``s``), else None."""
-    _, mesh = active()
-    if cfg.ssm_cp and mesh is not None and \
-            mesh.shape.get("model", 1) > 1 and s % mesh.shape["model"] == 0:
-        return mesh
-    return None
-
-
-def _fill_kv_cache(cfg: ModelConfig, kt: torch.Tensor, vt: torch.Tensor,
-                   window: Optional[int], max_len: int, s: int) -> KVCache:
-    """A layer's cache holding the prompt's K/V [B, KV, S, hd]: a window
-    keeps the last ``window`` positions in the ring layout (position p at
-    slot p % size), a global layer all ``max_len`` slots."""
-    cache = init_kv_cache(cfg, kt.shape[0], max_len, window=window,
-                          dtype=kt.dtype, device=kt.device)
-    if window:
-        size = cache.k.shape[2]
-        take = min(window, s)
-        slots = torch.arange(s - take, s, device=kt.device) % size
-        cache.k[:, :, slots] = kt[:, :, s - take:s]
-        cache.v[:, :, slots] = vt[:, :, s - take:s]
-    else:
-        cache.k[:, :, :s] = kt
-        cache.v[:, :, :s] = vt
-    cache.pos = s
-    return cache
-
-
-def prefill_jamba(params: ParamsLike, tokens: torch.Tensor, cfg: ModelConfig,
-                  max_len: int) -> Tuple[torch.Tensor, List[LayerCache]]:
-    """The jamba prefill: each layer over the prompt from zero states
-    (:func:`apply_jamba_block` keeping its cache); the logits of the last
-    ``cfg.logits_to_keep`` positions (all where it is 0)."""
-    b, s = tokens.shape
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = embed_inputs(params, tokens, cfg, patch_embeds)
+    b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     caches: List[LayerCache] = []
     for i, bp in enumerate(params["blocks"]):
-        x, _, cache = apply_jamba_block(bp, x, positions, cfg, i,
-                                        max_len=max_len)
+        x, cache = prefill_block(bp, x, positions, cfg, i, max_len)
         caches.append(cache)
     if cfg.logits_to_keep:
         x = x[:, -cfg.logits_to_keep:]
     x = apply_norm(cfg, params["final_norm"], x)
     return unembed(params["embed"], x, cfg), caches
-
-
-def decode_step_jamba(params: ParamsLike, caches: List[LayerCache],
-                      tokens: torch.Tensor, cfg: ModelConfig
-                      ) -> Tuple[torch.Tensor, List[LayerCache]]:
-    """One token through every jamba layer: an attention layer attends to
-    its cache (no positions) and writes the token's K/V into it, a Mamba
-    layer steps its state once."""
-    x = embed_tokens(params["embed"], tokens[:, None], cfg)
-    new_caches: List[LayerCache] = []
-    for i, (bp, c) in enumerate(zip(params["blocks"], caches)):
-        h = apply_norm(cfg, bp["norm1"], x)
-        if c.kind == "attention":
-            with span("lm.attention", layer=i):
-                a, kv = attn_lib.decode_attention(bp["attn"], h, c.kv, cfg,
-                                                  rope=cfg.use_rope)
-            new_caches.append(LayerCache("attention", kv=kv))
-        else:
-            with span("lm.mamba", layer=i):
-                a, st = ssm_lib.mamba_mixer(bp["mamba"], h, cfg, state=c.ssm)
-            new_caches.append(LayerCache("mamba", ssm=st))
-        x = x + a
-        x = x + jamba_ffn(bp, apply_norm(cfg, bp["norm2"], x), cfg, i)[0]
-    x = apply_norm(cfg, params["final_norm"], x)
-    return unembed(params["embed"], x, cfg)[:, 0], new_caches

@@ -324,13 +324,48 @@ def test_prefill_decode_matches_forward(setup):
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "hymba-1.5b",
                                   "xlstm-1.3b", "whisper-base",
                                   "internvl2-1b"])
-def test_other_families_name_their_roadmap_item(arch):
+def test_other_families_build(arch):
     cfg = T_configs.get_smoke_config(arch)
-    if cfg.family in T_tf.PORTED_FAMILIES:       # moe runs in the port
-        assert build_model(cfg, device="cpu").cfg is cfg
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    assert build_model(cfg, device="cpu").cfg is cfg
+
+
+def test_an_unknown_family_does_not_build():
+    cfg = T_configs.get_smoke_config(ARCH).scaled(family="rwkv")
+    with pytest.raises(NotImplementedError, match="'rwkv'"):
         build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="'rwkv'"):
+        params_from_numpy({}, cfg, device="cpu")
+
+
+#: Each block family's layer kinds, (mixer, feed-forward), by layer.
+LAYER_KINDS = {
+    "dense": lambda i: ("attention", "mlp"),
+    "vlm": lambda i: ("attention", "mlp"),
+    "moe": lambda i: ("attention", "moe"),
+    "hybrid": lambda i: ("hybrid", "mlp"),
+    # jamba2-mini's periods: attention at i % 8 == 4, the MoE at odd i
+    "jamba": lambda i: ("attention" if i % 8 == 4 else "mamba",
+                        "moe" if i % 2 else "mlp"),
+}
+#: The parameter groups each kind puts in a block.
+KIND_GROUPS = {"attention": {"attn"},
+               "hybrid": {"attn", "ssm", "norm_a", "norm_s"},
+               "mamba": {"mamba"}, "mlp": {"mlp"}, "moe": {"moe"}}
+BLOCK_ARCHS = [a for a in T_configs.ARCH_IDS + T_configs.EXTRA_ARCH_IDS
+               if T_configs.get_smoke_config(a).family in LAYER_KINDS]
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_each_block_holds_what_its_layer_kinds_name(arch):
+    cfg = T_configs.get_smoke_config(arch)
+    kinds = [cfg.layer_kind(i) for i in range(cfg.num_layers)]
+    assert kinds == [LAYER_KINDS[cfg.family](i)
+                     for i in range(cfg.num_layers)]
+    params = build_model(cfg, device="cpu").init(0)
+    assert len(params["blocks"]) == cfg.num_layers
+    for (mixer, ffn), block in zip(kinds, params["blocks"]):
+        assert {n for n, _ in block.named_children()} == \
+            {"norm1", "norm2"} | KIND_GROUPS[mixer] | KIND_GROUPS[ffn]
 
 
 def test_entry_points_default_to_cuda():
