@@ -218,22 +218,27 @@ width (one period of 8 layers: one GQA attention layer without
 positions, seven Mamba-1 layers, four 16-expert top-2 MoE layers, vocab
 65536, bf16, random weights from the seed; 13,295,237,088 parameters):
 
-14b. hold the dt route against its plain version on the card at Jamba's
-    prefill (u and dt [1, 65536, 8192] bf16, the plain version in blocks
-    of steps chained through h) and decode-step shapes, at the chunk's
-    edges and off the state sizes, each asserted on its route and as no
-    launch of the fused route, within ``SSM_TOL_FRAC``; plant a fault
-    (the carries between chunks dropped) that the same limit rejects;
-    time both routes by CUDA-graph replay and back to back beside the
-    bound, the MUFU floor and the plain version;
+14b. hold the dt route, with the mixer's gate in its epilogue, against
+    its plain version on the card at Jamba's prefill (u and dt [1, 65536,
+    8192] bf16, the plain version in blocks of steps chained through h)
+    and decode-step shapes, at the chunk's edges and off the state
+    sizes, each asserted on its route and as no launch of the fused
+    route, the gated out within ``SSM_GATE_TOL_BF16`` (bf16) or
+    ``SSM_TOL_FRAC`` and h within ``SSM_TOL_FRAC``; plant a fault (the
+    carries between chunks dropped) that the out's limit rejects; time
+    both routes by CUDA-graph replay and back to back beside the bound,
+    the MUFU floor and the plain version; then the Mamba conv kernel
+    against its plain version (within one ulp, the window bit for bit)
+    and timed the same way at the prefill and decode shapes;
 15b. the stage's prefill at batch 4, prompt 2048, then 31 greedy decode
     steps, every launch counter read around each: per prefill one flash
-    launch, 4 dispatch launches and 7 dt-route launches, all chunked;
-    per decode step 4 dispatch and 7 dt-route launches, all step;
-    teacher-forced decode and the kept logits against the forward pass;
-    then the benchmark cell's request twice (``serve.greedy_request``:
-    65,536 prompt tokens, 16 decode steps): 7 chunked and 112 step
-    dt-route launches, 68 dispatch and 1 flash launch each.
+    launch, 4 dispatch launches and 7 dt-route and 7 conv launches, all
+    chunked; per decode step 4 dispatch and 7 dt-route and 7 conv
+    launches, all step; teacher-forced decode and the kept logits
+    against the forward pass; then the benchmark cell's request twice
+    (``serve.greedy_request``: 65,536 prompt tokens, 16 decode steps): 7
+    chunked and 112 step dt-route and conv launches, 68 dispatch and 1
+    flash launch each.
 
 Slice 7, training at the full width and depth of Llama-3.2-1B (16
 layers, d_model 2048, 32/8 heads, head dim 64, vocab 128256, bf16 params,
@@ -421,6 +426,7 @@ def kernel_modules() -> dict:
     counter that its wrapper raises by one per kernel launch."""
     from repro_torch.kernels.flash_attention import backward as bmod
     from repro_torch.kernels.flash_attention import kernel as fmod
+    from repro_torch.kernels.mamba_conv import kernel as cmod
     from repro_torch.kernels.moe_dispatch import kernel as dmod
     from repro_torch.kernels.rmsnorm import kernel as rmod
     from repro_torch.kernels.segment_reduce import kernel as kmod
@@ -429,7 +435,8 @@ def kernel_modules() -> dict:
     from repro_torch.kernels.topk_reduce import kernel as tmod
     return {"segment_sum": kmod, "flash_attention": fmod, "rmsnorm": rmod,
             "moe_dispatch": dmod, "topk_reduce": tmod, "ssm_scan": smod,
-            "flash_attention_bwd": bmod, "ssm_scan_bwd": sbmod}
+            "flash_attention_bwd": bmod, "ssm_scan_bwd": sbmod,
+            "mamba_conv": cmod}
 
 
 def reset_launches() -> None:
@@ -450,6 +457,7 @@ FLASH_BWD_ROUTES: dict = {}
 FLASH_BWD_SHAPES: dict = {}
 SSM_ROUTES: dict = {}
 SSM_DT_ROUTES: dict = {}
+CONV_ROUTES: dict = {}
 SSM_BWD_ROUTES: dict = {}
 SEGMENT_ROUTES: dict = {}
 DISPATCH_ROUTES: dict = {}
@@ -462,7 +470,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                   flash_shapes: Optional[dict] = None,
                   bwd_shapes: Optional[dict] = None,
                   dt_routes: Optional[dict] = None,
-                  exchanges: Optional[dict] = None) -> dict:
+                  exchanges: Optional[dict] = None,
+                  conv_routes: Optional[dict] = None) -> dict:
     """Every kernel's launches since :func:`reset_launches`, kept under
     ``path``; raises unless each kernel named in ``expect`` launched
     exactly that often and every other kernel not at all, unless every
@@ -475,7 +484,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     ``ssm_routes`` says (none on any route when it is None), unless the
     scan's dt route (kernel ``ssm_scan_dt``, counted in the scan module's
     ``DT_LAUNCHES``) split by route as ``dt_routes`` says (none when it is
-    None), unless every
+    None), unless the Mamba mixer's conv (kernel ``mamba_conv``) split by
+    route as ``conv_routes`` says (none when it is None), unless every
     SSM backward launch took the ``scan`` route, and unless
     flash's launches split by shape as ``flash_shapes`` says and the flash
     backward's as ``bwd_shapes`` says, and the exchange's (kernel
@@ -490,6 +500,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     routes = dict(mods["flash_attention"].LAUNCHES_BY_ROUTE)
     ssm = dict(mods["ssm_scan"].LAUNCHES_BY_ROUTE)
     ssm_dt = dict(mods["ssm_scan"].DT_LAUNCHES_BY_ROUTE)
+    conv = dict(mods["mamba_conv"].LAUNCHES_BY_ROUTE)
     ssm_bwd = dict(mods["ssm_scan_bwd"].LAUNCHES_BY_ROUTE)
     seg = dict(mods["segment_sum"].LAUNCHES_BY_ROUTE)
     disp = dict(mods["moe_dispatch"].LAUNCHES_BY_ROUTE)
@@ -504,6 +515,7 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
     FLASH_SHAPES[path] = shapes
     SSM_ROUTES[path] = ssm
     SSM_DT_ROUTES[path] = ssm_dt
+    CONV_ROUTES[path] = conv
     SSM_BWD_ROUTES[path] = ssm_bwd
     SEGMENT_ROUTES[path] = seg
     DISPATCH_ROUTES[path] = disp
@@ -518,12 +530,13 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                 for r in bwd}
     want_ssm = {r: (ssm_routes or {}).get(r, 0) for r in ssm}
     want_dt = {r: (dt_routes or {}).get(r, 0) for r in ssm_dt}
+    want_conv = {r: (conv_routes or {}).get(r, 0) for r in conv}
     want_ssm_bwd = {r: got["ssm_scan_bwd"] * (r == "scan") for r in ssm_bwd}
     want_seg = {r: got["segment_sum"] * (r == "binned") for r in seg}
     want_disp = {r: got["moe_dispatch"] * (r == "cluster") for r in disp}
     want_topk = {r: got["topk_reduce"] * (r == "select") for r in topk}
     if (got != want or routes != want_routes or bwd != want_bwd
-            or ssm != want_ssm or ssm_dt != want_dt
+            or ssm != want_ssm or ssm_dt != want_dt or conv != want_conv
             or ssm_bwd != want_ssm_bwd
             or seg != want_seg or disp != want_disp
             or topk != want_topk
@@ -533,7 +546,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
         raise AssertionError(f"{path}: launches {got}, flash by route "
                              f"{routes}, flash backward by route {bwd}, "
                              f"ssm_scan by route {ssm}, ssm_scan_dt by "
-                             f"route {ssm_dt}, ssm_scan_bwd by "
+                             f"route {ssm_dt}, mamba_conv by route "
+                             f"{conv}, ssm_scan_bwd by "
                              f"route {ssm_bwd}, "
                              f"segment_sum by route {seg}, moe_dispatch "
                              f"by route {disp}, topk_reduce by route "
@@ -541,7 +555,8 @@ def read_launches(path: str, expect: dict, flash_route: str = "wgmma",
                              f"shape {shapes}, flash backward by shape "
                              f"{bwd_by_shape}; expected {want}, "
                              f"{want_routes}, {want_bwd}, {want_ssm}, "
-                             f"{want_dt}, {want_ssm_bwd}, {want_seg}, "
+                             f"{want_dt}, {want_conv}, {want_ssm_bwd}, "
+                             f"{want_seg}, "
                              f"{want_disp}, {want_topk}, {exchanges}, "
                              f"{flash_shapes}, {bwd_shapes}")
     return got
@@ -3502,20 +3517,21 @@ def ssm_serial(xc, x_proj, dt_bias, a_log, h0):
     return y, h
 
 
-def ssm_compare(name, got, want) -> tuple:
+def ssm_compare(name, got, want, y_tol: float = SSM_TOL_FRAC) -> tuple:
     """(max abs error, its fraction of the largest |value|) over y and h;
-    raises past SSM_TOL_FRAC."""
+    raises past ``y_tol`` (y's) or SSM_TOL_FRAC (h's)."""
     err = frac = 0.0
-    for what, a, b in zip(("y", "h"), got, want):
+    for what, a, b, tol in zip(("y", "h"), got, want,
+                               (y_tol, SSM_TOL_FRAC)):
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"ssm {name} {what}: {a.dtype}"
                                  f"{tuple(a.shape)} vs {b.dtype}"
                                  f"{tuple(b.shape)}")
-        e = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        if not e <= SSM_TOL_FRAC * scale:
+        e = float((a.float() - b.float()).abs().max())
+        scale = float(b.float().abs().max())
+        if not e <= tol * scale:
             raise AssertionError(f"ssm {name} {what}: max abs err {e} > "
-                                 f"{SSM_TOL_FRAC} x {scale}")
+                                 f"{tol} x {scale}")
         err, frac = max(err, e), max(frac, e / max(scale, 1e-30))
     return err, frac
 
@@ -3894,8 +3910,18 @@ SSM_DT_REPLACES = ("none: the reference has no Jamba (a second route of "
 SSM_DT_PLAIN_BLOCK = 4096
 # the planted fault: the plain version with the chunks' carries dropped
 # (each chunk of the kernel's CHUNK steps from a zero state), over this
-# many of the prefill's first steps; SSM_TOL_FRAC has to reject it
+# many of the prefill's first steps; the out's limit has to reject it
 SSM_DT_FAULT_STEPS = 4096
+# the gated out in bfloat16 against the plain version in the same
+# roundings: y + d_skip u and the product are each rounded once, so a y
+# within SSM_TOL_FRAC can land one bfloat16 ulp away (2^-7 of the
+# largest |out| at most) at each
+SSM_GATE_TOL_BF16 = SSM_TOL_FRAC + 2 * 2 ** -7
+
+
+def ssm_gate_tol(dtype) -> float:
+    import torch
+    return SSM_GATE_TOL_BF16 if dtype == torch.bfloat16 else SSM_TOL_FRAC
 
 
 def ssm_dt_inputs(dev, g, b, t, d, n, dtype, carried: bool):
@@ -3905,7 +3931,9 @@ def ssm_dt_inputs(dev, g, b, t, d, n, dtype, carried: bool):
     inverse softplus of a dt drawn log-uniform in [0.001, 0.1], so that a
     state decays over tens to thousands of steps and reaches the next
     chunks through the carries; a_log log(1..n); h0 zero (a prefill) or
-    carried (a decode step)."""
+    carried (a decode step); the gate z (~N(0, 1)) the second half of a
+    [b, t, 2d] tensor, read in place as the mixer's; d_skip ones (Mamba's
+    initialisation) plus N(0, 0.5^2)."""
     import math
 
     import torch
@@ -3922,20 +3950,21 @@ def ssm_dt_inputs(dev, g, b, t, d, n, dtype, carried: bool):
                                                        device=dev)
     return (torch.nn.functional.silu(rn(b, t, d)).to(dtype),
             rn(b, t, d).to(dtype), dt_bias, rn(b, t, n).to(dtype),
-            rn(b, t, n).to(dtype), a_log, h0)
+            rn(b, t, n).to(dtype), a_log, h0,
+            rn(b, t, 2 * d).to(dtype)[..., d:], 1.0 + 0.5 * rn(d))
 
 
-def ssm_dt_plain(u, dt, dt_bias, bm, cm, a_log, h0) -> tuple:
-    """The dt route's plain version (``ref.ssm_scan_dt_ref``) over blocks
-    of SSM_DT_PLAIN_BLOCK steps, each from the last one's final state:
-    the same recurrence, one step after another."""
+def ssm_dt_plain(u, dt, dt_bias, bm, cm, a_log, h0, z, d_skip) -> tuple:
+    """The dt route's plain version (``ref.ssm_scan_dt_ref``, the gate
+    included) over blocks of SSM_DT_PLAIN_BLOCK steps, each from the last
+    one's final state: the same recurrence, one step after another."""
     import torch
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_dt_ref
     ys, h = [], h0
     for t0 in range(0, u.shape[1], SSM_DT_PLAIN_BLOCK):
         sl = slice(t0, t0 + SSM_DT_PLAIN_BLOCK)
         y, h = ssm_scan_dt_ref(u[:, sl], dt[:, sl], dt_bias, bm[:, sl],
-                               cm[:, sl], a_log, h)
+                               cm[:, sl], a_log, h, z[:, sl], d_skip)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -3963,16 +3992,17 @@ def ssm_dt_checked(name, args) -> tuple:
     want = ssm_dt_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err, frac = ssm_compare(f"dt {name}", got, want)
+    err, frac = ssm_compare(f"dt {name}", got, want, ssm_gate_tol(u.dtype))
     return want_route, got, err, frac, plain_ms
 
 
 def ssm_dt_kernel_phase(dev, d: int, n: int) -> dict:
-    """The dt route vs its plain version at Jamba's prefill (1 x 65,536 x
-    d, bf16) and decode-step shapes, at the chunk's edges and off the
-    state sizes, each on the route it should take, within SSM_TOL_FRAC of
-    the largest |y| and |h|; a planted fault (the carries between chunks
-    dropped) that the same limit rejects; then both routes timed by graph
+    """The dt route with the mixer's gate vs its plain version at Jamba's
+    prefill (1 x 65,536 x d, bf16) and decode-step shapes, at the chunk's
+    edges and off the state sizes, each on the route it should take, the
+    gated out within :func:`ssm_gate_tol` of its largest |value| and h
+    within SSM_TOL_FRAC; a planted fault (the carries between chunks
+    dropped) that the out's limit rejects; then both routes timed by graph
     replay and back to back beside their bound, the MUFU floor and the
     plain version."""
     import torch
@@ -4020,23 +4050,27 @@ def ssm_dt_kernel_phase(dev, d: int, n: int) -> dict:
     def by_chunk(v):
         return v[:, :steps].reshape(chunks, L, v.shape[2]).contiguous()
 
-    u, dtv, dt_bias, bm, cm, a_log, h0 = args
+    u, dtv, dt_bias, bm, cm, a_log, h0, z, d_skip = args
+    tol = ssm_gate_tol(u.dtype)
     y_fault, _ = ssm_scan_dt_ref(by_chunk(u), by_chunk(dtv), dt_bias,
                                  by_chunk(bm), by_chunk(cm), a_log,
-                                 torch.zeros((chunks, d, n), device=dev))
-    y_fault = y_fault.reshape(1, steps, d)
+                                 torch.zeros((chunks, d, n), device=dev),
+                                 by_chunk(z), d_skip)
+    y_fault = y_fault.reshape(1, steps, d).float()
     y_want, _ = ssm_dt_plain(u[:, :steps], dtv[:, :steps], dt_bias,
-                             bm[:, :steps], cm[:, :steps], a_log, h0)
+                             bm[:, :steps], cm[:, :steps], a_log, h0,
+                             z[:, :steps], d_skip)
+    y_want = y_want.float()
     scale = float(y_want.abs().max())
     fault_frac = float((y_fault - y_want).abs().max()) / scale
-    own_frac = float((y[:, :steps] - y_want).abs().max()) / scale
+    own_frac = float((y[:, :steps].float() - y_want).abs().max()) / scale
     del y_fault, y_want
-    if not fault_frac > SSM_TOL_FRAC:
+    if not fault_frac > tol:
         raise AssertionError(f"ssm dt planted fault (carries dropped) reads "
-                             f"{fault_frac}, within SSM_TOL_FRAC")
+                             f"{fault_frac}, within the out's limit {tol}")
     phase("ssm dt planted fault", t0,
           f"carries dropped over the first {steps} steps: frac_of_max="
-          f"{fault_frac:.3e} > tol_frac={SSM_TOL_FRAC} (the kernel there: "
+          f"{fault_frac:.3e} > tol_frac={tol} (the kernel there: "
           f"{own_frac:.3e})")
 
     t0 = time.perf_counter()
@@ -4050,7 +4084,8 @@ def ssm_dt_kernel_phase(dev, d: int, n: int) -> dict:
     bnd_dec, by_dec = work.ssm_dt(1, 1, d, n, 2).bound()
     one_pass, floor = ssm_mufu_floor_ms(1, JAMBA_PROMPT, d, n, L)
     phase("ssm dt timing", t0,
-          f"prefill u={tuple(args[0].shape)} bf16 chunked graph_ms={ms:.4f}"
+          f"prefill u={tuple(args[0].shape)} bf16 chunked, gated "
+          f"graph_ms={ms:.4f}"
           f" back_to_back_ms={b2b:.4f} plain_ms={plain['prefill']:.1f} "
           f"bound_ms={bnd:.4f} ({by}) mufu_floor_ms={floor:.4f} (one pass "
           f"{one_pass:.4f}); decode step graph_ms={ms_dec:.6f} "
@@ -4061,12 +4096,130 @@ def ssm_dt_kernel_phase(dev, d: int, n: int) -> dict:
             "replaces": SSM_DT_REPLACES, "launches": None,
             "max_abs_err": max(errs.values()),
             "max_err_frac_of_max": max(fracs.values()),
-            "planted_fault_frac_of_max": fault_frac, "ms": ms,
+            "planted_fault_frac_of_max": fault_frac, "gated": True,
+            "ms": ms,
             "timed": "CUDA graph replay", "back_to_back_ms": b2b,
             "plain_ms": plain["prefill"], "bound_ms": bnd, "bound_by": by,
             "mufu_floor_ms": floor, "library_ms": None,
             "library": "none: no single PyTorch call computes a selective "
                        "scan",
+            "decode_ms": ms_dec, "decode_timed": "CUDA graph replay",
+            "decode_back_to_back_ms": b2b_dec, "decode_plain_ms": plain_dec,
+            "decode_bound_ms": bnd_dec}
+
+
+CONV_SOURCE = "src/repro_torch/csrc/mamba_conv.cu"
+CONV_REPLACES = ("none: the reference has no Jamba (the mixer's tensor "
+                 "code: a float32 pass a tap, the bias, SiLU and a cast)")
+
+
+def conv_inputs(dev, g, b, t, d, k, dtype, carried: bool):
+    """xi the first half of a [b, t, 2d] in-projection output (read in
+    place, as the mixer's), conv_w and conv_b ~N(0, 0.5^2), the window
+    carried rows or zeros (a prefill's)."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+    win = rn(b, k - 1, d) if carried else torch.zeros((b, k - 1, d),
+                                                      device=dev)
+    return (rn(b, t, 2 * d).to(dtype)[..., :d], (0.5 * rn(k, d)).to(dtype),
+            (0.5 * rn(d)).to(dtype), win.to(dtype))
+
+
+def conv_ulps(got, want) -> float:
+    """The largest |got - want| in units of the type's ulp at |want|."""
+    import torch
+    bits = 7 if want.dtype == torch.bfloat16 else 23
+    _, e = torch.frexp(want.float())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                      e - 1 - bits)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def mamba_conv_phase(dev, d: int, k: int) -> dict:
+    """The Mamba mixer's conv kernel vs its plain version (the mixer's
+    conv as it was) at Jamba's prefill (1 x 65,536 x d, bf16, a zero
+    window) and decode-step shapes, odd T with a carried window, a partial
+    last step tile, and float32, each one launch on the route the scan's
+    :func:`route` names: u within one ulp of its type (the share
+    bit-equal printed), the new window bit for bit; then both shapes
+    timed by graph replay and back to back beside the bound and the plain
+    version."""
+    import torch
+    from repro_torch.kernels import work
+    from repro_torch.kernels.mamba_conv import kernel as cmod
+    from repro_torch.kernels.mamba_conv.ref import mamba_conv_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        # name, b, t, d, dtype, carried window
+        ("prefill", 1, JAMBA_PROMPT, d, bf16, False),
+        ("decode", 1, 1, d, bf16, True),
+        ("T=7 carried", 1, 7, d, bf16, True),
+        ("T=2 (below K-1)", 2, 2, 256, bf16, True),
+        ("b=3 T=130 d=1000 (a partial last tile)", 3, 130, 1000, bf16,
+         True),
+        ("float32", 2, 300, 1024, f32, True),
+    ]
+    g = torch.Generator(device=dev).manual_seed(59)
+    ulps, equal, keep, plain = {}, {}, {}, {}
+    for name, b, t, dd, dt, carried in cases:
+        t0 = time.perf_counter()
+        args = conv_inputs(dev, g, b, t, dd, k, dt, carried)
+        want_route = "step" if t == 1 else "chunked"
+        before = dict(cmod.LAUNCHES_BY_ROUTE)
+        got = cmod.mamba_conv(*args)
+        torch.cuda.synchronize()
+        moved = {r: cmod.LAUNCHES_BY_ROUTE[r] - before[r] for r in before}
+        if moved != {r: int(r == want_route) for r in moved}:
+            raise AssertionError(f"mamba conv {name}: launches by route "
+                                 f"{moved}, expected one on {want_route}")
+        t1 = time.perf_counter()
+        want = mamba_conv_ref(*args)
+        torch.cuda.synchronize()
+        plain[name] = (time.perf_counter() - t1) * 1e3
+        ulps[name] = conv_ulps(got[0], want[0])
+        equal[name] = float((got[0] == want[0]).float().mean())
+        if not ulps[name] <= 1.0 or not torch.equal(got[1], want[1]):
+            raise AssertionError(f"mamba conv {name}: u {ulps[name]} ulps "
+                                 f"from plain, window equal "
+                                 f"{torch.equal(got[1], want[1])}")
+        phase(f"mamba conv check {name}", t0,
+              f"xi={tuple(args[0].shape)} row_stride={args[0].stride(1)} "
+              f"{dt} carried={carried} route={want_route} max_ulps="
+              f"{ulps[name]} bit_equal_share={equal[name]:.6f} window "
+              f"bit-equal plain_ms={plain[name]:.1f}")
+        if name in ("prefill", "decode"):
+            keep[name] = args
+        del args, got, want
+
+    t0 = time.perf_counter()
+    pre, dec = keep["prefill"], keep["decode"]
+    ms = graph_ms(lambda: cmod.mamba_conv(*pre), reps=10)
+    b2b = cuda_ms(lambda: cmod.mamba_conv(*pre), reps=10)
+    plain_b2b = cuda_ms(lambda: mamba_conv_ref(*pre), reps=5, warmup=1)
+    ms_dec = graph_ms(lambda: cmod.mamba_conv(*dec))
+    b2b_dec = cuda_ms(lambda: cmod.mamba_conv(*dec))
+    plain_dec = cuda_ms(lambda: mamba_conv_ref(*dec))
+    bnd, by = work.mamba_conv(1, JAMBA_PROMPT, d, k, 2).bound()
+    bnd_dec, by_dec = work.mamba_conv(1, 1, d, k, 2).bound()
+    phase("mamba conv timing", t0,
+          f"prefill xi={tuple(pre[0].shape)} bf16 graph_ms={ms:.4f} "
+          f"back_to_back_ms={b2b:.4f} plain_back_to_back_ms="
+          f"{plain_b2b:.4f} bound_ms={bnd:.4f} ({by}); decode step "
+          f"graph_ms={ms_dec:.6f} back_to_back_ms={b2b_dec:.5f} "
+          f"plain_back_to_back_ms={plain_dec:.4f} bound_ms={bnd_dec:.6f} "
+          f"({by_dec}); library: none")
+    del keep, pre, dec
+    return {"name": "mamba_conv", "route": "cuda", "source": CONV_SOURCE,
+            "replaces": CONV_REPLACES, "launches": None,
+            "max_ulps": max(ulps.values()),
+            "bit_equal_share": min(equal.values()), "ms": ms,
+            "timed": "CUDA graph replay", "back_to_back_ms": b2b,
+            "plain_ms": plain_b2b, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes a causal "
+                       "conv with its bias and SiLU",
             "decode_ms": ms_dec, "decode_timed": "CUDA graph replay",
             "decode_back_to_back_ms": b2b_dec, "decode_plain_ms": plain_dec,
             "decode_bound_ms": bnd_dec}
@@ -4090,7 +4243,7 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
     read around each (flash once per attention layer in the prefill, the
     dispatch once per MoE layer in both, the dt route once per Mamba
     layer on ``chunked`` in the prefill and on ``step`` in each decode
-    step, nothing else); the teacher-forced check (the kept logits and
+    step, and the conv the same, nothing else); the teacher-forced check (the kept logits and
     TEACHER_FORCED decode steps against the forward pass); then the
     benchmark cell's request (``launch.serve.greedy_request``, batch 1,
     ``request`` = (prompt, decode steps)) twice, its launches read, the
@@ -4133,7 +4286,8 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
         prefill_s = time.perf_counter() - t1
         read_launches(f"{JAMBA_ARCH} prefill", {
             "flash_attention": attn, "moe_dispatch": moe,
-            "ssm_scan_dt": mamba}, dt_routes={"chunked": mamba})
+            "ssm_scan_dt": mamba, "mamba_conv": mamba},
+            dt_routes={"chunked": mamba}, conv_routes={"chunked": mamba})
         reset_launches()
         tok = torch.argmax(logits[:, -1], dim=-1)
         out = [tok]
@@ -4146,8 +4300,10 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
         decode_s = (time.perf_counter() - t1) / max(gen - 1, 1)
         read_launches(f"{JAMBA_ARCH} decode", {
             "moe_dispatch": moe * (gen - 1),
-            "ssm_scan_dt": mamba * (gen - 1)},
-            dt_routes={"step": mamba * (gen - 1)})
+            "ssm_scan_dt": mamba * (gen - 1),
+            "mamba_conv": mamba * (gen - 1)},
+            dt_routes={"step": mamba * (gen - 1)},
+            conv_routes={"step": mamba * (gen - 1)})
     run = serve.SmokeRun(model=model, params=params,
                          batch={"tokens": tokens}, logits=logits, cache=None,
                          generated=torch.stack(out, 1).cpu().numpy(),
@@ -4157,8 +4313,9 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
           f"batch={batch} prompt={prompt} gen={gen} prefill_ms="
           f"{prefill_s * 1e3:.3f} decode_ms_per_token={decode_s * 1e3:.3f}"
           f" launches: prefill flash_attention={attn} moe_dispatch={moe} "
-          f"ssm_scan_dt chunked={mamba}; decode ssm_scan_dt step="
-          f"{mamba * (gen - 1)} moe_dispatch={moe * (gen - 1)}; generated "
+          f"ssm_scan_dt and mamba_conv chunked={mamba}; decode ssm_scan_dt "
+          f"and mamba_conv step={mamba * (gen - 1)} moe_dispatch="
+          f"{moe * (gen - 1)}; generated "
           f"{run.generated[:2].tolist()}")
     want = (batch, cfg.logits_to_keep, cfg.vocab_size)
     if logits.shape != want or not bool(torch.isfinite(logits).all()) or \
@@ -4170,8 +4327,8 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
     teacher_forced(run, launches={
         "path": f"{JAMBA_ARCH} forward",
         "expect": {"flash_attention": attn, "moe_dispatch": moe,
-                   "ssm_scan_dt": mamba},
-        "dt_routes": {"chunked": mamba}})
+                   "ssm_scan_dt": mamba, "mamba_conv": mamba},
+        "dt_routes": {"chunked": mamba}, "conv_routes": {"chunked": mamba}})
     del run, logits
 
     req_prompt, req_gen = request
@@ -4185,8 +4342,10 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
         answer = serve.greedy_request(model, params, ids, req_gen)
         read_launches(f"{JAMBA_ARCH} request", {
             "flash_attention": attn, "moe_dispatch": moe * (req_gen + 1),
-            "ssm_scan_dt": mamba * (req_gen + 1)},
-            dt_routes={"chunked": mamba, "step": mamba * req_gen})
+            "ssm_scan_dt": mamba * (req_gen + 1),
+            "mamba_conv": mamba * (req_gen + 1)},
+            dt_routes={"chunked": mamba, "step": mamba * req_gen},
+            conv_routes={"chunked": mamba, "step": mamba * req_gen})
         if not bool(torch.isfinite(answer.logits).all()) or tuple(
                 answer.ids.shape) != (1, req_gen + 1):
             raise AssertionError(f"request: ids {tuple(answer.ids.shape)} "
@@ -4198,23 +4357,29 @@ def jamba_stage(seed: int, cfg=None, batch: int = BATCH,
               f"{ph['prefill'] * 1e3:.1f} decode_ms_per_step="
               f"{ph['decode'] * 1e3 / req_gen:.2f} peak_alloc_gb="
               f"{torch.cuda.max_memory_allocated() / 1e9:.3f} launches: "
-              f"ssm_scan_dt chunked={mamba} step={mamba * req_gen} "
+              f"ssm_scan_dt and mamba_conv chunked={mamba} step="
+              f"{mamba * req_gen} "
               f"moe_dispatch={moe * (req_gen + 1)} flash_attention={attn}")
         del answer
 
 
-def jamba_slice(seed: int) -> dict:
-    """The dt route's checks and timings, then one Jamba stage serving at
-    full width; returns the dt route's JSON record."""
+def jamba_slice(seed: int) -> list:
+    """The gated dt route's and the conv kernel's checks and timings, then
+    one Jamba stage serving at full width; returns the two kernels' JSON
+    records."""
     import torch
     from repro_torch.configs import get_config
     cfg = get_config(JAMBA_ARCH)
-    rec = ssm_dt_kernel_phase(torch.device("cuda"),
-                              cfg.d_model * cfg.ssm_expand, cfg.ssm_state)
+    di = cfg.d_model * cfg.ssm_expand
+    dev = torch.device("cuda")
+    recs = [ssm_dt_kernel_phase(dev, di, cfg.ssm_state)]
+    torch.cuda.empty_cache()
+    recs.append(mamba_conv_phase(dev, di, cfg.ssm_conv))
     torch.cuda.empty_cache()
     jamba_stage(seed)
-    rec["launches"] = PATH_LAUNCHES[f"{JAMBA_ARCH} request"]["ssm_scan_dt"]
-    return rec
+    for rec in recs:
+        rec["launches"] = PATH_LAUNCHES[f"{JAMBA_ARCH} request"][rec["name"]]
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -6375,7 +6540,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     records.append(hybrid_slice(args.seed))
     torch.cuda.empty_cache()
-    records.append(jamba_slice(args.seed))
+    records += jamba_slice(args.seed)
     torch.cuda.empty_cache()
     train_tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
@@ -6400,6 +6565,7 @@ def main() -> int:
                     "flash_attention_bwd": FLASH_BWD_ROUTES,
                     "ssm_scan": SSM_ROUTES,
                     "ssm_scan_dt": SSM_DT_ROUTES,
+                    "mamba_conv": CONV_ROUTES,
                     "ssm_scan_bwd": SSM_BWD_ROUTES,
                     "segment_sum": SEGMENT_ROUTES,
                     "moe_dispatch": DISPATCH_ROUTES,

@@ -938,11 +938,16 @@ int launch_step(const void* xc_, const void* x_proj, const float* dt_bias,
 // after a norm, one a channel and step, and norms B and C before the scan,
 // so the projection the routes above fuse lies outside.  The caller gives
 //   u [b, T, d], dt [b, T, d] (before dt_bias and softplus), B and C
-//   [b, T, n], all of one type (float32 or bfloat16),
+//   [b, T, n], all of one type T (float32 or bfloat16), the gate z [b, T,
+//   d] of T read through its row stride zs (the second half of the
+//   in-projection's [b, T, 2 d] output, in place) and d_skip [d] float32,
 // and the route computes, in float32 from h0,
 //   dt' = softplus(dt + dt_bias[d]);  a = exp(-exp(a_log[d,n]) * dt')
 //   h = a * h + (dt' * u) * B;        y = sum_n h * C
-// writing y [b, T, d] and the final h [b, d, n] as the routes above.
+// and writes, in the mixer's own three roundings to T (gate_out),
+//   out = T(T(y + d_skip * u) * T(silu(z)))     [b, T, d] of T
+// and the final h [b, d, n] float32.  y never leaves the registers: the
+// mixer's float32 y, its d_skip pass, cast, SiLU and product are gone.
 //
 // Chunked (T > 1): the fused route's passes 2-4 with the projection pass
 // gone.  ssm_dt_chunk_end and ssm_dt_chunk_scan stage a chunk's B and C
@@ -954,12 +959,34 @@ int launch_step(const void* xc_, const void* x_proj, const float* dt_bias,
 // up to a power of two), y summed over the lanes by shuffles; h0, h_out
 // and a_log are read and written coalesced.
 //
-// What bounds it: u and dt read twice (passes 2 and 4) and y written once
-// are ~6.4 GB at Jamba's 65,536 x 8,192 prefill (~1.9 ms at 3.35 TB/s);
-// the two passes' exp a state-step, ~17 G on the MUFU units (16 a clock
-// an SM), ~4.1 ms: the same MUFU floor as the fused route's.
+// What bounds it: u and dt read twice (passes 2 and 4), z read once and
+// out written once are ~6.4 GB at Jamba's 65,536 x 8,192 prefill (~1.9 ms
+// at 3.35 TB/s; the same bytes as a float32 y); the two passes' exp a
+// state-step, ~17 G on the MUFU units (16 a clock an SM), ~4.1 ms: the
+// same MUFU floor as the fused route's.  The gate adds one exp a
+// channel-step in pass 4, 1/32 of pass 4's.
 
 constexpr int DT_STEP_THREADS = 256;
+
+__device__ __forceinline__ float round_to(float x, float) { return x; }
+__device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// The mixer's gate after the scan, in its three roundings to T: T(y +
+// d_skip * u) (PyTorch's addcmul on the card: one fma), T(silu(z)) (z /
+// (1 + exp(-z)) in float32, as PyTorch's SiLU), and their product.
+template <typename T>
+__device__ __forceinline__ void gate_out(T* p, float y, float x, float z,
+                                         float d_skip) {
+  const float a = round_to(fmaf(x, d_skip, y), T());
+  const float g = round_to(z / (1.f + expf(-z)), T());
+  put(p, a * g);
+}
 
 // Rows t in [0, len) of B and C ([len, n] each, of type T) into ps as rows
 // of 2 NS floats: B at [0, n), C at [NS, NS + n), zeros past n.
@@ -1005,36 +1032,42 @@ __device__ __forceinline__ float dt_step(float (&h)[NS], const float (&A2)[NS],
   return dt;
 }
 
-// A chunk's steps [0, len) by one thread, u and dt loaded four steps at a
-// time.  Y: write y (pass 4); else only advance h (pass 2).
+// A chunk's steps [0, len) by one thread, u, dt (and z) loaded four steps
+// at a time.  Y: write the gated out (pass 4, z at row stride zs); else
+// only advance h (pass 2).
 template <typename T, int NS, bool Y>
 __device__ __forceinline__ float dt_walk(float (&h)[NS], const float (&A2)[NS],
                                          const float* ps, const T* ub,
-                                         const T* db, float* yb, int len,
-                                         int d, float bias) {
+                                         const T* db, const T* zb, int zs,
+                                         T* ob, int len, int d, float bias,
+                                         float d_skip) {
   constexpr int R = 2 * NS;
   float sum_dt = 0.f;
   int t = 0;
   for (; t + 4 <= len; t += 4) {
-    float xv[4], dv[4];
+    float xv[4], dv[4], zv[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       xv[u] = to_f(ub[(int64_t)(t + u) * d]);
       dv[u] = to_f(db[(int64_t)(t + u) * d]);
+      if (Y) zv[u] = to_f(zb[(int64_t)(t + u) * zs]);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float yv;
       sum_dt += dt_step<NS, Y>(h, A2, ps + (t + u) * R, xv[u], dv[u], bias,
                                &yv);
-      if (Y) yb[(int64_t)(t + u) * d] = yv;
+      if (Y) gate_out(ob + (int64_t)(t + u) * d, yv, xv[u], zv[u], d_skip);
     }
   }
   for (; t < len; ++t) {
     float yv;
-    sum_dt += dt_step<NS, Y>(h, A2, ps + t * R, to_f(ub[(int64_t)t * d]),
-                             to_f(db[(int64_t)t * d]), bias, &yv);
-    if (Y) yb[(int64_t)t * d] = yv;
+    const float xv = to_f(ub[(int64_t)t * d]);
+    sum_dt += dt_step<NS, Y>(h, A2, ps + t * R, xv, to_f(db[(int64_t)t * d]),
+                             bias, &yv);
+    if (Y)
+      gate_out(ob + (int64_t)t * d, yv, xv, to_f(zb[(int64_t)t * zs]),
+               d_skip);
   }
   return sum_dt;
 }
@@ -1060,8 +1093,8 @@ ssm_dt_chunk_end(const T* __restrict__ u, const T* __restrict__ dtr,
 #pragma unroll
   for (int s = 0; s < NS; ++s) h[s] = 0.f;
   const float sum_dt = dt_walk<T, NS, false>(
-      h, A2, ps, u + row0 * d + ch, dtr + row0 * d + ch, nullptr, CHUNK, d,
-      dt_bias[ch]);
+      h, A2, ps, u + row0 * d + ch, dtr + row0 * d + ch, nullptr, 0, nullptr,
+      CHUNK, d, dt_bias[ch], 0.f);
   const int64_t at = (int64_t)b * ncm + c;
   dt_sum[at * d + ch] = sum_dt;
 #pragma unroll
@@ -1070,16 +1103,17 @@ ssm_dt_chunk_end(const T* __restrict__ u, const T* __restrict__ dtr,
 }
 
 // Pass 4 of the dt route: block (d-tile, chunk c < nc, b), as
-// ssm_chunk_scan.
+// ssm_chunk_scan, writing the gated out.
 template <typename T, int NS>
 __global__ void __launch_bounds__(CHUNK_THREADS)
 ssm_dt_chunk_scan(const T* __restrict__ u, const T* __restrict__ dtr,
                   const T* __restrict__ bm, const T* __restrict__ cm,
-                  const float* __restrict__ dt_bias,
+                  const T* __restrict__ z, const float* __restrict__ dt_bias,
+                  const float* __restrict__ d_skip,
                   const float* __restrict__ a_log,
                   const float* __restrict__ h0, const float* __restrict__ h_in,
-                  float* __restrict__ y, float* __restrict__ h_out, int steps,
-                  int d, int n) {
+                  T* __restrict__ out, float* __restrict__ h_out, int steps,
+                  int d, int n, int zs) {
   __shared__ __align__(16) float ps[CHUNK * 2 * NS];
   const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
   const int t0 = c * CHUNK;
@@ -1098,8 +1132,8 @@ ssm_dt_chunk_scan(const T* __restrict__ u, const T* __restrict__ dtr,
     h[s] = s >= n ? 0.f
                   : c == 0 ? h0[state + s] : h_in[(at * n + s) * d + ch];
   const int64_t off = row0 * d + ch;
-  dt_walk<T, NS, true>(h, A2, ps, u + off, dtr + off, y + off, len, d,
-                       dt_bias[ch]);
+  dt_walk<T, NS, true>(h, A2, ps, u + off, dtr + off, z + row0 * zs + ch, zs,
+                       out + off, len, d, dt_bias[ch], d_skip[ch]);
   if (c == nc - 1) {
 #pragma unroll
     for (int s = 0; s < NS; ++s)
@@ -1108,14 +1142,16 @@ ssm_dt_chunk_scan(const T* __restrict__ u, const T* __restrict__ dtr,
 }
 
 // The dt route's step: thread (channel, lane) of batch row b, G lanes a
-// channel; lanes past n add 0 to y and store nothing.
+// channel; lanes past n add 0 to y and store nothing; lane 0 writes the
+// gated out.
 template <typename T>
 __global__ void __launch_bounds__(DT_STEP_THREADS)
 ssm_dt_step(const T* __restrict__ u, const T* __restrict__ dtr,
             const T* __restrict__ bm, const T* __restrict__ cm,
-            const float* __restrict__ dt_bias, const float* __restrict__ a_log,
-            const float* __restrict__ h0, float* __restrict__ y,
-            float* __restrict__ h_out, int d, int n, int G) {
+            const T* __restrict__ z, const float* __restrict__ dt_bias,
+            const float* __restrict__ d_skip, const float* __restrict__ a_log,
+            const float* __restrict__ h0, T* __restrict__ out,
+            float* __restrict__ h_out, int d, int n, int G, int zs) {
   const int lane = threadIdx.x % G;
   const int ch = blockIdx.x * (DT_STEP_THREADS / G) + threadIdx.x / G;
   const int b = blockIdx.y;
@@ -1124,7 +1160,8 @@ ssm_dt_step(const T* __restrict__ u, const T* __restrict__ dtr,
   const int c = min(ch, d - 1), s = min(lane, n - 1);
   const int64_t at = (int64_t)b * d + c;
   const float dt = softplus(to_f(dtr[at]) + dt_bias[c]);
-  const float dx = dt * to_f(u[at]);
+  const float x = to_f(u[at]);
+  const float dx = dt * x;
   const int64_t state = at * n + s;
   const float A2 = -expf(a_log[(int64_t)c * n + s]) * LOG2E;
   const float h =
@@ -1133,15 +1170,16 @@ ssm_dt_step(const T* __restrict__ u, const T* __restrict__ dtr,
   for (int off = G / 2; off > 0; off >>= 1)
     part += __shfl_xor_sync(0xffffffffu, part, off);
   if (active) h_out[state] = h;
-  if (lane == 0 && ch < d) y[(int64_t)b * d + ch] = part;
+  if (lane == 0 && ch < d)
+    gate_out(out + at, part, x, to_f(z[(int64_t)b * zs + c]), d_skip[c]);
 }
 
 template <typename T, int NS>
 int launch_dt_passes(const T* u, const T* dtr, const T* bm, const T* cm,
-                     const float* dt_bias, const float* a_log,
-                     const float* h0, float* h_end, float* dt_sum, float* y,
-                     float* h_out, int b, int steps, int d, int n,
-                     cudaStream_t stream) {
+                     const T* z, const float* dt_bias, const float* d_skip,
+                     const float* a_log, const float* h0, float* h_end,
+                     float* dt_sum, T* out, float* h_out, int b, int steps,
+                     int d, int n, int zs, cudaStream_t stream) {
   const int nc = (steps + CHUNK - 1) / CHUNK;
   const unsigned tiles = (unsigned)((d + CHUNK_THREADS - 1) / CHUNK_THREADS);
   int err = 0;
@@ -1159,27 +1197,31 @@ int launch_dt_passes(const T* u, const T* dtr, const T* bm, const T* cm,
   }
   ssm_dt_chunk_scan<T, NS>
       <<<dim3(tiles, (unsigned)nc, (unsigned)b), CHUNK_THREADS, 0,
-         stream>>>(u, dtr, bm, cm, dt_bias, a_log, h0, h_end, y, h_out, steps,
-                   d, n);
+         stream>>>(u, dtr, bm, cm, z, dt_bias, d_skip, a_log, h0, h_end, out,
+                   h_out, steps, d, n, zs);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dt_chunked(const void* u_, const void* dt_, const void* bm_,
-                      const void* cm_, const float* dt_bias,
-                      const float* a_log, const float* h0, float* h_end,
-                      float* dt_sum, float* y, float* h_out, int b, int steps,
-                      int d, int n, cudaStream_t stream) {
+                      const void* cm_, const void* z_, const float* dt_bias,
+                      const float* d_skip, const float* a_log,
+                      const float* h0, float* h_end, float* dt_sum,
+                      void* out_, float* h_out, int b, int steps, int d,
+                      int n, int zs, cudaStream_t stream) {
   if (b <= 0 || b > 65535 || steps <= 0 || d <= 0 || n <= 0 ||
-      n > MAX_STATE || (steps + CHUNK - 1) / CHUNK > 65535)
+      n > MAX_STATE || zs < d || (steps + CHUNK - 1) / CHUNK > 65535)
     return (int)cudaErrorInvalidValue;
   const T* u = static_cast<const T*>(u_);
   const T* dtr = static_cast<const T*>(dt_);
   const T* bm = static_cast<const T*>(bm_);
   const T* cm = static_cast<const T*>(cm_);
+  const T* z = static_cast<const T*>(z_);
+  T* out = static_cast<T*>(out_);
 #define SSM_DT_PASSES(NS)                                                  \
-  launch_dt_passes<T, NS>(u, dtr, bm, cm, dt_bias, a_log, h0, h_end, dt_sum, \
-                          y, h_out, b, steps, d, n, stream)
+  launch_dt_passes<T, NS>(u, dtr, bm, cm, z, dt_bias, d_skip, a_log, h0,   \
+                          h_end, dt_sum, out, h_out, b, steps, d, n, zs,   \
+                          stream)
   if (n <= 4) return SSM_DT_PASSES(4);
   if (n <= 8) return SSM_DT_PASSES(8);
   if (n <= 16) return SSM_DT_PASSES(16);
@@ -1189,10 +1231,11 @@ int launch_dt_chunked(const void* u_, const void* dt_, const void* bm_,
 
 template <typename T>
 int launch_dt_step(const void* u, const void* dt, const void* bm,
-                   const void* cm, const float* dt_bias, const float* a_log,
-                   const float* h0, float* y, float* h_out, int b, int d,
-                   int n, cudaStream_t stream) {
-  if (b <= 0 || b > 65535 || d <= 0 || n <= 0 || n > MAX_STATE)
+                   const void* cm, const void* z, const float* dt_bias,
+                   const float* d_skip, const float* a_log, const float* h0,
+                   void* out, float* h_out, int b, int d, int n, int zs,
+                   cudaStream_t stream) {
+  if (b <= 0 || b > 65535 || d <= 0 || n <= 0 || n > MAX_STATE || zs < d)
     return (int)cudaErrorInvalidValue;
   int G = 1;
   while (G < n) G *= 2;
@@ -1200,8 +1243,9 @@ int launch_dt_step(const void* u, const void* dt, const void* bm,
   const dim3 grid((unsigned)((d + per_block - 1) / per_block), (unsigned)b);
   ssm_dt_step<T><<<grid, DT_STEP_THREADS, 0, stream>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt),
-      static_cast<const T*>(bm), static_cast<const T*>(cm), dt_bias, a_log,
-      h0, y, h_out, d, n, G);
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<const T*>(z), dt_bias, d_skip, a_log, h0,
+      static_cast<T*>(out), h_out, d, n, G, zs);
   return (int)cudaGetLastError();
 }
 
@@ -1266,21 +1310,24 @@ extern "C" int ssm_scan_serial_splits(int b, int steps, int d) {
 SSM_SERIAL_ENTRY(ssm_scan_serial_f32, float)
 SSM_SERIAL_ENTRY(ssm_scan_serial_bf16, __nv_bfloat16)
 
-// The dt route.  u, dt: [b, steps, d]; B, C: [b, steps, n], all of one
-// type; dt_bias [d], a_log [d, n], h0 and h_out [b, d, n], y [b, steps,
-// d] float32.  Chunked scratch: h_end [b, nc-1, n, d] and dt_sum [b, nc-1,
+// The dt route.  u, dt, out: [b, steps, d] and B, C: [b, steps, n], all
+// of one type T; z: [b, steps, d] of T, row stride zs (batch stride steps
+// * zs); dt_bias and d_skip [d], a_log [d, n], h0 and h_out [b, d, n]
+// float32.  Chunked scratch: h_end [b, nc-1, n, d] and dt_sum [b, nc-1,
 // d], nc = ceil(steps / 128).
 #define SSM_DT_CHUNKED_ENTRY(NAME, T)                                       \
   extern "C" int NAME(const void* u, const void* dt, const void* bm,        \
-                      const void* cm, const void* dt_bias,                  \
-                      const void* a_log, const void* h0, void* h_end,       \
-                      void* dt_sum, void* y, void* h_out, int b, int steps, \
-                      int d, int n, void* stream) {                         \
+                      const void* cm, const void* z, const void* dt_bias,   \
+                      const void* d_skip, const void* a_log,                \
+                      const void* h0, void* h_end, void* dt_sum, void* out, \
+                      void* h_out, int b, int steps, int d, int n, int zs,  \
+                      void* stream) {                                       \
     return launch_dt_chunked<T>(                                            \
-        u, dt, bm, cm, static_cast<const float*>(dt_bias),                  \
+        u, dt, bm, cm, z, static_cast<const float*>(dt_bias),               \
+        static_cast<const float*>(d_skip),                                  \
         static_cast<const float*>(a_log), static_cast<const float*>(h0),    \
-        static_cast<float*>(h_end), static_cast<float*>(dt_sum),            \
-        static_cast<float*>(y), static_cast<float*>(h_out), b, steps, d, n, \
+        static_cast<float*>(h_end), static_cast<float*>(dt_sum), out,       \
+        static_cast<float*>(h_out), b, steps, d, n, zs,                     \
         static_cast<cudaStream_t>(stream));                                 \
   }
 SSM_DT_CHUNKED_ENTRY(ssm_scan_dt_chunked_f32, float)
@@ -1289,13 +1336,15 @@ SSM_DT_CHUNKED_ENTRY(ssm_scan_dt_chunked_bf16, __nv_bfloat16)
 // The dt route's step: steps = 1, one launch, no scratch.
 #define SSM_DT_STEP_ENTRY(NAME, T)                                         \
   extern "C" int NAME(const void* u, const void* dt, const void* bm,       \
-                      const void* cm, const void* dt_bias,                 \
-                      const void* a_log, const void* h0, void* y,          \
-                      void* h_out, int b, int d, int n, void* stream) {    \
+                      const void* cm, const void* z, const void* dt_bias,  \
+                      const void* d_skip, const void* a_log,               \
+                      const void* h0, void* out, void* h_out, int b,       \
+                      int d, int n, int zs, void* stream) {                \
     return launch_dt_step<T>(                                              \
-        u, dt, bm, cm, static_cast<const float*>(dt_bias),                 \
+        u, dt, bm, cm, z, static_cast<const float*>(dt_bias),              \
+        static_cast<const float*>(d_skip),                                 \
         static_cast<const float*>(a_log), static_cast<const float*>(h0),   \
-        static_cast<float*>(y), static_cast<float*>(h_out), b, d, n,       \
+        out, static_cast<float*>(h_out), b, d, n, zs,                      \
         static_cast<cudaStream_t>(stream));                                \
   }
 SSM_DT_STEP_ENTRY(ssm_scan_dt_step_f32, float)

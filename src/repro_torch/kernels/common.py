@@ -1,5 +1,5 @@
-"""Block-size helpers shared by the port's kernels and host code (the
-reference's ``kernels/common.py`` without its TPU constants)."""
+"""Block-size and layout helpers shared by the port's kernels and host
+code (the reference's ``kernels/common.py`` without its TPU constants)."""
 from __future__ import annotations
 
 
@@ -20,3 +20,17 @@ def pick_block(n: int, preferred: int, align: int = 128) -> int:
 
 def cdiv(a: int, b: int) -> int:
     return (a + b - 1) // b
+
+
+def row_stride(x) -> int:
+    """The row stride of x [B, T, d] whose rows a kernel reads in place:
+    the last dimension contiguous, rows ``stride(1)`` apart and batch rows
+    ``T * stride(1)`` apart (as in a slice of a contiguous [B, T, w >= d]
+    tensor); raises otherwise."""
+    b, t, d = x.shape
+    s = x.stride(1) if t > 1 else (x.stride(0) if b > 1 else d)
+    if x.stride(2) != 1 or s < d or (b > 1 and x.stride(0) != t * s):
+        raise ValueError(f"rows of [B, T, d] {tuple(x.shape)} with strides "
+                         f"{x.stride()}: the last dimension contiguous and "
+                         f"the rows of a [B, T, w >= d] tensor")
+    return s

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.kernels import work
 from repro_torch.kernels.build import KernelLibrary, check_launch
-from repro_torch.kernels.common import cdiv
+from repro_torch.kernels.common import cdiv, row_stride
 from repro_torch.kernels.ssm_scan.ref import (ssm_scan_dt_ref,
                                               ssm_scan_ref)
 from repro_torch.launch import hlo_cost
@@ -46,8 +46,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _CHUNKED_ARGS = [_P] * 10 + [_I] * 4 + [_P]
 _STEP_ARGS = [_P] * 7 + [_I] * 3 + [_P]
 _SERIAL_ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_DT_CHUNKED_ARGS = [_P] * 11 + [_I] * 4 + [_P]
-_DT_STEP_ARGS = [_P] * 9 + [_I] * 3 + [_P]
+_DT_CHUNKED_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+_DT_STEP_ARGS = [_P] * 11 + [_I] * 4 + [_P]
 LIBRARY = KernelLibrary("ssm_scan", "ssm_scan.cu", {
     "ssm_scan_chunked_f32": _CHUNKED_ARGS,
     "ssm_scan_chunked_bf16": _CHUNKED_ARGS,
@@ -57,7 +57,7 @@ LIBRARY = KernelLibrary("ssm_scan", "ssm_scan.cu", {
     "ssm_scan_serial_f32": _SERIAL_ARGS,
     "ssm_scan_serial_bf16": _SERIAL_ARGS,
     "ssm_scan_serial_splits": [_I] * 3,
-    # the dt route: dt a channel, B and C given
+    # the dt route: dt a channel, B and C given, the mixer's gate after it
     "ssm_scan_dt_chunked_f32": _DT_CHUNKED_ARGS,
     "ssm_scan_dt_chunked_bf16": _DT_CHUNKED_ARGS,
     "ssm_scan_dt_step_f32": _DT_STEP_ARGS,
@@ -226,16 +226,17 @@ def ssm_scan_kernel(xc: torch.Tensor, x_proj: torch.Tensor,
 # The dt route: dt a channel, B and C given (the published Mamba-1 mixer)
 # ---------------------------------------------------------------------------
 
-def _check_dt(u, dt, dt_bias, bm, cm, a_log, h0) -> None:
+def _check_dt(u, dt, dt_bias, bm, cm, a_log, h0, z, d_skip) -> None:
     if u.ndim != 3 or a_log.ndim != 2:
         raise ValueError(f"ssm dt scan takes u [B, T, d] and a_log [d, n], "
                          f"got {tuple(u.shape)} and {tuple(a_log.shape)}")
     b, t, d = u.shape
     n = a_log.shape[1]
     want = {"dt": (b, t, d), "dt_bias": (d,), "B": (b, t, n),
-            "C": (b, t, n), "a_log": (d, n), "h0": (b, d, n)}
+            "C": (b, t, n), "a_log": (d, n), "h0": (b, d, n),
+            "z": (b, t, d), "d_skip": (d,)}
     got = {"dt": dt, "dt_bias": dt_bias, "B": bm, "C": cm, "a_log": a_log,
-           "h0": h0}
+           "h0": h0, "z": z, "d_skip": d_skip}
     for name, shape in want.items():
         if tuple(got[name].shape) != shape:
             raise ValueError(f"ssm dt scan: {name} is "
@@ -251,20 +252,21 @@ def _check_dt(u, dt, dt_bias, bm, cm, a_log, h0) -> None:
         raise ValueError(f"ssm dt scan runs on cpu, cuda or meta, got "
                          f"{u.device}")
     if u.dtype not in _SUFFIX or any(v.dtype != u.dtype
-                                     for v in (dt, bm, cm)):
+                                     for v in (dt, bm, cm, z)):
         raise TypeError(f"ssm dt scan kernel takes float32 or bfloat16 u, "
-                        f"dt, B and C of one dtype, got {u.dtype}, "
-                        f"{dt.dtype}, {bm.dtype}, {cm.dtype}")
-    if any(v.dtype != torch.float32 for v in (dt_bias, a_log, h0)):
+                        f"dt, B, C and z of one dtype, got {u.dtype}, "
+                        f"{dt.dtype}, {bm.dtype}, {cm.dtype}, {z.dtype}")
+    if any(v.dtype != torch.float32 for v in (dt_bias, a_log, h0, d_skip)):
         raise TypeError("ssm dt scan kernel takes float32 dt_bias, a_log, "
-                        "h0")
+                        "h0, d_skip")
     if n > MAX_STATE:
         raise ValueError(f"ssm dt scan kernel takes n <= {MAX_STATE}, "
                          f"got {n}")
     if b * t * d > _INT_MAX or b > 65535:
         raise ValueError("ssm dt scan kernel: sizes past its grid")
-    if not all(v.is_contiguous() for v in (u, *got.values())):
-        raise ValueError("ssm dt scan kernel takes contiguous tensors")
+    row_stride(z)
+    if not all(v.is_contiguous() for v in (u, *got.values()) if v is not z):
+        raise ValueError("ssm dt scan kernel takes contiguous tensors but z")
     if torch.is_grad_enabled() and any(v.requires_grad
                                        for v in (u, *got.values())):
         raise RuntimeError("the ssm dt scan has no backward: call it where "
@@ -274,11 +276,15 @@ def _check_dt(u, dt, dt_bias, bm, cm, a_log, h0) -> None:
 def ssm_scan_dt_kernel(u: torch.Tensor, dt: torch.Tensor,
                        dt_bias: torch.Tensor, bm: torch.Tensor,
                        cm: torch.Tensor, a_log: torch.Tensor,
-                       h0: torch.Tensor) -> tuple:
-    """The dt route: u [B, T, d]; dt [B, T, d] (before ``dt_bias`` and
-    softplus); ``bm``, ``cm`` [B, T, n] (u's dtype on CUDA); dt_bias [d],
-    a_log [d, n], h0 [B, d, n] float32 -> (y [B, T, d] f32, h_final
-    [B, d, n] f32), without d_skip.  :func:`route` picks as for the fused
+                       h0: torch.Tensor, z: torch.Tensor,
+                       d_skip: torch.Tensor) -> tuple:
+    """The dt route with the mixer's gate: u [B, T, d]; dt [B, T, d]
+    (before ``dt_bias`` and softplus); ``bm``, ``cm`` [B, T, n] (u's dtype
+    on CUDA); dt_bias [d], a_log [d, n], h0 [B, d, n] float32; the gate z
+    [B, T, d] (read through its row stride, see
+    :func:`~repro_torch.kernels.common.row_stride`) and d_skip
+    [d] float32 -> (out = T(T(y + d_skip u) T(silu(z))) [B, T, d] in u's
+    dtype T, h_final [B, d, n] f32).  :func:`route` picks as for the fused
     route (``"step"`` at T = 1, ``"chunked"`` above it, ``"plain"`` on the
     CPU: :func:`~repro_torch.kernels.ssm_scan.ref.ssm_scan_dt_ref`;
     ``"meta"``).  One launch a call on CUDA, counted in
@@ -286,28 +292,30 @@ def ssm_scan_dt_kernel(u: torch.Tensor, dt: torch.Tensor,
     (:func:`repro_torch.kernels.work.ssm_dt`) goes to the active work
     counter."""
     global DT_LAUNCHES
-    _check_dt(u, dt, dt_bias, bm, cm, a_log, h0)
+    _check_dt(u, dt, dt_bias, bm, cm, a_log, h0, z, d_skip)
     b, t, d = u.shape
     n = a_log.shape[1]
     kind = route(t, u.dtype, u.device)
     if kind == "plain":
-        return ssm_scan_dt_ref(u, dt, dt_bias, bm, cm, a_log, h0)
+        return ssm_scan_dt_ref(u, dt, dt_bias, bm, cm, a_log, h0, z, d_skip)
     dev = u.device
-    y = torch.empty((b, t, d), dtype=torch.float32, device=dev)
+    out = torch.empty((b, t, d), dtype=u.dtype, device=dev)
     h = torch.empty((b, d, n), dtype=torch.float32, device=dev)
     cost = partial(work.ssm_dt, b, t, d, n, u.element_size())
     if kind == "meta":
         hlo_cost.report_kernel("ssm_scan", cost)
-        return y, h
+        return out, h
     lib = LIBRARY.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     suffix = _SUFFIX[u.dtype]
+    zs = row_stride(z)
     ptrs = (u.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-            dt_bias.data_ptr(), a_log.data_ptr(), h0.data_ptr())
+            z.data_ptr(), dt_bias.data_ptr(), d_skip.data_ptr(),
+            a_log.data_ptr(), h0.data_ptr())
     with torch.cuda.device(dev):
         if kind == "step":
             err = getattr(lib, f"ssm_scan_dt_step_{suffix}")(
-                *ptrs, y.data_ptr(), h.data_ptr(), b, d, n, stream)
+                *ptrs, out.data_ptr(), h.data_ptr(), b, d, n, zs, stream)
         else:
             ends = cdiv(t, CHUNK) - 1
             sizes = (b * ends * n * d, b * ends * d)
@@ -315,10 +323,10 @@ def ssm_scan_dt_kernel(u: torch.Tensor, dt: torch.Tensor,
                                   device=dev)
             h_end, dt_sum = torch.split(scratch[:sum(sizes)], sizes)
             err = getattr(lib, f"ssm_scan_dt_chunked_{suffix}")(
-                *ptrs, h_end.data_ptr(), dt_sum.data_ptr(), y.data_ptr(),
-                h.data_ptr(), b, t, d, n, stream)
+                *ptrs, h_end.data_ptr(), dt_sum.data_ptr(), out.data_ptr(),
+                h.data_ptr(), b, t, d, n, zs, stream)
     check_launch(f"ssm_scan dt ({kind})", err)
     DT_LAUNCHES += 1
     DT_LAUNCHES_BY_ROUTE[kind] += 1
     hlo_cost.report_kernel("ssm_scan", cost)
-    return y, h
+    return out, h

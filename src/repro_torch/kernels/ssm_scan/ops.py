@@ -73,14 +73,16 @@ def ssm_scan_fused(xc: torch.Tensor, x_proj: torch.Tensor,
 
 def ssm_scan_dt(u: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
                 bm: torch.Tensor, cm: torch.Tensor, a_log: torch.Tensor,
-                h0: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The published Mamba-1 scan with its coefficients given: u, dt [B,
-    T, d] (dt before ``dt_bias`` and softplus), bm, cm [B, T, n] -> (y [B,
-    T, d] f32, h_final [B, d, n] f32), without d_skip; ``h0`` defaults to
-    zeros.  dt, B and C take u's dtype (exact where they are wider only
-    if they hold u's values); the kernel's dt route on CUDA, its plain
-    version on the CPU.  Serving only: no gradient flows through the
+                h0: Optional[torch.Tensor], z: torch.Tensor,
+                d_skip: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The published Mamba-1 scan with its coefficients given and the
+    mixer's gate after it: u, dt [B, T, d] (dt before ``dt_bias`` and
+    softplus), bm, cm [B, T, n], the gate z [B, T, d] (read in place
+    through its row stride) and d_skip [d] -> (out = T(T(y + d_skip u)
+    T(silu(z))) [B, T, d] in u's dtype T, h_final [B, d, n] f32); ``h0``
+    None is zeros.  dt, B and C take u's dtype (exact where they are wider
+    only if they hold u's values); the kernel's dt route on CUDA, its
+    plain version on the CPU.  Serving only: no gradient flows through the
     kernel."""
     b, _, d = u.shape
     n = a_log.shape[1]
@@ -90,7 +92,7 @@ def ssm_scan_dt(u: torch.Tensor, dt: torch.Tensor, dt_bias: torch.Tensor,
         u.contiguous(), dt.to(u.dtype).contiguous(),
         dt_bias.float().contiguous(), bm.to(u.dtype).contiguous(),
         cm.to(u.dtype).contiguous(), a_log.float().contiguous(),
-        h0.float().contiguous())
+        h0.float().contiguous(), z.to(u.dtype), d_skip.float().contiguous())
 
 
 __all__ = ["SSMScan", "ssm_scan_dt", "ssm_scan_fused", "ssm_scan_ref"]

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -36,17 +37,28 @@ def ssm_scan_ref(xc: torch.Tensor, x_proj: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def dt_gate_ref(y: torch.Tensor, u: torch.Tensor, z: torch.Tensor,
+                d_skip: torch.Tensor) -> torch.Tensor:
+    """The mixer's gate after the dt scan, in u's dtype T: ``T(y + d_skip
+    u)`` (an addcmul on y float32), ``T(silu(z))`` and their product in T;
+    the three roundings the dt route's kernel makes."""
+    return torch.addcmul(y, u, d_skip).to(u.dtype) * F.silu(z.to(u.dtype))
+
+
 def ssm_scan_dt_ref(u: torch.Tensor, dt: torch.Tensor,
                     dt_bias: torch.Tensor, bm: torch.Tensor,
                     cm: torch.Tensor, a_log: torch.Tensor,
-                    h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                    h0: torch.Tensor, z: torch.Tensor,
+                    d_skip: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sequential reference of the dt route: the CUDA kernel's plain
     version.
 
     u: [B, T, d] post-conv activations; dt: [B, T, d] before ``dt_bias``
     and softplus; bm, cm: [B, T, n]; dt_bias: [d]; a_log: [d, n]; h0:
-    [B, d, n].  Returns (y [B, T, d] f32, h_final [B, d, n] f32), without
-    d_skip."""
+    [B, d, n]; the gate z: [B, T, d]; d_skip: [d].  Returns (out =
+    :func:`dt_gate_ref` of the scan's y [B, T, d] in u's dtype, h_final
+    [B, d, n] f32)."""
     dtp = softplus(dt.float() + dt_bias.float())            # [B, T, d]
     a = torch.exp(-torch.exp(a_log.float()) * dtp[..., None])
     bx = (dtp * u.float())[..., None] * bm.float()[:, :, None, :]
@@ -56,7 +68,7 @@ def ssm_scan_dt_ref(u: torch.Tensor, dt: torch.Tensor,
     for t in range(u.shape[1]):
         h = a[:, t] * h + bx[:, t]
         ys.append(torch.einsum("bdn,bn->bd", h, cc[:, t]))
-    return torch.stack(ys, dim=1), h
+    return dt_gate_ref(torch.stack(ys, dim=1), u, z, d_skip), h
 
 
 def ssm_scan_bwd_ref(xc: torch.Tensor, x_proj: torch.Tensor,
@@ -311,14 +323,16 @@ def ssm_scan_chunked_ref(xc: torch.Tensor, x_proj: torch.Tensor,
 def ssm_scan_dt_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
                             dt_bias: torch.Tensor, bm: torch.Tensor,
                             cm: torch.Tensor, a_log: torch.Tensor,
-                            h0: torch.Tensor, chunk: int
+                            h0: torch.Tensor, z: torch.Tensor,
+                            d_skip: torch.Tensor, chunk: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA dt route's chunked passes in tensor code (tests only; same
     arguments and results as :func:`ssm_scan_dt_ref`): (a) every chunk
     but the last scanned from h = 0 for its end state and its sum of dt
     (``ssm_dt_chunk_end``); (b) the carries ``h_in[c+1] = exp(-A * sum
     dt[c]) * h_in[c] + h_end[c]`` from ``h0`` (``ssm_chunk_carry``); (c)
-    each chunk re-run from ``h_in[c]``, writing y (``ssm_dt_chunk_scan``)."""
+    each chunk re-run from ``h_in[c]``, writing the gated y
+    (``ssm_dt_chunk_scan``)."""
     steps = u.shape[1]
     dtp = softplus(dt.float() + dt_bias.float())            # [B, T, d]
     A = torch.exp(a_log.float())                            # [d, n]
@@ -339,4 +353,4 @@ def ssm_scan_dt_chunked_ref(u: torch.Tensor, dt: torch.Tensor,
         for t in range(t0, min(steps, t0 + chunk)):
             h = a[:, t] * h + bx[:, t]
             ys.append(torch.einsum("bdn,bn->bd", h, cc[:, t]))
-    return torch.stack(ys, dim=1), h
+    return dt_gate_ref(torch.stack(ys, dim=1), u, z, d_skip), h

@@ -122,14 +122,32 @@ def ssm(b: int, t: int, d: int, n: int, itemsize: int,
 
 def ssm_dt(b: int, t: int, d: int, n: int, itemsize: int) -> Work:
     """The selective scan's dt route over u [b, t, d] with dt a channel
-    and step and B, C [b, t, n] given: u, dt, B and C read once (their
-    type), dt_bias, a_log and h0 once, y and h written once (float32); the
-    operations at the CUDA cores' float32 peak: 5 a channel and step
-    (softplus's add, exp, log1p, max, dt * u) and 7 a state and step (as
-    :func:`ssm`)."""
-    nbytes = (itemsize * (2 * b * t * d + 2 * b * t * n)
-              + 4 * (d + d * n + b * d * n) + 4 * (b * t * d + b * d * n))
-    return Work(5 * b * t * d + 7 * b * t * d * n, nbytes, F32_FLOP_PER_S)
+    and step and B, C [b, t, n] given, and the mixer's gate after it: u,
+    dt, the gate z, B and C read once (their type), dt_bias, d_skip, a_log
+    and h0 once, the gated out written once (u's type) and h once
+    (float32); the operations at the CUDA cores' float32 peak: 12 a
+    channel and step (softplus's add, exp, log1p, max, dt * u; the gate's
+    multiply-add of d_skip u, SiLU's negation, exp, add and division, and
+    the product) and 7 a state and step (as :func:`ssm`)."""
+    nbytes = (itemsize * (4 * b * t * d + 2 * b * t * n)
+              + 4 * (2 * d + d * n + b * d * n) + 4 * b * d * n)
+    return Work(12 * b * t * d + 7 * b * t * d * n, nbytes, F32_FLOP_PER_S)
+
+
+def mamba_conv(b: int, t: int, d: int, k: int, itemsize: int,
+               windowed: bool = True, bias: bool = True) -> Work:
+    """The Mamba mixer's depthwise causal conv of k taps, its bias and
+    SiLU over x [b, t, d]: x read once, the k-tap weights and the bias
+    (where there is one) once, the carried window [b, k - 1, d] read once
+    where one is given,
+    u written once and the new window once, all in x's type; the
+    operations at the CUDA cores' float32 peak: 2k - 1 a channel and step
+    for the taps, 1 for the bias and 4 for SiLU (negation, exp, add,
+    division)."""
+    window = b * (k - 1) * d
+    nbytes = itemsize * (2 * b * t * d + (k + int(bias)) * d + window
+                         + (window if windowed else 0))
+    return Work((2 * k + 4) * b * t * d, nbytes, F32_FLOP_PER_S)
 
 
 def ssm_bwd(b: int, t: int, d: int, n: int, itemsize: int) -> Work:
@@ -191,5 +209,6 @@ def exchange(n: int, valid_rows: int, key_bytes: int, row_bytes: int,
 
 __all__ = ["BF16_FLOP_PER_S", "F32_FLOP_PER_S", "HBM_BYTES_PER_S",
            "LINK_BYTES_PER_S", "SSM_CHUNK", "Work", "dispatch", "exchange",
-           "flash", "flash_bwd", "flash_pairs", "rmsnorm", "segment_sum",
-           "ssm", "ssm_bwd", "ssm_row_floats", "topk"]
+           "flash", "flash_bwd", "flash_pairs", "mamba_conv", "rmsnorm",
+           "segment_sum", "ssm", "ssm_bwd", "ssm_dt", "ssm_row_floats",
+           "topk"]

@@ -20,8 +20,12 @@ Decode keeps (conv window, h state) per layer: constant per step.
 :func:`mamba_mixer` is the published Mamba-1 mixer (Jamba's
 ``JambaMambaMixer``) beside hymba's block: a conv bias, dt from a
 low-rank projection, RMSNorms on dt, B and C, and a scan whose
-coefficients come from outside it: the kernel's dt route
-(:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_dt`).
+coefficients come from outside it.  Between its projections it runs two
+hand-written kernels and no other pass over [S, d_inner]: the causal
+conv with its bias and SiLU
+(:func:`~repro_torch.kernels.mamba_conv.kernel.mamba_conv`) and the
+scan's dt route with the ``d_skip`` term and the ``silu(z)`` gate in its
+epilogue (:func:`~repro_torch.kernels.ssm_scan.ops.ssm_scan_dt`).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.mamba_conv import mamba_conv
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_dt, ssm_scan_fused
 from repro_torch.kernels.ssm_scan.ref import softplus
 from repro_torch.models.common import ModelConfig, Params, trunc_normal
@@ -249,54 +254,35 @@ def mamba_logical_axes(cfg: ModelConfig) -> dict:
     return axes
 
 
-def _causal_conv(p: ParamsLike, xi: torch.Tensor, cfg: ModelConfig,
-                 state: Optional[SSMState]
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The depthwise causal conv of the published mixer, with its bias,
-    then SiLU: (u [B, S, di] in xi's dtype, the window ``xin`` whose last
-    ``conv - 1`` rows the state keeps).  Products and sums in float32,
-    one accumulator."""
-    s, cw = xi.shape[1], cfg.ssm_conv
-    if state is not None:
-        xin = torch.cat([state.conv.to(xi.dtype), xi], dim=1)
-    else:
-        xin = F.pad(xi, (0, 0, cw - 1, 0))
-    w = p["conv_w"].float()
-    acc = xin[:, 0:s] * w[0]
-    for i in range(1, cw):
-        acc.addcmul_(xin[:, i:i + s], w[i])
-    if cfg.ssm_conv_bias:
-        acc.add_(p["conv_b"].float())
-    return F.silu(acc, inplace=True).to(xi.dtype), xin
-
-
 def mamba_mixer(p: ParamsLike, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[SSMState] = None
                 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """The published Mamba-1 mixer over x [B, S, d] (the block's normed
-    input): ``[u, z] = in_proj(x)``; ``u = silu(conv(u) + conv_b)``; ``[dt,
-    B, C] = x_proj(u)`` each RMS-normed; ``dt = dt_proj(dt)``; the scan
-    with ``softplus(dt + dt_bias)`` a channel (the kernel's dt route on
-    CUDA, its plain version on the CPU), plus ``d_skip * u``; ``out =
-    out_proj(y * silu(z))``.  With ``state``, runs statefully (S may be 1)
-    and returns the updated (conv window, h)."""
+    input): ``[u, z] = in_proj(x)``; ``u = silu(conv(u) + conv_b)`` (the
+    conv kernel, reading the first half of ``in_proj``'s output in place);
+    ``[dt, B, C] = x_proj(u)`` each RMS-normed; ``dt = dt_proj(dt)``; the
+    scan with ``softplus(dt + dt_bias)`` a channel, plus ``d_skip * u``,
+    times ``silu(z)`` (the dt route with its gate, reading z in place);
+    ``out = out_proj(...)``.  Kernels on CUDA, their plain versions on the
+    CPU.  With ``state``, runs statefully (S may be 1) and returns the
+    updated (conv window, h)."""
     n, r = cfg.ssm_state, cfg.ssm_dt_rank
     xz = x @ p["in_proj"]                                 # [B, S, 2*di]
     xi, z = torch.chunk(xz, 2, dim=-1)
-    u, xin = _causal_conv(p, xi, cfg, state)
-    del xz, xi
+    u, window = mamba_conv(
+        xi, p["conv_w"], p["conv_b"] if cfg.ssm_conv_bias else None,
+        state.conv.to(xi.dtype) if state is not None else None)
     dtr, bm, cm = torch.split(u @ p["x_proj"], [r, n, n], dim=-1)
     dtr = apply_rmsnorm(p["dt_norm"], dtr, eps=cfg.norm_eps)
     bm = apply_rmsnorm(p["b_norm"], bm, eps=cfg.norm_eps)
     cm = apply_rmsnorm(p["c_norm"], cm, eps=cfg.norm_eps)
     dt = dtr @ p["dt_proj"]                               # [B, S, di]
     y, h_final = ssm_scan_dt(u, dt, p["dt_bias"], bm, cm, p["a_log"],
-                             state.h if state is not None else None)
-    del dt
-    y.addcmul_(u, p["d_skip"])
-    out = (y.to(u.dtype) * F.silu(z)) @ p["out_proj"]
+                             state.h if state is not None else None, z,
+                             p["d_skip"])
+    del xz, z, dt
+    out = y @ p["out_proj"]
     new_state = None
     if state is not None:
-        tail = xin[:, xin.shape[1] - (cfg.ssm_conv - 1):]
-        new_state = SSMState(conv=tail.to(cfg.param_dtype), h=h_final)
+        new_state = SSMState(conv=window.to(cfg.param_dtype), h=h_final)
     return out, new_state

@@ -158,6 +158,10 @@ def test_work_formulas_pin_the_kernel_table_bounds():
                                      4 ** 12)), 4) == 0.0535
     assert round(ms(work.segment_sum(merge, round(0.2450 * merge), 2,
                                      4 ** 12)), 4) == 0.0798
+    # the Mamba mixer's rows at Jamba's prefill [1, 65536, 8192] bf16:
+    # the gated dt route (6b) and the conv (6c)
+    assert round(ms(work.ssm_dt(1, 65536, 8192, 16, 2)), 4) == 1.2838
+    assert round(ms(work.mamba_conv(1, 65536, 8192, 4, 2)), 4) == 0.6411
     assert work.flash(128, 4, 2048, 2048, 64, True, None, 2).bound()[1] \
         == "operations"
     assert work.rmsnorm(8192, 2048, 2).bound()[1] == "bytes"

@@ -7,9 +7,15 @@ seeded random weights at small widths, on the CPU:
 
 * the published Mamba-1 mixer (``ssm.mamba_mixer``) against the
   reference's, whole-sequence and stepped through its state;
-* the scan's dt route through its plain version, and the CUDA route's
-  chunked passes in tensor code (``ssm_scan_dt_chunked_ref``), against
-  the sequential scan; its meta route and its checks;
+* the scan's dt route (with the mixer's gate in its epilogue) through
+  its plain version, and the CUDA route's chunked passes in tensor code
+  (``ssm_scan_dt_chunked_ref``), against the sequential scan; its meta
+  route and its checks;
+* the conv kernel's plain version (``mamba_conv``) and the gated scan's,
+  composed as the mixer now composes them, against the mixer as it was
+  written before the two kernels took its elementwise passes (float32 and
+  bfloat16, prefill then decode with the state carried): bit-equal, since
+  the plain versions keep every operation and rounding;
 * prefill, then decode through the cache, against the reference's full
   forward, in logits; ``logits_to_keep``; the layer pattern from the
   period and offset keys; the MoE without drops and with expert buffers
@@ -33,6 +39,8 @@ import torch
 from repro_torch.configs import (ARCH_IDS, EXTRA_ARCH_IDS, get_config,
                                  get_smoke_config)
 from repro_torch.kernels import work
+from repro_torch.kernels.mamba_conv import kernel as cmod
+from repro_torch.kernels.mamba_conv import mamba_conv, mamba_conv_ref
 from repro_torch.kernels.ssm_scan import kernel as smod
 from repro_torch.kernels.ssm_scan import ssm_scan_dt, ssm_scan_dt_ref
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_dt_chunked_ref
@@ -152,6 +160,9 @@ def test_mamba_mixer_against_reference(seed):
 
 
 def _dt_inputs(seed, b, t, d, n):
+    """The dt route's arguments: u, dt, dt_bias, B, C, a_log, h0, the gate
+    z (the second half of a [b, t, 2d] tensor, as the mixer's) and
+    d_skip."""
     g = torch.Generator().manual_seed(seed)
     step = torch.exp(torch.rand((d,), generator=g) * 4.6 - 6.9)
     return (torch.randn((b, t, d), generator=g),
@@ -160,7 +171,9 @@ def _dt_inputs(seed, b, t, d, n):
             torch.randn((b, t, n), generator=g),
             torch.randn((b, t, n), generator=g),
             torch.log(torch.arange(1, n + 1.0)).repeat(d, 1),
-            torch.randn((b, d, n), generator=g) * 0.5)
+            torch.randn((b, d, n), generator=g) * 0.5,
+            torch.randn((b, t, 2 * d), generator=g)[..., d:],
+            1.0 + 0.5 * torch.randn((d,), generator=g))
 
 
 @pytest.mark.parametrize("t,chunk", [(1, 4), (3, 4), (4, 4), (5, 4),
@@ -173,14 +186,16 @@ def test_dt_route_chunked_passes(t, chunk):
 
 
 def test_dt_route_plain_against_definition():
-    u, dt, bias, bm, cm, a_log, h0 = _dt_inputs(7, 2, 9, 6, 3)
-    y, h = ssm_scan_dt(u, dt, bias, bm, cm, a_log, h0)
+    u, dt, bias, bm, cm, a_log, h0, z, d_skip = _dt_inputs(7, 2, 9, 6, 3)
+    out, h = ssm_scan_dt(u, dt, bias, bm, cm, a_log, h0, z, d_skip)
     hh = h0.clone()
     for t in range(9):
         d_t = torch.nn.functional.softplus(dt[:, t] + bias)       # [b, d]
         hh = torch.exp(-torch.exp(a_log) * d_t[..., None]) * hh \
             + (d_t * u[:, t])[..., None] * bm[:, t, None, :]
-        assert rel_err(y[:, t], (hh * cm[:, t, None, :]).sum(-1)) < 1e-6
+        y = (hh * cm[:, t, None, :]).sum(-1) + d_skip * u[:, t]
+        want = y * z[:, t] * torch.sigmoid(z[:, t])
+        assert rel_err(out[:, t], want) < 1e-6
     assert rel_err(h, hh) < 1e-6
 
 
@@ -205,6 +220,148 @@ def test_dt_route_meta_reports_its_work():
     assert c.kernels["ssm_scan"]["calls"] == 1
     assert c.kernels["ssm_scan"]["ops"] == want.ops
     assert c.kernels["ssm_scan"]["bytes"] == want.nbytes
+
+
+def _mixer_as_before(p, x, cfg, state):
+    """The mixer as it was written before its conv and gate went into
+    kernels: a float32 pass a tap, the bias, SiLU and a cast; the
+    sequential scan's float32 y; an in-place ``addcmul_`` for d_skip, a
+    cast, ``silu(z)`` and a product."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssm_scan.ref import softplus
+    from repro_torch.models.layers import apply_rmsnorm
+    n, r = cfg.ssm_state, cfg.ssm_dt_rank
+    xz = x @ p["in_proj"]
+    xi, z = torch.chunk(xz, 2, dim=-1)
+    s, cw = xi.shape[1], cfg.ssm_conv
+    if state is not None:
+        xin = torch.cat([state.conv.to(xi.dtype), xi], dim=1)
+    else:
+        xin = F.pad(xi, (0, 0, cw - 1, 0))
+    w = p["conv_w"].float()
+    acc = xin[:, 0:s] * w[0]
+    for i in range(1, cw):
+        acc.addcmul_(xin[:, i:i + s], w[i])
+    if cfg.ssm_conv_bias:
+        acc.add_(p["conv_b"].float())
+    u = F.silu(acc, inplace=True).to(xi.dtype)
+    dtr, bm, cm = torch.split(u @ p["x_proj"], [r, n, n], dim=-1)
+    dtr = apply_rmsnorm(p["dt_norm"], dtr, eps=cfg.norm_eps)
+    bm = apply_rmsnorm(p["b_norm"], bm, eps=cfg.norm_eps)
+    cm = apply_rmsnorm(p["c_norm"], cm, eps=cfg.norm_eps)
+    dt = dtr @ p["dt_proj"]
+    h = state.h.float() if state is not None else torch.zeros(
+        (x.shape[0], u.shape[2], n))
+    dtp = softplus(dt.float() + p["dt_bias"].float())
+    a = torch.exp(-torch.exp(p["a_log"].float()) * dtp[..., None])
+    bx = (dtp * u.float())[..., None] * bm.float()[:, :, None, :]
+    ys = []
+    for t in range(s):
+        h = a[:, t] * h + bx[:, t]
+        ys.append(torch.einsum("bdn,bn->bd", h, cm.float()[:, t]))
+    y = torch.stack(ys, dim=1)
+    y.addcmul_(u, p["d_skip"])
+    out = (y.to(u.dtype) * F.silu(z)) @ p["out_proj"]
+    tail = xin[:, xin.shape[1] - (cw - 1):].to(cfg.param_dtype)
+    return out, ssm_lib.SSMState(conv=tail, h=h)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["whole", "prefill then decode"])
+def test_mixer_plain_routes_give_the_mixer_as_before(dtype, mode):
+    """The conv's and the gated scan's plain versions, as the mixer calls
+    them, against the mixer as it was: bit-equal outputs and states, also
+    with the state carried from a prefill through decode steps."""
+    cfg = get_smoke_config("jamba2-mini").scaled(dtype=dtype)
+    p = build_model(cfg, device="cpu").init(4).blocks[0].mamba
+    perturb(p, 4)
+    x = torch.randn((2, 23, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(5)).to(cfg.param_dtype)
+    with torch.no_grad():
+        if mode == "whole":
+            got, _ = ssm_lib.mamba_mixer(p, x, cfg)
+            want, _ = _mixer_as_before(p, x, cfg, None)
+            assert torch.equal(got, want)
+            return
+        st = ssm_lib.init_ssm_state(cfg, 2)
+        old = st
+        for t0, t1 in [(0, 17)] + [(t, t + 1) for t in range(17, 23)]:
+            got, st = ssm_lib.mamba_mixer(p, x[:, t0:t1], cfg, state=st)
+            want, old = _mixer_as_before(p, x[:, t0:t1], cfg, old)
+            assert torch.equal(got, want), (t0, t1)
+            assert torch.equal(st.conv, old.conv) and \
+                torch.equal(st.h, old.h), (t0, t1)
+
+
+@pytest.mark.parametrize("t", [1, 2, 3, 4, 9])
+@pytest.mark.parametrize("bias", [True, False])
+def test_mamba_conv_window_and_bias(t, bias):
+    """The new window is the last K-1 rows of the carried window followed
+    by xi, at T below, at and above K-1; the bias is added where given;
+    u is the definition's SiLU of the taps."""
+    g = torch.Generator().manual_seed(t)
+    b, d, k = 2, 12, 4
+    xz = torch.randn((b, t, 2 * d), generator=g)
+    xi = xz[..., :d]
+    w = torch.randn((k, d), generator=g)
+    cb = torch.randn((d,), generator=g) if bias else None
+    win = torch.randn((b, k - 1, d), generator=g)
+    u, new = mamba_conv(xi, w, cb, win)
+    xin = torch.cat([win, xi], dim=1)
+    assert torch.equal(new, xin[:, -(k - 1):])
+    acc = sum(xin[:, i:i + t] * w[i] for i in range(k))
+    acc = acc + (cb if bias else 0.0)
+    assert rel_err(u, acc * torch.sigmoid(acc)) < 1e-6
+    # no window: zeros before the first row
+    u0, new0 = mamba_conv(xi, w, cb, None)
+    assert torch.equal(u0, mamba_conv(xi, w, cb, torch.zeros_like(win))[0])
+    assert torch.equal(new0, torch.cat([torch.zeros_like(win), xi],
+                                       dim=1)[:, -(k - 1):])
+
+
+@pytest.mark.parametrize("case", ["conv_w", "conv_b", "window", "taps"])
+def test_mamba_conv_checks(case):
+    xi = torch.randn((1, 5, 8))
+    args = {"conv_w": torch.randn((4, 8)), "conv_b": torch.randn((8,)),
+            "window": torch.randn((1, 3, 8))}
+    args[case if case != "taps" else "conv_w"] = {
+        "conv_w": torch.randn((4, 7)), "conv_b": torch.randn((7,)),
+        "window": torch.randn((1, 2, 8)), "taps": torch.randn((1, 8))}[case]
+    before = (cmod.LAUNCHES, dict(cmod.LAUNCHES_BY_ROUTE))
+    with pytest.raises(ValueError):
+        mamba_conv(xi, args["conv_w"], args["conv_b"], args["window"])
+    assert (cmod.LAUNCHES, dict(cmod.LAUNCHES_BY_ROUTE)) == before
+
+
+@pytest.mark.parametrize("t,windowed", [(300, False), (1, True)])
+def test_mamba_conv_meta_reports_its_work(t, windowed):
+    xz = torch.empty((2, t, 128), device="meta")
+    w = torch.empty((4, 64), device="meta")
+    cb = torch.empty((64,), device="meta")
+    win = torch.empty((2, 3, 64), device="meta") if windowed else None
+    with hlo_cost.Counter() as c:
+        u, new = mamba_conv(xz[..., :64], w, cb, win)
+    assert u.shape == (2, t, 64) and new.shape == (2, 3, 64)
+    want = work.mamba_conv(2, t, 64, 4, 4, windowed)
+    assert c.kernels["mamba_conv"] == {"calls": 1, "ops": want.ops,
+                                       "bytes": want.nbytes}
+    assert want.nbytes == 4 * (2 * 2 * t * 64 + 5 * 64
+                               + (2 if windowed else 1) * 2 * 3 * 64)
+
+
+def test_mamba_conv_plain_is_the_mixers_conv():
+    """The conv's plain version on the CPU is the wrapper's route there,
+    and the rows of a transposed tensor are refused on the kernel's
+    routes."""
+    g = torch.Generator().manual_seed(2)
+    xi = torch.randn((1, 6, 2 * 8), generator=g)[..., 8:]
+    w, cb = torch.randn((4, 8), generator=g), torch.randn((8,), generator=g)
+    got = mamba_conv(xi, w, cb, None)
+    want = mamba_conv_ref(xi, w, cb, None)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    bad = torch.empty((1, 8, 6), device="meta").transpose(1, 2)
+    with pytest.raises(ValueError, match="rows of"):
+        mamba_conv(bad, w.to("meta"), cb.to("meta"), None)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -297,8 +454,9 @@ def test_gates_kept_as_they_are():
     assert float(gates.sum(-1).max()) < 1.0
 
 
-def _bf16_state_scan(u, dt, dt_bias, bm, cm, a_log, h0=None):
-    """The scan with its state rounded to bfloat16 every step."""
+def _bf16_state_scan(u, dt, dt_bias, bm, cm, a_log, h0, z, d_skip):
+    """The scan with its state rounded to bfloat16 every step, then the
+    gate."""
     b, t, d = u.shape
     n = a_log.shape[1]
     h = torch.zeros((b, d, n)) if h0 is None else h0.float()
@@ -309,7 +467,8 @@ def _bf16_state_scan(u, dt, dt_bias, bm, cm, a_log, h0=None):
              + (dtp[:, i] * u[:, i])[..., None] * bm[:, i, None, :]
              ).bfloat16().float()
         ys.append((h * cm[:, i, None, :]).sum(-1))
-    return torch.stack(ys, 1), h
+    y = torch.stack(ys, 1) + d_skip * u
+    return y * torch.nn.functional.silu(z), h
 
 
 FAULTS = {

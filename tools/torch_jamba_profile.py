@@ -118,6 +118,8 @@ def main(argv=None) -> int:
         / args.actions
     out["device_ms"]["ssm scan kernels"] = 1e3 * trace.seconds(
         lambda n: n.startswith("ssm_")) / args.actions
+    out["device_ms"]["mamba conv kernels"] = 1e3 * trace.seconds(
+        lambda n: n.startswith("mamba_conv")) / args.actions
     out["device_ms"]["flash_fwd_wgmma"] = 1e3 * trace.seconds(
         lambda n: n == "flash_fwd_wgmma") / args.actions
     out["breakdown"] = trace.breakdown(15)
